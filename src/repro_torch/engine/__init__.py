@@ -1,0 +1,12 @@
+"""Payload-generic coordinated-sampling engine: one sketch container with
+payload shape (cap, d) — d = 1 is a vector — one builder family and one
+(P, B, S, d) bucketized layout."""
+from .containers import (PAYLOAD_VARIANTS, BucketizedPayloads, PayloadSketch,
+                         payload_capacity, payload_weight)
+from .build import build_payload_corpus, pack_payloads
+from .bucketized import bucketize_payload_sketches, payload_slot_probs
+
+__all__ = ["PAYLOAD_VARIANTS", "BucketizedPayloads", "PayloadSketch",
+           "payload_capacity", "payload_weight", "build_payload_corpus",
+           "pack_payloads", "bucketize_payload_sketches",
+           "payload_slot_probs"]

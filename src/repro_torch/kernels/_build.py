@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process into a shared library
+with a plain C interface, all processes started together, and loaded with
+``ctypes``.  Nothing here runs at import: the first kernel launch builds.
+Libraries go to ``build/repro_torch/<hash>/`` at the repository root,
+keyed by a hash of the sources and the flags, so a rebuild happens only
+when a source changes.  ``nvcc`` is found through ``CUDA_HOME``, then
+``PATH``, then ``/usr/local/cuda``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("sketch_build", "intersect_estimate")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: dict = {}
+BUILD_SECONDS: dict = {}   # source -> wall seconds of its nvcc run
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return _build_dir() / f"lib{name}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all at once.  Returns ``{name: ptxas report}``; raises with the
+    compiler's output if any build fails."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in SOURCES:
+        if lib_path(name).exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (rc={proc.returncode}) ---\n{log}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {name: (out_dir / f"{name}.log").read_text()
+            for name in SOURCES if (out_dir / f"{name}.log").exists()}
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed.  ``signatures`` maps each C entry to its ``argtypes``; every
+    entry returns a ``cudaError_t`` (int)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed: cudaError_t {err}")

@@ -26,3 +26,9 @@ def vector_pair():
 def small_pair():
     rng = np.random.default_rng(7)
     return make_pair(rng, n=2000, nnz=400, overlap=0.3)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped with a reason when "
+        "torch.cuda.is_available() is false")

@@ -1,0 +1,191 @@
+"""Port parity: the linear-time priority build.
+
+The plain versions of the two build kernels are bit-equal to the Pallas
+kernels (interpret mode), and the port's build — front end, k-th smallest
+rank, pack — is bit-equal to ``repro.kernels.build_priority_corpus`` on
+the parity grid, dense and sparse.  The CUDA kernels themselves are held
+against the plain versions on the card (``cuda`` marker)."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from parity._grid import VECTOR_CASES, MATRIX_CASES, make_payloads
+from _torch_common import (assert_bits, edge_values,
+                           sparse_block, to_np)
+
+from repro.engine import build_payload_corpus as j_build_payload
+from repro.kernels import build_priority_corpus as j_build
+from repro.kernels.sketch_build import pack_kept as j_pack_kept
+from repro.kernels.sketch_build import hash_rank_hist_pallas, rank_hist_pallas
+from repro_torch.core import priority_sketch
+from repro_torch.engine import build_payload_corpus
+from repro_torch.kernels.sketch_build import (build_priority_corpus,
+                                              build_priority_corpus_ref,
+                                              hash_rank_hist,
+                                              hash_rank_hist_ref,
+                                              kth_smallest_ranks, pack_kept,
+                                              rank_hist, rank_hist_ref)
+
+PRIORITY_CASES = [c for c in VECTOR_CASES if c.method == "priority"]
+BLOCK = 1024   # the Pallas kernels' (8, 128) tile
+
+
+def _pallas_front(A: np.ndarray, seed: int, variant: str):
+    """Reference B1 on the padded (D, rows, 128) layout, unpadded again
+    with the same histogram correction as ``repro``'s ``_front_end``."""
+    D, n = A.shape
+    n_pad = -(-n // BLOCK) * BLOCK
+    v = np.pad(A, ((0, 0), (0, n_pad - n))).reshape(D, n_pad // 128, 128)
+    h, rank, hist = hash_rank_hist_pallas(jnp.asarray(v), jnp.asarray(seed),
+                                          variant=variant, interpret=True)
+    hist = np.asarray(hist).copy()
+    hist[:, 0x7F] -= n_pad - n
+    return (np.asarray(h).reshape(-1)[:n],
+            np.asarray(rank).reshape(D, -1)[:, :n], hist)
+
+
+@pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
+@pytest.mark.parametrize("n", [2048, 3000 + 77])
+def test_hash_rank_hist_plain_matches_pallas(variant, n):
+    rng = np.random.default_rng(n)
+    A = edge_values(rng, 3, n)
+    h_j, r_j, hist_j = _pallas_front(A, 0xB0C4, variant)
+    h_t, r_t, hist_t = hash_rank_hist(torch.as_tensor(A), 0xB0C4,
+                                      variant=variant)
+    assert_bits(h_t, h_j)
+    assert_bits(r_t, r_j)
+    assert_bits(hist_t, hist_j)
+
+
+@pytest.mark.parametrize("shift", [24, 16, 8, 0])
+def test_rank_hist_plain_matches_pallas(shift):
+    """Every level, at the prefix the exact descent reaches (so the
+    counts are nontrivial), on +inf-padded keys fed to both."""
+    rng = np.random.default_rng(shift)
+    A = edge_values(rng, 4, 2 * BLOCK)
+    _, rank, _ = hash_rank_hist_ref(torch.as_tensor(A), 3)
+    kth = to_np(kth_smallest_ranks(rank, 40))
+    bits = kth.view(np.uint32).astype(np.int64)
+    prefix = (bits >> (shift + 8)) if shift < 24 else np.zeros_like(bits)
+    got = rank_hist(rank, torch.as_tensor(prefix.astype(np.int32)),
+                    shift=shift)
+    ref = rank_hist_pallas(jnp.asarray(to_np(rank).reshape(4, -1, 128)),
+                           jnp.asarray(prefix.astype(np.uint32)),
+                           shift=shift, interpret=True)
+    assert_bits(got, ref)
+    assert int(to_np(got).sum()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 17, 257, 3000])
+def test_kth_smallest_matches_kthvalue(k):
+    rng = np.random.default_rng(k)
+    A = edge_values(rng, 5, 3000)
+    _, rank, hist0 = hash_rank_hist(torch.as_tensor(A), 11)
+    want = torch.kthvalue(rank, k, dim=1).values
+    assert_bits(kth_smallest_ranks(rank, k, hist0=hist0), want)
+    assert_bits(kth_smallest_ranks(rank, k), want)
+
+
+def test_pack_kept_matches_reference():
+    rng = np.random.default_rng(5)
+    keep = rng.random((4, 300)) < 0.1
+    keep[2] = True                          # overflow: truncates in order
+    keep[3] = False                         # nothing kept
+    vals = rng.normal(size=(4, 300)).astype(np.float32)
+    ind = np.sort(rng.choice(10_000, 300, replace=False)).astype(np.int32)
+    for indices in (None, ind):
+        got = pack_kept(torch.as_tensor(keep), torch.as_tensor(vals), 16,
+                        None if indices is None else torch.as_tensor(indices))
+        ref = j_pack_kept(jnp.asarray(keep), jnp.asarray(vals), 16,
+                          None if indices is None else jnp.asarray(indices))
+        assert_bits(got[0], ref[0])
+        assert_bits(got[1], ref[1])
+
+
+def _assert_sketch_bits(got, ref):
+    for g, r in zip(got, ref):
+        assert_bits(g, r)
+
+
+@pytest.mark.parametrize("case", PRIORITY_CASES, ids=lambda c: c.name)
+def test_build_priority_dense_bit_equal(case):
+    A = make_payloads(case, D=3)[..., 0]
+    got = build_priority_corpus(torch.as_tensor(A), case.m, case.seed,
+                                variant=case.variant, device="cpu")
+    ref = j_build(jnp.asarray(A), case.m, case.seed, variant=case.variant)
+    _assert_sketch_bits(got, ref)
+    _assert_sketch_bits(got, build_priority_corpus_ref(
+        torch.as_tensor(A), case.m, case.seed, variant=case.variant))
+
+
+@pytest.mark.parametrize("case", PRIORITY_CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("shared", [True, False])
+def test_build_priority_sparse_bit_equal(case, shared):
+    """Explicit coordinates, shared (n,) or per-row (D, n), given out of
+    order (the build sorts them)."""
+    rng = np.random.default_rng(case.seed)
+    A = make_payloads(case, D=3)[..., 0]
+    universe = 40 * case.n
+    if shared:
+        ind = rng.choice(universe, case.n, replace=False).astype(np.int32)
+    else:
+        ind = np.stack([rng.choice(universe, case.n, replace=False)
+                        for _ in range(3)]).astype(np.int32)
+    got = build_priority_corpus(torch.as_tensor(A), case.m, case.seed,
+                                variant=case.variant,
+                                indices=torch.as_tensor(ind), device="cpu")
+    ref = j_build(jnp.asarray(A), case.m, case.seed, variant=case.variant,
+                  indices=jnp.asarray(ind))
+    _assert_sketch_bits(got, ref)
+
+
+def test_build_priority_edge_values_bit_equal():
+    """Subnormal and huge values (the flush-to-zero traps) and a row of
+    huge values, whose ranks all flush to 0 (tau = 0, nothing kept)."""
+    rng = np.random.default_rng(9)
+    A = edge_values(rng, 4, 3000 + 77)
+    A[3] = 1e19
+    got = build_priority_corpus(torch.as_tensor(A), 64, 11, device="cpu")
+    ref = j_build(jnp.asarray(A), 64, 11)
+    _assert_sketch_bits(got, ref)
+
+
+def test_kernel_backend_priority_sketch_matches_reference():
+    rng = np.random.default_rng(12)
+    a = torch.as_tensor(sparse_block(rng, 1, 5000, 700)[0])
+    _assert_sketch_bits(priority_sketch(a, 128, 42, backend="kernel"),
+                        priority_sketch(a, 128, 42))
+    with pytest.raises(ValueError, match="unknown backend"):
+        priority_sketch(a, 128, 42, backend="pallas")
+
+
+@pytest.mark.parametrize("case", [c for c in MATRIX_CASES
+                                  if c.method == "priority"],
+                         ids=lambda c: c.name)
+def test_build_payload_corpus_matrix_kept_set(case):
+    """d > 1 payloads: same kept rows and payloads.  The weight is a
+    float sum over d lanes, taken in another order than XLA's, so tau
+    (an order statistic of ranks from those weights) agrees within
+    float32 rounding, per the parity contract for float-reduced taus."""
+    P = make_payloads(case, D=2)
+    got = build_payload_corpus(torch.as_tensor(P), case.m, case.seed,
+                               variant=case.variant, device="cpu")
+    ref = j_build_payload(jnp.asarray(P), case.m, case.seed,
+                          method="priority", variant=case.variant)
+    assert_bits(got.idx, ref.idx)
+    assert_bits(got.payload, ref.payload)
+    np.testing.assert_allclose(to_np(got.tau), np.asarray(ref.tau),
+                               rtol=4e-7)
+
+
+def test_build_threshold_not_ported_and_card_default():
+    with pytest.raises(NotImplementedError, match="A4"):
+        build_payload_corpus(np.ones((1, 8), np.float32), 4, 0,
+                             method="threshold", device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        build_payload_corpus(np.ones((1, 8), np.float32), 4, 0,
+                             method="sorted", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_priority_corpus(np.ones((1, 8), np.float32), 4, 0)
