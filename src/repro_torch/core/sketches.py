@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 INVALID_IDX = int(np.iinfo(np.int32).max)
 FLT_MIN = float(np.finfo(np.float32).tiny)   # smallest normal float32
@@ -80,30 +81,25 @@ def sampling_ranks(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def select_and_pack(scores: torch.Tensor, include: torch.Tensor,
                     idx: torch.Tensor, val: torch.Tensor,
                     cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Keep included entries (lowest ``scores`` first) up to ``cap``;
-    sort by idx.  Returns (idx[cap] ascending with INVALID padding,
-    val[cap] with 0 padding)."""
-    n = scores.shape[0]
-    dev = scores.device
+    """Keep included entries (lowest ``scores`` first, equal scores by
+    lowest position, as ``lax.top_k`` orders them) up to ``cap``; sort by
+    idx.  All inputs are (..., n); returns (idx (..., cap) ascending with
+    INVALID padding, val (..., cap) with 0 padding)."""
+    n = scores.shape[-1]
     key = torch.where(include, scores, torch.full_like(scores, math.inf))
+    idx = idx.to(torch.int32)
+    val = val.to(torch.float32)
     if cap >= n:
-        pad = cap - n
-        kidx = torch.cat([idx.to(torch.int32),
-                          torch.full((pad,), INVALID_IDX, dtype=torch.int32,
-                                     device=dev)])
-        kval = torch.cat([val.to(torch.float32),
-                          torch.zeros((pad,), dtype=torch.float32,
-                                      device=dev)])
-        kinc = torch.cat([include, torch.zeros((pad,), dtype=torch.bool,
-                                               device=dev)])
+        pad = (0, cap - n)
+        kidx = F.pad(idx, pad, value=INVALID_IDX)
+        kval = F.pad(val, pad)
+        kinc = F.pad(include.to(torch.int8), pad).to(torch.bool)
     else:
-        # every included key is finite and below every excluded one, so
-        # how topk breaks ties among the excluded (+inf) keys is irrelevant
-        pos = torch.topk(key, cap, largest=False).indices
-        kidx = idx.to(torch.int32)[pos]
-        kval = val.to(torch.float32)[pos]
-        kinc = include[pos]
+        pos = torch.sort(key, dim=-1, stable=True).indices[..., :cap]
+        kidx = torch.gather(idx, -1, pos)
+        kval = torch.gather(val, -1, pos)
+        kinc = torch.gather(include, -1, pos)
     kidx = torch.where(kinc, kidx, torch.full_like(kidx, INVALID_IDX))
     kval = torch.where(kinc, kval, torch.zeros_like(kval))
-    order = torch.argsort(kidx, stable=True)
-    return kidx[order], kval[order]
+    order = torch.argsort(kidx, dim=-1, stable=True)
+    return torch.gather(kidx, -1, order), torch.gather(kval, -1, order)

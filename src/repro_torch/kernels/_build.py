@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sketch_build", "intersect_estimate")
+SOURCES = ("sketch_build", "intersect_estimate", "sketch_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -86,17 +86,18 @@ def build_all() -> dict:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed.  ``signatures`` maps each C entry to its ``argtypes``; every
-    entry returns a ``cudaError_t`` (int)."""
+    needed.  ``signatures`` maps each C entry the caller uses to its
+    ``argtypes``; every entry returns a ``cudaError_t`` (int).  Several
+    wrapper modules may bind entries of one library."""
     lib = _LIBS.get(name)
     if lib is None:
         if not lib_path(name).exists():
             build_all()
         lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

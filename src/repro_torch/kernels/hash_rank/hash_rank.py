@@ -1,0 +1,80 @@
+"""Wrappers of the hash/rank kernel (``csrc/sketch_build.cu``, no
+histogram).
+
+- :func:`hash_rank_batched` (replaces ``hash_rank_batched_pallas``): the
+  shared hash row and the sampling ranks of a (D, n) block — the threshold
+  build's front end;
+- :func:`hash_rank` (replaces ``hash_rank_pallas``): the same for one
+  (n,) vector, the kernel's D = 1 launch through its own C entry.
+
+A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
+the kernel or raises.  Each wrapper counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .._args import check_block, variant_code
+from .ref import hash_rank_batched_ref, hash_rank_ref
+
+_P, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+                        ctypes.c_int)
+_SIGNATURES = {
+    "repro_hash_rank_batched": [_P, _P, _P, _I64, _I64, _U32, _INT, _P],
+    "repro_hash_rank": [_P, _P, _P, _I64, _U32, _INT, _P],
+}
+
+
+def _lib():
+    return _build.load("sketch_build", _SIGNATURES)
+
+
+def hash_rank_batched(values: torch.Tensor, seed, *, variant: str = "l2"):
+    """(D, n) float32 -> (h (n,), rank (D, n))."""
+    if values.device.type == "cpu":
+        return hash_rank_batched_ref(values, seed, variant=variant)
+    check_block(values, "values")
+    code = variant_code(variant)
+    D, n = values.shape
+    dev = values.device
+    h = torch.empty((n,), dtype=torch.float32, device=dev)
+    rank = torch.empty((D, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_hash_rank_batched(
+            values.data_ptr(), h.data_ptr(), rank.data_ptr(), D, n,
+            int(seed) & 0xFFFFFFFF, code, stream)
+    _build.check(err, "hash_rank_batched")
+    hash_rank_batched.launches += 1
+    return h, rank
+
+
+def hash_rank(values: torch.Tensor, seed, *, variant: str = "l2"):
+    """(n,) float32 -> (h (n,), rank (n,))."""
+    if values.device.type == "cpu":
+        return hash_rank_ref(values, seed, variant=variant)
+    if values.ndim != 1:
+        raise ValueError(f"values must be (n,), got {tuple(values.shape)}")
+    check_block(values[None], "values")
+    code = variant_code(variant)
+    n = values.shape[0]
+    dev = values.device
+    h = torch.empty((n,), dtype=torch.float32, device=dev)
+    rank = torch.empty((n,), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_hash_rank(values.data_ptr(), h.data_ptr(),
+                                  rank.data_ptr(), n, int(seed) & 0xFFFFFFFF,
+                                  code, stream)
+    _build.check(err, "hash_rank")
+    hash_rank.launches += 1
+    return h, rank
+
+
+hash_rank_batched.launches = 0
+hash_rank.launches = 0

@@ -4,8 +4,9 @@
 compute, on any device; the wrappers in ``sketch_build.py`` use them for
 CPU tensors, and the tests and ``chip_smoke.py`` compare the kernels with
 them.  ``build_priority_corpus_ref`` runs the single-vector reference
-``priority_sketch`` (``torch.topk``) row by row: the oracle for the
-linear-time build.
+``priority_sketch`` and ``build_threshold_corpus_ref`` the reference
+``threshold_sketch`` (full sorts) row by row: the oracles for the
+linear-time builds.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.hashing import hash_unit
 from repro_torch.core.priority import priority_sketch
 from repro_torch.core.sketches import Sketch, sampling_ranks, weight
+from repro_torch.core.threshold import threshold_sketch
 
 NBINS = 256
 
@@ -59,6 +61,18 @@ def build_priority_corpus_ref(A: torch.Tensor, m: int, seed, *,
     """Row-by-row reference priority sketches of a (D, n) block."""
     A = torch.atleast_2d(A.to(torch.float32))
     rows = [priority_sketch(a, m, seed, variant=variant) for a in A]
+    return Sketch(torch.stack([s.idx for s in rows]),
+                  torch.stack([s.val for s in rows]),
+                  torch.stack([s.tau for s in rows]))
+
+
+def build_threshold_corpus_ref(A: torch.Tensor, m: int, seed, *,
+                               variant: str = "l2", cap: int | None = None,
+                               adaptive: bool = True) -> Sketch:
+    """Row-by-row reference threshold sketches of a (D, n) block."""
+    A = torch.atleast_2d(A.to(torch.float32))
+    rows = [threshold_sketch(a, m, seed, variant=variant, cap=cap,
+                             adaptive=adaptive) for a in A]
     return Sketch(torch.stack([s.idx for s in rows]),
                   torch.stack([s.val for s in rows]),
                   torch.stack([s.tau for s in rows]))

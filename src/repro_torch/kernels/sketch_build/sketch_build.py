@@ -16,40 +16,27 @@ import ctypes
 import torch
 
 from .. import _build
+from .._args import check_block, variant_code
 from .ref import NBINS, hash_rank_hist_ref, rank_hist_ref
 
-VARIANT_CODES = {"l2": 0, "l1": 1, "uniform": 2}
 _P, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_int)
 _SIGNATURES = {
     "repro_hash_rank_hist": [_P, _P, _P, _P, _I64, _I64, _U32, _INT, _P],
     "repro_rank_hist": [_P, _P, _P, _I64, _I64, _INT, _P],
 }
-MAX_ROWS = 65535   # the kernels put rows on grid.y
 
 
 def _lib():
     return _build.load("sketch_build", _SIGNATURES)
 
 
-def _check_block(x: torch.Tensor, what: str) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{what} must be a CUDA or CPU tensor, got {x.device}")
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous (D, n) float32 tensor, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    if x.shape[0] > MAX_ROWS:
-        raise ValueError(f"{what} has {x.shape[0]} rows; at most {MAX_ROWS} "
-                         "per launch")
-
-
 def hash_rank_hist(values: torch.Tensor, seed, *, variant: str = "l2"):
     """(D, n) float32 -> (h (n,), rank (D, n), hist (D, 256) int32)."""
     if values.device.type == "cpu":
         return hash_rank_hist_ref(values, seed, variant=variant)
-    _check_block(values, "values")
-    if variant not in VARIANT_CODES:
-        raise ValueError(f"unknown variant {variant!r}")
+    check_block(values, "values")
+    code = variant_code(variant)
     D, n = values.shape
     dev = values.device
     h = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -60,7 +47,7 @@ def hash_rank_hist(values: torch.Tensor, seed, *, variant: str = "l2"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_hash_rank_hist(
             values.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(),
-            D, n, int(seed) & 0xFFFFFFFF, VARIANT_CODES[variant], stream)
+            D, n, int(seed) & 0xFFFFFFFF, code, stream)
     _build.check(err, "hash_rank_hist")
     hash_rank_hist.launches += 1
     return h, rank, hist
@@ -72,7 +59,7 @@ def rank_hist(keys: torch.Tensor, prefix: torch.Tensor, *,
     (D,) int32 prefix -> (D, 256) int32 counts."""
     if keys.device.type == "cpu":
         return rank_hist_ref(keys, prefix, shift=shift)
-    _check_block(keys, "keys")
+    check_block(keys, "keys")
     D, n = keys.shape
     if (prefix.device != keys.device or prefix.dtype != torch.int32
             or prefix.shape != (D,) or not prefix.is_contiguous()):

@@ -8,12 +8,15 @@ linear-time build on the card (the hash/rank/histogram and refinement
 kernels), bucketizes it there, and brings the bucketized block back once.
 Capacity grows by doubling and stays a power of two.  ``query`` answers
 all D estimates with one launch of the query kernel; ``all_pairs`` gives
-the (D, D) matrix with one launch of the all-pairs kernel.  The device
-copy of the occupied corpus is rebuilt lazily after each mutation.
+the (D, D) matrix with one launch of the all-pairs kernel;
+``merge_from`` folds a partition peer's index in with one launch of the
+bucketized merge kernel.  The device copy of the occupied corpus is rebuilt
+lazily after each mutation.
 
-Plain mode only: the bias-aware and private query modes, ``top_pairs``,
-``top_k_for_query``, ``merge_from`` and ``MatrixSketchStore`` come with
-later slices (ROADMAP queue A).
+Plain mode only: the bias-aware and private query modes (and the privacy
+accountant that ``merge_from`` composes in the reference), ``top_pairs``,
+``top_k_for_query`` and ``MatrixSketchStore`` come with later slices
+(ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch.core import INVALID_IDX, priority_sketch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (BucketizedSketch, bucketize,
                                  bucketize_corpus, build_priority_corpus,
-                                 estimate_all_pairs_bucketized, query_corpus,
+                                 estimate_all_pairs_bucketized,
+                                 merge_bucketized_corpora, query_corpus,
                                  round_up_pow2)
 
 from .validation import (check_finite, check_nonfinite_policy, check_sparse,
@@ -363,3 +367,54 @@ class SketchIndex:
             D = len(self._names)
             sp.set("rows", D)
             return est[:D, :D]
+
+    def merge_from(self, other: "SketchIndex") -> None:
+        """Merge a partition-peer index into this one, row by row, without
+        leaving the bucketized layout (DESIGN.md §14 of the reference).
+
+        ``other`` must index the same names in the same order, each row
+        sketching a disjoint coordinate partition of the same vector (two
+        ingestion hosts each sketching part of the coordinates of every
+        column).  One launch of the merge kernel merges all rows; raw
+        vectors are never touched.  Exact up to bucket-overflow drops on
+        either side (counted in ``total_dropped``): an entry already lost
+        to a full bucket cannot re-enter the union."""
+        if (other.m, other.n_buckets, other.slots, other.seed) != \
+                (self.m, self.n_buckets, self.slots, self.seed):
+            raise ValueError("indexes must share m/n_buckets/slots/seed "
+                             "to merge")
+        if other._names != self._names:
+            raise ValueError("row names must align for a partition merge")
+        D = len(self._names)
+        if D == 0:
+            return
+        with obs.op("serve.index.merge_from") as sp:
+            sp.set("rows", D)
+            dev = self.device
+
+            def on_device(ix):
+                return BucketizedSketch(
+                    *(torch.as_tensor(a[:D], device=dev) for a in
+                      (ix._idx, ix._val, ix._tau, ix._dropped)))
+
+            merged = merge_bucketized_corpora(on_device(self),
+                                              on_device(other), self.seed,
+                                              m=self.m)
+            self._idx[:D] = _host(merged.idx)
+            self._val[:D] = _host(merged.val)
+            self._tau[:D] = _host(merged.tau)
+            self._dropped[:D] = _host(merged.dropped)
+            if self.head_h:
+                # disjoint coordinate partitions: the merged head is the
+                # top-head_h of the union of both heads, values exact (a
+                # coordinate is nonzero in one partition only); the kept
+                # flags are recomputed against the merged blocks
+                for d in range(D):
+                    hm, ho = self._head_idx[d], other._head_idx[d]
+                    coords = np.concatenate([hm[hm >= 0], ho[ho >= 0]])
+                    vals = np.concatenate([self._head_val[d][hm >= 0],
+                                           other._head_val[d][ho >= 0]])
+                    self._set_head_row(d, coords, vals)
+            # every row's kept set and tau changed: all D rows are dirty
+            self._refresh_row_stats(0, D)
+            self._device_corpus = None

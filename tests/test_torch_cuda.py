@@ -16,9 +16,12 @@ from _torch_common import (assert_bits, assert_close, cuda_device,  # noqa: F401
 import repro_torch.kernels as tk
 from repro_torch.kernels.intersect_estimate import (allpairs_estimate_ref,
                                                     intersect_estimate_ref)
+from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
+                                           hash_rank_ref)
 from repro_torch.kernels.sketch_build import (build_priority_corpus_ref,
                                               hash_rank_hist_ref,
                                               rank_hist_ref)
+from repro_torch.kernels.sketch_merge import merge_bucketized_ref
 from repro_torch.serve import SketchIndex
 
 pytestmark = pytest.mark.cuda
@@ -109,6 +112,87 @@ def test_index_on_card_matches_cpu(cuda_device):
     assert_close(t.all_pairs(), c.all_pairs())
 
 
+@pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
+def test_hash_rank_kernels_match_plain(cuda_device, variant):
+    rng = np.random.default_rng(4)
+    A = torch.as_tensor(edge_values(rng, 7, 65536 + 77), device=cuda_device)
+    before = (tk.hash_rank_batched.launches, tk.hash_rank.launches)
+    for g, r in zip(tk.hash_rank_batched(A, 11, variant=variant),
+                    hash_rank_batched_ref(A, 11, variant=variant)):
+        assert_bits(g, r)
+    for g, r in zip(tk.hash_rank(A[3], 11, variant=variant),
+                    hash_rank_ref(A[3], 11, variant=variant)):
+        assert_bits(g, r)
+    assert (tk.hash_rank_batched.launches, tk.hash_rank.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("cap", [None, 40])
+def test_threshold_build_on_card_matches_plain(cuda_device, cap):
+    """The kernel build against the same build on the kernels' plain
+    versions on the card (bit for bit, tau included); cap=40 < m forces
+    the overflow cut."""
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(edge_values(rng, 6, 9000 + 3), device=cuda_device)
+    for indices in (None, torch.randperm(9003, device=cuda_device)):
+        got = tk.build_threshold_corpus(A, 64, 5, cap=cap, indices=indices,
+                                        device=cuda_device)
+        ref = tk.build_threshold_corpus(A, 64, 5, cap=cap, indices=indices,
+                                        device=cuda_device, use_kernel=False)
+        for g, r in zip(got, ref):
+            assert_bits(g, r)
+
+
+@pytest.mark.parametrize("n_buckets", [128, 16])
+def test_merge_bucketized_kernel_matches_plain(cuda_device, n_buckets):
+    rng = np.random.default_rng(6)
+    A = sparse_block(rng, 37, 4000, 500)
+    mask = rng.random(4000) < 0.5
+    halves = [torch.as_tensor(np.where(keep, A, 0.0).astype(np.float32),
+                              device=cuda_device) for keep in (mask, ~mask)]
+    lo, hi = (tk.bucketize_corpus(tk.build_priority_corpus(
+        x, 64, 11, device=cuda_device), n_buckets=n_buckets, slots=4)
+        for x in halves)
+    tau = tk.merged_tau_bucketized(lo, hi, 11, m=64)
+    before = tk.merge_bucketized.launches
+    got = tk.merge_bucketized(lo.idx, lo.val, hi.idx, hi.val, tau, 11)
+    assert tk.merge_bucketized.launches == before + 1
+    ref = merge_bucketized_ref(lo.idx, lo.val, hi.idx, hi.val, tau, 11)
+    for g, r in zip(got, ref):
+        assert_bits(g, r)
+    if n_buckets == 16:
+        assert int(got[2].sum()) > 0
+    # slots that miss the vector-load path (S = 3)
+    lo3, hi3 = (tk.bucketize_corpus(tk.build_priority_corpus(
+        x, 64, 11, device=cuda_device), n_buckets=n_buckets, slots=3)
+        for x in halves)
+    tau3 = tk.merged_tau_bucketized(lo3, hi3, 11, m=64)
+    for g, r in zip(tk.merge_bucketized(lo3.idx, lo3.val, hi3.idx, hi3.val,
+                                        tau3, 11),
+                    merge_bucketized_ref(lo3.idx, lo3.val, hi3.idx, hi3.val,
+                                         tau3, 11)):
+        assert_bits(g, r)
+
+
+def test_merge_from_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(42)
+    M = sparse_block(rng, 20, 3000, 300)
+    lo, hi = M.copy(), M.copy()
+    lo[:, 1500:] = 0.0
+    hi[:, :1500] = 0.0
+    names = [f"v{d}" for d in range(20)]
+    merged = []
+    for dev in (cuda_device, "cpu"):
+        a = SketchIndex(m=64, n_buckets=128, device=dev)
+        b = SketchIndex(m=64, n_buckets=128, device=dev)
+        a.add_many(names, lo)
+        b.add_many(names, hi)
+        a.merge_from(b)
+        merged.append(a)
+    for name in ("_idx", "_val", "_tau", "_dropped", "_head_kept"):
+        assert_bits(getattr(merged[0], name), getattr(merged[1], name))
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     x = torch.zeros((2, 8), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
@@ -120,3 +204,16 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shift"):
         tk.rank_hist(keys, torch.zeros(2, dtype=torch.int32,
                                        device=cuda_device), shift=4)
+    with pytest.raises(ValueError, match="float32"):
+        tk.hash_rank_batched(x, 0)
+    with pytest.raises(ValueError, match="variant"):
+        tk.hash_rank(keys[0], 0, variant="l3")
+    idx = torch.zeros((2, 4, 9), dtype=torch.int32, device=cuda_device)
+    val = torch.zeros((2, 4, 9), device=cuda_device)
+    tau = torch.ones(2, device=cuda_device)
+    with pytest.raises(ValueError, match="slots"):
+        tk.merge_bucketized(idx, val, idx, val, tau, 0)
+    with pytest.raises(ValueError, match="tau"):
+        tk.merge_bucketized(idx[..., :4].contiguous(), val[..., :4].contiguous(),
+                            idx[..., :4].contiguous(), val[..., :4].contiguous(),
+                            tau[:1], 0)

@@ -94,7 +94,12 @@ def test_port_imports_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.obs, repro_torch.core, "
-        "repro_torch.engine, repro_torch.kernels, repro_torch.serve\n"
+        "repro_torch.engine, repro_torch.kernels, repro_torch.serve, "
+        "repro_torch.distributed, repro_torch.quickstart\n"
+        "import repro_torch.core.threshold, repro_torch.core.merge, "
+        "repro_torch.core.variance, repro_torch.core.batched, "
+        "repro_torch.engine.merge, repro_torch.kernels.hash_rank, "
+        "repro_torch.kernels.sketch_merge\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

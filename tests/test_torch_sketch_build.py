@@ -180,9 +180,13 @@ def test_build_payload_corpus_matrix_kept_set(case):
 
 
 def test_build_threshold_not_ported_and_card_default():
-    with pytest.raises(NotImplementedError, match="A4"):
-        build_payload_corpus(np.ones((1, 8), np.float32), 4, 0,
-                             method="threshold", device="cpu")
+    """The threshold method now builds (its parity is in
+    ``test_torch_threshold.py``); an unknown method still raises, and the
+    default device is the card."""
+    out = build_payload_corpus(np.ones((1, 3), np.float32), 4, 0,
+                               method="threshold", device="cpu")
+    assert out.idx.shape == (1, 12)
+    assert int(out.size()[0]) == 3           # nnz <= m: every entry kept
     with pytest.raises(ValueError, match="unknown method"):
         build_payload_corpus(np.ones((1, 8), np.float32), 4, 0,
                              method="sorted", device="cpu")
