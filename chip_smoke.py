@@ -31,12 +31,23 @@ exits nonzero with no result line):
                  at n/2 and ``merge_from`` folds one into the other: bit-equal
                  blocks, queries and ``all_pairs`` to the main path's index
                  on every row where neither partition dropped an entry;
-7. ``timing``    end-to-end and per-kernel CUDA-event times with each
+7. ``matrix_path`` ``MatrixSketchStore(256, dim=16)`` at the widths of
+                 ``benchmarks/matrix_product.py`` (n=65536 rows, d=16,
+                 m=256, 512 buckets x 4 slots, seed 11; lognormal-scaled
+                 Gaussian rows on support windows that overlap by 0.25):
+                 1024 ``add``s, 64 queries by the partners of stored
+                 matrices (each answer against the exact per-pair join on
+                 every drop-free stored sketch, the partner's error
+                 against the Frobenius guarantee), one ``products`` batch of
+                 256 pairs against per-pair ``product``, the partitioned
+                 build (P=4) against the one-shot build, the card's row
+                 weight against the CPU's, the bucket-drop share;
+8. ``timing``    end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, and the per-step split of ``add_many``,
-                 ``query`` and ``merge_from``;
-8. ``kernels``   one line per the port's kernel table.
+                 ``query``, ``merge_from`` and the store's ``query``;
+9. ``kernels``   one line per the port's kernel table.
 
-Each path (4-6) zeroes every kernel's launch counter before it runs and
+Each path (4-7) zeroes every kernel's launch counter before it runs and
 reads them after; each of its kernels must have launched.
 
 The last lines are ``nvidia-smi``'s name and power limit and then
@@ -67,6 +78,10 @@ N, NNZ, D_BATCH, D_SPARSE, BLOCK_ROWS = 65536, 2000, 4032, 64, 512
 N_QUERIES = 256
 CAP = 320                     # payload_capacity(256): threshold capacity
 PARTITIONS = 4
+# the matrix store: benchmarks/matrix_product.py's HEADLINE n and
+# ACC_POINT d, m and overlap
+MAT_N, MAT_D, MAT_M, MAT_OVERLAP = 1 << 16, 16, 256, 0.25
+MAT_C, MAT_QUERIES, MAT_PAIRS = 1024, 64, 256
 
 
 def emit(obj) -> None:
@@ -144,6 +159,32 @@ def dense_rows(idx, val, rows) -> np.ndarray:
     return out
 
 
+def matrix_pair(c: int, dev):
+    """Stored matrix ``c`` and its query partner, made on the card from
+    seed 1000 + c as ``benchmarks/matrix_product.py::_pair``: N(0, 1)
+    entries, lognormal(0, 1) row scales, A on the first 62.5% of the rows
+    and B on the last 62.5% (they overlap on 25%)."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + c)
+    lead = (1.0 - MAT_OVERLAP) / 2.0
+    out = []
+    for _ in range(2):
+        X = torch.randn((MAT_N, MAT_D), generator=gen, device=dev)
+        X *= torch.exp(torch.randn((MAT_N, 1), generator=gen, device=dev))
+        out.append(X)
+    out[0][int((lead + MAT_OVERLAP) * MAT_N):] = 0.0
+    out[1][: int(lead * MAT_N)] = 0.0
+    return out
+
+
+def drop_share(m: int, n_buckets: int, slots: int) -> float:
+    """Chance that a sketch of m entries drops one in n_buckets x slots:
+    bucket loads ~ Poisson(m / n_buckets), each must hold at most S."""
+    lam = m / n_buckets
+    fits = sum(math.exp(-lam) * lam ** j / math.factorial(j)
+               for j in range(slots + 1))
+    return 1.0 - fits ** n_buckets
+
+
 def run_path(kernels, fn):
     """Zero every launch counter, run one path, read the counters."""
     for k in kernels:
@@ -169,9 +210,17 @@ def main() -> None:
     from repro_torch.kernels import _build
     import repro_torch.kernels as tk
     from repro_torch.core import (INVALID_IDX, Sketch, estimate_inner_product,
-                                  hash_unit, priority_sketch, sketch_corpus,
-                                  weight)
-    from repro_torch.distributed import partitioned_sketch_corpus
+                                  hash_unit, priority_sketch, sampling_ranks,
+                                  sketch_corpus, weight)
+    from repro_torch.distributed import (partitioned_matrix_sketch,
+                                         partitioned_sketch_corpus)
+    from repro_torch.engine import (build_payload_corpus, pack_payloads,
+                                    payload_weight, to_matrix)
+    from repro_torch.kernels.matrix_sketch import matrix_products_ref
+    from repro_torch.matrix import (estimate_matrix_product,
+                                    frobenius_error_guarantee,
+                                    priority_matrix_sketch,
+                                    threshold_matrix_sketch)
     from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                                hash_rank_ref)
     from repro_torch.kernels.intersect_estimate import (
@@ -179,7 +228,7 @@ def main() -> None:
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
                                                   rank_hist_ref)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
-    from repro_torch.serve import SketchIndex
+    from repro_torch.serve import MatrixSketchStore, SketchIndex
     from repro_torch.serve.validation import check_finite, check_vector
 
     dev = torch.device("cuda")
@@ -310,9 +359,67 @@ def main() -> None:
     check(merge_drops[16] > 0, "the n_buckets=16 merge dropped nothing")
     err["merge_bucketized"] = 0.0
     del lo, hi, got, ref
+
+    # B7 on bucketized matrix-sketch pairs: the store's widths (256 pairs
+    # of m = 256 sketches of (65536, 16) matrices in 512 x 4) and edge
+    # cases (S = 2 and 3, unequal widths, 24 x 24 outputs beyond one
+    # block, a 16-bucket layout that drops rows); each small case with a
+    # padding pair and a keep-everything (tau = inf) pair; the store's
+    # shape once more with one query side broadcast against every pair
+    def mat_side(P, n, d, side, m, nb, slots, special):
+        X = torch.randn((P, n, d), generator=gen, device=dev)
+        X *= torch.exp(torch.randn((P, n, 1), generator=gen, device=dev))
+        if side == 0:
+            X[:, (3 * n) // 4:] = 0.0
+            if special:
+                X[0, 40:] = 0.0             # 40 nonzero rows < m
+        else:
+            X[:, : n // 4] = 0.0
+        sk = tk.bucketize_matrix_sketches(to_matrix(build_payload_corpus(
+            X, m, SEED, device=dev)), n_buckets=nb, slots=slots)
+        idx, rows = sk.idx, sk.rows
+        if special and side == 0:           # the last pair's A: padding
+            idx[-1] = INVALID_IDX
+            rows[-1] = 0.0
+            sk = sk._replace(tau=torch.cat([sk.tau[:-1], sk.tau.new_ones(1)]))
+        return idx, rows, tk.matrix_slot_probs(sk), sk.dropped
+
+    b7_cases = [(MAT_PAIRS, MAT_N, MAT_D, MAT_D, MAT_M, N_BUCKETS, SLOTS),
+                (7, 4096, 8, 3, 64, 128, 4), (7, 4096, 6, 6, 64, 128, 2),
+                (7, 4096, 5, 7, 64, 128, 3), (7, 4096, 24, 24, 64, 128, 4),
+                (7, 4096, 4, 4, 64, 16, 4)]
+    b7_err, b7_drops = 0.0, 0
+    for P, n, da, db, m, nb, slots in b7_cases:
+        special = P != MAT_PAIRS
+        a = mat_side(P, n, da, 0, m, nb, slots, special)
+        b = mat_side(P, n, db, 1, m, nb, slots, special)
+        got = tk.matrix_products(*a[:3], *b[:3])
+        what = f"matrix_products P={P} d={da}x{db} S={slots} B={nb}"
+        b7_err = max(b7_err, assert_close(
+            got, matrix_products_ref(*a[:3], *b[:3]), what))
+        assert_bits(tk.matrix_products(*a[:3], *b[:3]), got,
+                    f"{what}, run to run")
+        if special:
+            check(bool((got[-1] == 0).all()), f"{what}: padding pair not 0")
+        if nb == 16:
+            b7_drops = int(a[3].sum() + b[3].sum())
+        if P == MAT_PAIRS:
+            q = [x[:1].contiguous() for x in a[:3]]
+            got_q = tk.matrix_products(*q, *b[:3])
+            assert_bits(got_q, tk.matrix_products(
+                *(x.expand(P, *x.shape[1:]).contiguous() for x in q),
+                *b[:3]), "matrix_products broadcast query vs copies")
+            b7_err = max(b7_err, assert_close(
+                got_q, matrix_products_ref(*q, *b[:3]),
+                "matrix_products broadcast query"))
+    check(b7_drops > 0, "the 16-bucket matrix layout dropped nothing")
+    err["matrix_products"] = b7_err
+    del a, b, got
     emit({"phase": "parity", "max_abs_err": err,
           "build_kernels": "bit-equal", "merge_kernel": "bit-equal",
-          "merge_dropped": merge_drops, "estimators": f"rtol={RTOL}"})
+          "merge_dropped": merge_drops, "estimators": f"rtol={RTOL}",
+          "matrix_products_cases": [list(c) for c in b7_cases],
+          "matrix_products_layout_dropped": b7_drops})
 
     # ------------------------------------------------------------- main path
     rng = np.random.default_rng(2)
@@ -525,13 +632,9 @@ def main() -> None:
             "intersect_estimate", "allpairs_estimate")
     check(all(launches["merge_path"][k] > 0 for k in need),
           f"a kernel of the merge path never launched: {launches}")
-    # a half-index row holds m entries in B buckets of S slots; with
-    # Poisson(m / B) bucket loads it drops an entry with probability
-    # 1 - P(load <= S)^B, so either half does for this share of the rows
-    lam = M / N_BUCKETS
-    fits = sum(math.exp(-lam) * lam ** j / math.factorial(j)
-               for j in range(SLOTS + 1))
-    expected = D * (1.0 - fits ** (2 * N_BUCKETS))
+    # a half-index row drops an entry with probability drop_share; either
+    # half does for this share of the rows
+    expected = D * (1.0 - (1.0 - drop_share(M, N_BUCKETS, SLOTS)) ** 2)
     check(mg["other_rows"] <= 2 * expected,
           f"{mg['other_rows']} rows had partition drops; the layout "
           f"predicts {expected:.0f}")
@@ -543,6 +646,136 @@ def main() -> None:
           "merged_index_dropped": mg["merged_dropped"],
           "merge_from_ms": mg["merge_ms"],
           "launches": launches["merge_path"]})
+
+    # ----------------------------------------------------------- matrix path
+    mrng = np.random.default_rng(5)
+    mat_names = [f"A{c:04d}" for c in range(MAT_C)]
+    q_src = mrng.choice(MAT_C, MAT_QUERIES, replace=False)
+    pair_ix = mrng.choice(MAT_C, (MAT_PAIRS, 2))
+
+    def matrix_path():
+        store = MatrixSketchStore(MAT_M, dim=MAT_D, seed=SEED, device=dev)
+        add_ms = []
+        for c in range(MAT_C):
+            A = matrix_pair(c, dev)[0].cpu().numpy()
+            t0 = time.perf_counter()
+            store.add(mat_names[c], A)
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(store) == MAT_C and store.capacity == MAT_C,
+              "store size/capacity")
+        query_ms, answers = [], []
+        for c in q_src:
+            Q = matrix_pair(int(c), dev)[1].cpu().numpy()
+            t0 = time.perf_counter()
+            answers.append(store.query(Q))
+            query_ms.append((time.perf_counter() - t0) * 1e3)
+        pairs = [(mat_names[i], mat_names[j]) for i, j in pair_ix]
+        t0 = time.perf_counter()
+        prods = store.products(pairs)
+        products_ms = (time.perf_counter() - t0) * 1e3
+        A0 = matrix_pair(0, dev)[0]
+        part, part_ms = {}, {}
+        for method in ("priority", "threshold"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            part[method] = partitioned_matrix_sketch(
+                A0, MAT_M, SEED, num_partitions=PARTITIONS, method=method)
+            torch.cuda.synchronize()
+            part_ms[method] = (time.perf_counter() - t0) * 1e3
+        return dict(store=store, add_ms=add_ms, query_ms=query_ms,
+                    answers=answers, pairs=pairs, prods=prods,
+                    products_ms=products_ms, part=part, part_ms=part_ms)
+
+    mx, launches["matrix_path"] = run_path(kernels, matrix_path)
+    need = ("rank_hist", "matrix_products")
+    check(all(launches["matrix_path"][k] > 0 for k in need),
+          f"a kernel of the matrix path never launched: {launches}")
+    store = mx["store"]
+    lib_bc, lib_p = store._buckets()
+    _, lib_buckets, lib_slots = lib_bc.idx.shape   # the store's layout
+    lib_dropped = lib_bc.dropped[:MAT_C].cpu().numpy()
+    corpus_m = store._corpus()
+    # each answer against the exact per-pair join on the card, on every
+    # stored sketch whose layout dropped no row (queries whose own layout
+    # dropped a row are counted, not compared)
+    frob, q_err, q_dropped, q_compared = [], 0.0, 0, 0
+    for c, ans in zip(q_src, mx["answers"]):
+        A, Q = matrix_pair(int(c), dev)
+        check([n for n, _ in ans] == mat_names, "query answer names")
+        est = torch.as_tensor(np.stack([e for _, e in ans]), device=dev)
+        check(est.shape == (MAT_C, MAT_D, MAT_D)
+              and bool(torch.isfinite(est).all()), "query answer shape")
+        sq = priority_matrix_sketch(Q, MAT_M, SEED)
+        if int(tk.bucketize_matrix_sketches(sq).dropped[0]) > 0:
+            q_dropped += 1
+        else:
+            exact = estimate_matrix_product(sq, corpus_m)[:MAT_C]
+            ok = torch.as_tensor(lib_dropped == 0, device=dev)
+            q_err = max(q_err, assert_close(est[ok], exact[ok],
+                                            f"store query {c}"))
+            q_compared += 1
+        true = Q.double().T @ A.double()
+        bound = float(frobenius_error_guarantee(Q.double(), A.double(),
+                                                MAT_M, 0.1,
+                                                method="priority"))
+        frob.append(float(torch.linalg.norm(est[int(c)].double() - true))
+                    / bound)
+    frob = np.array(frob)
+    check(q_compared >= MAT_QUERIES // 2,
+          f"only {q_compared} queries had a drop-free layout")
+    check(np.mean(frob > 1.0) <= 0.2,
+          f"{int(np.sum(frob > 1.0))} of {MAT_QUERIES} partner estimates "
+          "beyond the Frobenius guarantee")
+    # products against per-pair product, where neither layout dropped
+    ia, ib = pair_ix[:, 0], pair_ix[:, 1]
+    p_err = 0.0
+    for k, (a_name, b_name) in enumerate(mx["pairs"]):
+        if lib_dropped[ia[k]] == 0 and lib_dropped[ib[k]] == 0:
+            p_err = max(p_err, assert_close(
+                torch.as_tensor(mx["prods"][k]),
+                torch.as_tensor(store.product(a_name, b_name)),
+                f"products pair {k}"))
+    # the partitioned build against the one-shot build
+    A0 = matrix_pair(0, dev)[0]
+    one = {"priority": priority_matrix_sketch(A0, MAT_M, SEED),
+           "threshold": threshold_matrix_sketch(A0, MAT_M, SEED)}
+    for method, got in mx["part"].items():
+        assert_bits(got.row_idx, one[method].row_idx,
+                    f"partitioned matrix {method} idx")
+        assert_bits(got.rows, one[method].rows,
+                    f"partitioned matrix {method} rows")
+        if method == "priority":
+            assert_bits(got.tau, one[method].tau, "partitioned matrix tau")
+        else:
+            mat_tau_rel = float(abs(float(got.tau) - float(one[method].tau))
+                                / float(one[method].tau))
+            check(mat_tau_rel <= 1e-5,
+                  f"partitioned matrix threshold tau rel err {mat_tau_rel}")
+    # the row weight on the card against the CPU's, bit for bit
+    assert_bits(payload_weight(A0, "l2").cpu(),
+                payload_weight(A0.cpu(), "l2"), "payload_weight d=16")
+    # stored sketches with a bucket drop against the Poisson expectation
+    drop_rows = int((lib_dropped > 0).sum())
+    drop_expected = MAT_C * drop_share(MAT_M, lib_buckets, lib_slots)
+    check(drop_rows <= 2 * drop_expected,
+          f"{drop_rows} stored sketches dropped a row; the layout predicts "
+          f"{drop_expected:.0f}")
+    emit({"phase": "matrix_path", "C": MAT_C, "n": MAT_N, "d": MAT_D,
+          "m": MAT_M, "n_buckets": lib_buckets, "slots": lib_slots,
+          "overlap": MAT_OVERLAP, "queries": MAT_QUERIES,
+          "queries_compared": q_compared,
+          "queries_with_layout_drop": q_dropped,
+          "query_vs_join_max_abs_err": q_err,
+          "partner_frob_ratio_median": float(np.median(frob)),
+          "partner_frob_ratio_max": float(frob.max()),
+          "partner_beyond_guarantee": int(np.sum(frob > 1.0)),
+          "products_pairs": MAT_PAIRS,
+          "products_vs_product_max_abs_err": p_err,
+          "partitioned_P": PARTITIONS,
+          "partitioned_threshold_tau_rel_err": mat_tau_rel,
+          "stored_with_drop": drop_rows,
+          "stored_with_drop_predicted": drop_expected,
+          "launches": launches["matrix_path"]})
 
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()
@@ -721,6 +954,63 @@ def main() -> None:
     _, merge_steps["row_summaries"] = step_ms(
         lambda: heads_ix._refresh_row_stats(0, D))
 
+    # the store: B7 at its query shape (one query side read in place
+    # against the 1024-sketch library), against its plain version; its
+    # bound counts what this query's data needs: the query side and the
+    # library's ids once, the probabilities and rows of the matched
+    # library slots, the output once
+    store_steps = {}
+    Qh = matrix_pair(int(q_src[0]), dev)[1].cpu().numpy()
+    Qh, store_steps["check_finite"] = step_ms(
+        lambda: check_finite(Qh, "matrix"))
+    Qt, store_steps["host_to_device"] = step_ms(
+        lambda: torch.as_tensor(Qh, device=dev))
+    sq, store_steps["sketch"] = step_ms(
+        lambda: priority_matrix_sketch(Qt, MAT_M, SEED))
+    qb, store_steps["bucketize"] = step_ms(
+        lambda: tk.bucketize_matrix_sketches(sq, n_buckets=lib_buckets,
+                                             slots=lib_slots))
+    qp, store_steps["probabilities"] = step_ms(
+        lambda: tk.matrix_slot_probs(qb))
+    b7_args = (qb.idx, qb.rows, qp, lib_bc.idx, lib_bc.rows, lib_p)
+    est, store_steps["kernel"] = step_ms(
+        lambda: tk.matrix_products(*b7_args))
+    _, store_steps["device_to_host"] = step_ms(lambda: est.cpu().numpy())
+    store._invalidate()
+    _, store_steps["library_relayout_once_per_change"] = step_ms(
+        store._buckets)
+    # the query's sketch, step by step (the d > 1 priority build)
+    sketch_steps = {}
+    Pq = Qt[None]
+    W, sketch_steps["row_weight"] = step_ms(lambda: payload_weight(Pq, "l2"))
+    hq, sketch_steps["hash"] = step_ms(lambda: hash_unit(
+        SEED, torch.arange(MAT_N, dtype=torch.int32, device=dev)))
+    rq, sketch_steps["ranks"] = step_ms(lambda: sampling_ranks(W, hq[None]))
+    tq, sketch_steps["selection"] = step_ms(
+        lambda: tk.kth_smallest_ranks(rq, MAT_M + 1))
+    _, sketch_steps["pack"] = step_ms(
+        lambda: pack_payloads(rq < tq[:, None], Pq, MAT_M))
+    err["matrix_products"] = max(err["matrix_products"], assert_close(
+        tk.matrix_products(*b7_args), matrix_products_ref(*b7_args),
+        f"matrix_products store query vs C={lib_bc.idx.shape[0]}"))
+    n_lib, n_slots = lib_bc.idx.shape[0], lib_buckets * lib_slots
+    b7_matches = int(((qb.idx[0][None, :, :, None]
+                       == lib_bc.idx[:, :, None, :])
+                      & (qb.idx[0] != INVALID_IDX)[None, :, :, None]).sum())
+    b7_out = n_lib * MAT_D * MAT_D * 4
+    b7_bytes = (n_slots * (8 + 4 * MAT_D) + n_lib * n_slots * 4
+                + b7_matches * (4 + 4 * MAT_D) + b7_out)
+    b7_full_bytes = (n_slots + n_lib * n_slots) * (8 + 4 * MAT_D) + b7_out
+    t["matrix_products"] = (
+        cuda_ms(lambda: tk.matrix_products(*b7_args)),
+        cuda_ms(lambda: matrix_products_ref(*b7_args), iters=3),
+        None, b7_bytes, "bytes")
+    bytes_ms = b7_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * b7_matches * MAT_D * MAT_D / FP32_OPS_PER_S * 1e3
+    bounds["matrix_products"] = (max(bytes_ms, ops_ms),
+                                 "operations" if ops_ms > bytes_ms
+                                 else "bytes")
+
     emit({"phase": "timing", "card": smi_line,
           "add_many_ms_per_block": float(np.mean(mp["block_ms"])),
           "add_many_block_ms": mp["block_ms"],
@@ -742,6 +1032,19 @@ def main() -> None:
           "add_many_block_steps_ms": add_steps,
           "query_steps_ms": query_steps,
           "merge_from_steps_ms": merge_steps,
+          "store_C": MAT_C,
+          "store_add_ms_p50": float(np.percentile(mx["add_ms"], 50)),
+          "store_add_ms_p99": float(np.percentile(mx["add_ms"], 99)),
+          "store_query_p50_ms": float(np.percentile(mx["query_ms"], 50)),
+          "store_query_p99_ms": float(np.percentile(mx["query_ms"], 99)),
+          "store_products_ms": mx["products_ms"],
+          "store_products_pairs": MAT_PAIRS,
+          "store_partitioned_ms": mx["part_ms"],
+          "store_query_steps_ms": store_steps,
+          "store_query_sketch_steps_ms": sketch_steps,
+          "matrix_products_matches": b7_matches,
+          "matrix_products_bound_all_inputs_ms":
+              b7_full_bytes / HBM_BYTES_PER_S * 1e3,
           "allpairs_join_compares": join_ops,
           "kernel_ms": {k: v[0] for k, v in t.items()},
           "bound_ms": {k: v[0] for k, v in bounds.items()}})
@@ -772,6 +1075,10 @@ def main() -> None:
             "src/repro_torch/csrc/sketch_merge.cu",
             "src/repro/kernels/sketch_merge/sketch_merge.py:84",
             "bit-equal"),
+        "matrix_products": (
+            "src/repro_torch/csrc/matrix_sketch.cu",
+            "src/repro/kernels/matrix_sketch/matrix_sketch.py:70",
+            f"rtol={RTOL}"),
     }
     rows = []
     for kname, (source, replaces, parity) in meta.items():

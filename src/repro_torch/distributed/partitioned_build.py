@@ -13,8 +13,9 @@ place:
   against the one-shot build; threshold merges fold the additive
   ``PartitionStats`` to recompute the adaptive tau.
 
-The multi-process form (the reference's ``shard_map`` variant) and the
-matrix form come with later slices (ROADMAP step A8).
+The matrix form (:func:`partitioned_matrix_sketch`) does the same over
+row slices of an (n, d) matrix.  The multi-process form (the reference's
+``shard_map`` variant) comes with a later slice (ROADMAP step A8).
 """
 from __future__ import annotations
 
@@ -98,3 +99,56 @@ def partitioned_sketch_corpus(A, m: int, seed, *, num_partitions: int,
     return tree_merge_sketches(parts, seed, m=m, method=method,
                                variant=variant, cap=cap, adaptive=adaptive,
                                stats=st, dedupe=False)
+
+
+def partitioned_matrix_sketch(A, m: int, seed, *, num_partitions: int,
+                              method: str = "priority", variant: str = "l2",
+                              cap: int | None = None, adaptive: bool = True,
+                              device=None):
+    """Map-reduce build of a matrix sketch over ``num_partitions`` row
+    slices of an (n, d) matrix (DESIGN.md §15 of the reference).
+
+    Each slice is sketched with the matrix builders hashing its global row
+    ids (``row_indices``); one flat P-way union merge
+    (``matrix.merge_matrix_sketches``) folds the partition sketches.
+    Bit-exact against ``priority_matrix_sketch`` of the whole matrix;
+    threshold folds ``matrix_partition_stats`` to recompute the adaptive
+    tau (the same kept rows, tau up to summation rounding).  Only one
+    n/P-row slice is sketched at a time.  A tensor is sketched on its
+    device; other input on ``device`` (default ``cuda``)."""
+    from repro_torch.matrix import (matrix_partition_stats,
+                                    merge_matrix_sketches,
+                                    priority_matrix_sketch,
+                                    threshold_matrix_sketch)
+    dev = (A.device if isinstance(A, torch.Tensor) and device is None
+           else resolve_device(device))
+    A = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    if A.ndim != 2:
+        raise ValueError(f"expected an (n, d) matrix, got shape "
+                         f"{tuple(A.shape)}")
+    if method not in ("priority", "threshold"):
+        raise ValueError(f"unknown method {method!r}")
+    parts, stats = [], []
+    for s, e in partition_bounds(A.shape[0], num_partitions):
+        block = A[s:e]
+        ids = torch.arange(s, e, dtype=torch.int32, device=dev)
+        if method == "priority":
+            parts.append(priority_matrix_sketch(block, m, seed,
+                                                variant=variant,
+                                                row_indices=ids))
+        else:
+            parts.append(threshold_matrix_sketch(block, m, seed,
+                                                 variant=variant, cap=cap,
+                                                 adaptive=adaptive,
+                                                 row_indices=ids))
+            stats.append(matrix_partition_stats(block, variant=variant))
+    st = None
+    if stats:
+        st = PartitionStats(
+            total_weight=torch.stack([x.total_weight for x in stats]),
+            nnz=torch.stack([x.nnz for x in stats]))
+    # row slices are disjoint by construction: skip the duplicate scan (the
+    # merge still raises if the output holds a duplicate id)
+    return merge_matrix_sketches(parts, seed, m=m, method=method,
+                                 variant=variant, cap=cap, adaptive=adaptive,
+                                 stats=st, dedupe=False)

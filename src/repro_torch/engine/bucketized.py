@@ -4,11 +4,16 @@ One (P, B, S, d) bucket layout for every payload dimension: the positions
 of the entries ride through ``bucketize_payloads`` as a float32 payload
 (exact below 2^24) and the d-dim rows follow with one gather.
 
-The merge of two bucketized batches: d = 1 dispatches to the
-``kernels/sketch_merge`` kernel (or its plain version); d > 1 runs the
-payload-generalized plain merge here (the same keep masks and slot
-positions, payload rows scattered alongside).  The products and matrix
-kernels built on this layout come with a later slice (ROADMAP step A9).
+Kernels on this layout:
+
+- **products** — :func:`bucketized_products`: the batched matrix-product
+  kernel of ``kernels/matrix_sketch`` (per-pair bucket compare, the
+  joint-probability rescale ``max(1/p_a, 1/p_b)``, the rank-one sums);
+  d = 1 runs it with (P, B, S, 1) payloads;
+- **merge** — d = 1 dispatches to the ``kernels/sketch_merge`` kernel (or
+  its plain version); d > 1 runs the payload-generalized plain merge here
+  (the same keep masks and slot positions, payload rows scattered
+  alongside).
 """
 from __future__ import annotations
 
@@ -57,6 +62,24 @@ def payload_slot_probs(bc: BucketizedPayloads, *,
     tau = torch.as_tensor(bc.tau, dtype=torch.float32).reshape(-1, 1, 1)
     return torch.where(w > 0, torch.clamp(tau * w, max=1.0),
                        torch.ones_like(w))
+
+
+def bucketized_products(A: BucketizedPayloads, B: BucketizedPayloads, *,
+                        variant: str = "l2") -> torch.Tensor:
+    """(P, B, S, d_a) x (P, B, S, d_b) bucketized batches -> the (P, d_a,
+    d_b) estimates of every pair's payload product in one launch of the
+    matrix-product kernel (its plain version for CPU tensors).  Exact
+    against the sorted-layout ``engine.estimate_product`` up to
+    bucket-overflow drops (counted in ``dropped``)."""
+    from repro_torch.kernels.matrix_sketch.matrix_sketch import \
+        matrix_products
+    if A.idx.shape != B.idx.shape:
+        raise ValueError(f"batch layouts differ: {tuple(A.idx.shape)} vs "
+                         f"{tuple(B.idx.shape)}")
+    return matrix_products(A.idx, A.payload,
+                           payload_slot_probs(A, variant=variant),
+                           B.idx, B.payload,
+                           payload_slot_probs(B, variant=variant))
 
 
 def merged_tau_bucketized_payloads(A: BucketizedPayloads,

@@ -9,7 +9,9 @@ version.  ``csrc/`` holds the sources; ``_build`` compiles them with
 - ``intersect_estimate``: ``intersect_estimate`` (query vs corpus),
   ``allpairs_estimate`` (the all-pairs matrix and its moments);
 - ``sketch_merge``: ``merge_bucketized`` (the partition merge of two
-  bucketized corpora).
+  bucketized corpora);
+- ``matrix_sketch``: ``matrix_products`` (the batched ``A^T B`` estimates
+  of bucketized matrix-sketch pairs).
 """
 from .hash_rank import hash_rank, hash_rank_batched
 from .intersect_estimate import (BucketizedSketch, allpairs_estimate,
@@ -23,9 +25,15 @@ from .sketch_build import (adaptive_tau_batched, build_priority_corpus,
                            kth_smallest_ranks, pack_kept, rank_hist)
 from .sketch_merge import (merge_bucketized, merge_bucketized_corpora,
                            merged_tau_bucketized)
+# last: matrix_sketch reaches repro_torch.matrix, whose builders import
+# the packages above
+from .matrix_sketch import (BucketizedMatrixSketch, bucketize_matrix_sketches,
+                            matrix_products, matrix_products_bucketized,
+                            matrix_slot_probs)
 
 KERNELS = (hash_rank_hist, rank_hist, hash_rank_batched, hash_rank,
-           intersect_estimate, allpairs_estimate, merge_bucketized)
+           intersect_estimate, allpairs_estimate, merge_bucketized,
+           matrix_products)
 
 __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
            "allpairs_estimate", "allpairs_moments", "bucketize",
@@ -35,4 +43,7 @@ __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
            "adaptive_tau_batched", "build_priority_corpus",
            "build_threshold_corpus", "hash_rank_hist", "kth_smallest_ranks",
            "pack_kept", "rank_hist", "merge_bucketized",
-           "merge_bucketized_corpora", "merged_tau_bucketized", "KERNELS"]
+           "merge_bucketized_corpora", "merged_tau_bucketized",
+           "BucketizedMatrixSketch", "bucketize_matrix_sketches",
+           "matrix_products", "matrix_products_bucketized",
+           "matrix_slot_probs", "KERNELS"]

@@ -1,11 +1,12 @@
-"""Carry a serving index's state across packages.
+"""Carry a serving index's or a matrix store's state across packages.
 
 The state of a ``SketchIndex`` is its host blocks, not weights: the
 bucketized ids and values, the taus and drop counts, the row summaries
-and the exact heads, plus the names and the layout parameters.  A caller
+and the exact heads, plus the names and the layout parameters.  A
+``MatrixSketchStore`` holds its sketches' ids, rows and taus.  A caller
 that holds these as numpy arrays — for instance pulled out of the
-reference package's index — gets a port index that answers exactly as one
-the port built itself.
+reference package's objects — gets a port object that answers exactly as
+one the port built itself.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .sketch_service import SketchIndex
+from .sketch_service import MatrixSketchStore, SketchIndex
 
 
 def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
@@ -55,4 +56,31 @@ def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
         raise ValueError("names must be unique")
     out._dim = None if dim is None else int(dim)
     out._stats_epoch = 1 if D else 0
+    return out
+
+
+def store_from_arrays(*, idx, rows, tau, names: Sequence, m: int, dim: int,
+                      seed: int, nonfinite: str = "raise",
+                      device=None) -> MatrixSketchStore:
+    """Build a port ``MatrixSketchStore`` from host-state arrays.
+
+    ``idx``: (R, m) int32; ``rows``: (R, m, dim) float32; ``tau``: (R,);
+    R >= len(names) sketches, of which the first len(names) are stored
+    (the rest are dropped and refilled as padding)."""
+    C = len(names)
+    idx = np.asarray(idx, np.int32)
+    rows = np.asarray(rows, np.float32)
+    if idx.shape[1:] != (m,) or rows.shape[1:] != (m, dim) or idx.shape[0] < C:
+        raise ValueError(f"idx {idx.shape} / rows {rows.shape} do not hold "
+                         f"{C} sketches of ({m},) ids and ({m}, {dim}) rows")
+    out = MatrixSketchStore(m, dim=dim, seed=seed,
+                            initial_capacity=max(C, 1), nonfinite=nonfinite,
+                            device=device)
+    out._idx[:C] = idx[:C]
+    out._rows[:C] = rows[:C]
+    out._tau[:C] = np.asarray(tau, np.float32)[:C]
+    out._names = list(names)
+    out._name_set = set(out._names)
+    if len(out._name_set) != C:
+        raise ValueError("names must be unique")
     return out

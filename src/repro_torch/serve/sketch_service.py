@@ -13,10 +13,13 @@ the (D, D) matrix with one launch of the all-pairs kernel;
 bucketized merge kernel.  The device copy of the occupied corpus is rebuilt
 lazily after each mutation.
 
+:class:`MatrixSketchStore` is the matrix surface: a library of
+row-sampled matrix sketches answering ``A^T B`` estimates, one query
+against the whole library with one launch of the matrix-product kernel.
+
 Plain mode only: the bias-aware and private query modes (and the privacy
-accountant that ``merge_from`` composes in the reference), ``top_pairs``,
-``top_k_for_query`` and ``MatrixSketchStore`` come with later slices
-(ROADMAP queue A).
+accountant that ``merge_from`` composes in the reference), ``top_pairs``
+and ``top_k_for_query`` come with later slices (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -29,10 +32,15 @@ from repro_torch import obs
 from repro_torch.core import INVALID_IDX, priority_sketch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (BucketizedSketch, bucketize,
-                                 bucketize_corpus, build_priority_corpus,
+                                 bucketize_corpus, bucketize_matrix_sketches,
+                                 build_priority_corpus,
                                  estimate_all_pairs_bucketized,
+                                 matrix_products, matrix_slot_probs,
                                  merge_bucketized_corpora, query_corpus,
                                  round_up_pow2)
+from repro_torch.matrix import (MatrixSketch, estimate_matrix_product,
+                                estimate_matrix_products,
+                                priority_matrix_sketch)
 
 from .validation import (check_finite, check_nonfinite_policy, check_sparse,
                          check_unique_name, check_unique_names, check_vector)
@@ -418,3 +426,175 @@ class SketchIndex:
             # every row's kept set and tau changed: all D rows are dirty
             self._refresh_row_stats(0, D)
             self._device_corpus = None
+
+
+class MatrixSketchStore:
+    """Library of matrix sketches answering ``A^T B`` estimates
+    (DESIGN.md §15 of the reference).
+
+    Matrices (n, d) with a shared column count ``dim`` are row-sampled
+    once on ingestion (``m`` rows each, the linear-time priority builder
+    on ``device``) and stored in pre-allocated host blocks, (capacity, m)
+    ids and (capacity, m, dim) rows: amortized O(m d) per ``add``, with
+    capacity doubling like :class:`SketchIndex`.  Reads:
+
+    - ``product(a, b)``: one stored-vs-stored estimate (the sorted join);
+    - ``products(pairs)``: a batch of stored pairs (on the card: both
+      sides bucketized and one launch of the matrix-product kernel; on the
+      CPU the batched sorted join);
+    - ``query(matrix)``: one query matrix against every stored sketch.  On
+      the card the query sketch is bucketized once and one kernel launch
+      reads it in place for every stored sketch; the bucketized library
+      and its slot probabilities are built lazily, once per change.
+
+    On the card the layout is the kernels' default, 512 buckets x 4
+    slots; ``device`` defaults to ``cuda`` (``"cpu"`` runs the plain
+    versions).  All matrices share ``dim`` and the coordination ``seed``.
+    """
+
+    def __init__(self, m: int = 128, *, dim: int, seed: int = 11,
+                 initial_capacity: int = 8, nonfinite: str = "raise",
+                 device=None):
+        if dim < 1:
+            raise ValueError("dim must be >= 1")
+        self.device = resolve_device(device)
+        self.m = m
+        self.dim = dim
+        self.seed = seed
+        self.nonfinite = check_nonfinite_policy(nonfinite)
+        self._name_set: set = set()
+        self._names: list = []
+        self._cap = round_up_pow2(initial_capacity)
+        self._idx = np.full((self._cap, m), INVALID_IDX, np.int32)
+        self._rows = np.zeros((self._cap, m, dim), np.float32)
+        # padding sketches get tau = 1: all-INVALID ids match nothing
+        self._tau = np.ones((self._cap,), np.float32)
+        self._device: Optional[MatrixSketch] = None
+        self._device_buckets = None   # (BucketizedMatrixSketch, slot probs)
+
+    def __len__(self):
+        return len(self._names)
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def _grow(self) -> None:
+        new_cap = self._cap * 2
+
+        def extend(arr, fill):
+            out = np.full((new_cap,) + arr.shape[1:], fill, arr.dtype)
+            out[: self._cap] = arr
+            return out
+
+        self._idx = extend(self._idx, INVALID_IDX)
+        self._rows = extend(self._rows, 0)
+        self._tau = extend(self._tau, 1)
+        self._cap = new_cap
+
+    def _invalidate(self) -> None:
+        self._device = None
+        self._device_buckets = None
+
+    def _sketch(self, matrix: np.ndarray) -> MatrixSketch:
+        matrix = np.asarray(matrix, np.float32)
+        if matrix.ndim != 2 or matrix.shape[1] != self.dim:
+            raise ValueError(f"expected an (n, {self.dim}) matrix, got "
+                             f"shape {matrix.shape}")
+        matrix = check_finite(matrix, "matrix", nonfinite=self.nonfinite)
+        return priority_matrix_sketch(
+            torch.as_tensor(matrix, device=self.device), self.m, self.seed)
+
+    def add(self, name, matrix: np.ndarray) -> None:
+        """Row-sample one (n, dim) matrix and append its sketch in place:
+        amortized O(m d) host writes, no re-layout of the stored ones."""
+        check_unique_name(name, self._name_set, what="store")
+        with obs.op("serve.store.add"):
+            sk = self._sketch(matrix)
+            if len(self._names) == self._cap:
+                self._grow()
+            c = len(self._names)
+            self._idx[c] = _host(sk.row_idx)
+            self._rows[c] = _host(sk.rows)
+            self._tau[c] = float(sk.tau)
+            self._names.append(name)
+            self._name_set.add(name)
+            self._invalidate()   # re-upload (not re-sketch) lazily
+
+    def _rollback_last(self, k: int) -> None:
+        """Undo the last ``k`` appended sketches, restoring padding state
+        (INVALID ids, zero rows, tau = 1)."""
+        for _ in range(k):
+            name = self._names.pop()
+            self._name_set.discard(name)
+            c = len(self._names)
+            self._idx[c] = INVALID_IDX
+            self._rows[c] = 0
+            self._tau[c] = 1
+        self._invalidate()
+
+    def _corpus(self) -> MatrixSketch:
+        """Occupied prefix on the device, rounded up to a power of two (at
+        least 4), so its shape changes only on doublings."""
+        if self._device is None:
+            c = min(self._cap, max(round_up_pow2(max(len(self._names), 1)),
+                                   4))
+            self._device = self._stored(slice(0, c))
+        return self._device
+
+    def _buckets(self):
+        """The bucketized library and its slot probabilities (built once
+        per change)."""
+        if self._device_buckets is None:
+            bc = bucketize_matrix_sketches(self._corpus())
+            self._device_buckets = (bc, matrix_slot_probs(bc))
+        return self._device_buckets
+
+    def _pick(self, name) -> int:
+        try:
+            return self._names.index(name)
+        except ValueError:
+            raise KeyError(f"unknown matrix {name!r}") from None
+
+    def _stored(self, rows) -> MatrixSketch:
+        dev = self.device
+        return MatrixSketch(torch.tensor(self._idx[rows], device=dev),
+                            torch.tensor(self._rows[rows], device=dev),
+                            torch.tensor(self._tau[rows], device=dev))
+
+    def product(self, name_a, name_b) -> np.ndarray:
+        """(dim, dim) estimate of ``A^T B`` for two stored matrices."""
+        ia, ib = self._pick(name_a), self._pick(name_b)
+        return _host(estimate_matrix_product(self._stored(ia),
+                                             self._stored(ib)))
+
+    def products(self, pairs: Sequence) -> np.ndarray:
+        """(len(pairs), dim, dim) estimates for a batch of stored-name
+        pairs, in one kernel launch on the card."""
+        ia = np.array([self._pick(a) for a, _ in pairs], np.int64)
+        ib = np.array([self._pick(b) for _, b in pairs], np.int64)
+        with obs.op("serve.store.products") as sp:
+            sp.set("pairs", len(pairs))
+            return _host(estimate_matrix_products(self._stored(ia),
+                                                  self._stored(ib)))
+
+    def query(self, matrix: np.ndarray) -> list:
+        """Estimate ``Q^T A_c`` against every stored matrix; returns
+        ``[(name, (dim, dim) ndarray), ...]`` in insertion order."""
+        if not self._names:
+            raise ValueError("query on an empty store: add matrices before "
+                             "querying")
+        with obs.op("serve.store.query") as sp:
+            sp.set("rows", len(self._names))
+            sq = self._sketch(matrix)
+            if self.device.type == "cuda":
+                bc, pc = self._buckets()
+                q = bucketize_matrix_sketches(sq)
+                obs.kernel_launch("matrix_sketch.products")
+                est = matrix_products(q.idx, q.rows, matrix_slot_probs(q),
+                                      bc.idx, bc.rows, pc)
+            else:
+                # the sorted join with the query held fixed (no copies)
+                est = estimate_matrix_product(sq, self._corpus())
+            est = _host(est)
+        return [(name, est[i]) for i, name in enumerate(self._names)]

@@ -21,8 +21,11 @@ from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
 from repro_torch.kernels.sketch_build import (build_priority_corpus_ref,
                                               hash_rank_hist_ref,
                                               rank_hist_ref)
+from repro_torch.kernels.matrix_sketch import matrix_products_ref
 from repro_torch.kernels.sketch_merge import merge_bucketized_ref
-from repro_torch.serve import SketchIndex
+from repro_torch.engine import payload_weight
+import repro_torch.matrix as tm
+from repro_torch.serve import MatrixSketchStore, SketchIndex
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +220,122 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         tk.merge_bucketized(idx[..., :4].contiguous(), val[..., :4].contiguous(),
                             idx[..., :4].contiguous(), val[..., :4].contiguous(),
                             tau[:1], 0)
+
+
+def _matrix_pair(rng, n, da, db, overlap=0.5):
+    """Row-partial-overlap pair with lognormal row scales, as
+    ``benchmarks/matrix_product.py::_pair``."""
+    A = (rng.standard_normal((n, da))
+         * rng.lognormal(0.0, 1.0, (n, 1))).astype(np.float32)
+    B = (rng.standard_normal((n, db))
+         * rng.lognormal(0.0, 1.0, (n, 1))).astype(np.float32)
+    lead = (1.0 - overlap) / 2.0
+    A[int((lead + overlap) * n):] = 0
+    B[: int(lead * n)] = 0
+    return A, B
+
+
+def _matrix_layouts(device, P, n, da, db, *, m=64, n_buckets=128, slots=4,
+                    seed=0, special=False):
+    """Bucketized (idx, rows, p) of both sides on the card.  ``special``:
+    the last A side a padding sketch (all INVALID, tau = 1) and the first
+    pair with fewer nonzero rows than m (tau = inf, everything kept)."""
+    rng = np.random.default_rng(seed)
+    pairs = [_matrix_pair(rng, n, da, db) for _ in range(P)]
+    if special:
+        pairs[0][0][40:] = 0.0
+    sides = []
+    for k in (0, 1):
+        sks = [tm.priority_matrix_sketch(torch.as_tensor(p[k], device=device),
+                                         m, 11) for p in pairs]
+        S = tm.stack_matrix_sketches(sks)
+        if special and k == 0:
+            S.row_idx[-1] = np.iinfo(np.int32).max
+            S.rows[-1] = 0.0
+            S.tau[-1] = 1.0
+        bc = tk.bucketize_matrix_sketches(S, n_buckets=n_buckets, slots=slots)
+        sides.append((bc.idx, bc.rows, tk.matrix_slot_probs(bc), bc.dropped))
+    return sides
+
+
+@pytest.mark.parametrize("da,db,slots,n_buckets", [
+    (16, 16, 4, 512), (8, 3, 4, 128), (6, 6, 2, 128), (5, 7, 3, 128),
+    (24, 24, 4, 128), (4, 4, 4, 16)])
+def test_matrix_products_kernel_matches_plain(cuda_device, da, db, slots,
+                                              n_buckets):
+    """Unequal widths, S = 2, 3, 4, outputs beyond one block's 256
+    threads (24 x 24), a 16-bucket layout that drops rows, a padding pair
+    and a keep-everything (tau = inf) pair."""
+    a, b = _matrix_layouts(cuda_device, 7, 900, da, db, slots=slots,
+                           n_buckets=n_buckets, special=True)
+    if n_buckets == 16:
+        assert int(a[3].sum()) > 0
+    before = tk.matrix_products.launches
+    got = tk.matrix_products(*a[:3], *b[:3])
+    torch.cuda.synchronize()
+    assert tk.matrix_products.launches == before + 1
+    assert_close(got, matrix_products_ref(*a[:3], *b[:3]))
+    assert bool((got[-1] == 0).all())
+    # run to run: the same bits (the match list is built without atomics)
+    assert_bits(tk.matrix_products(*a[:3], *b[:3]), got)
+
+
+def test_matrix_products_broadcast_query(cuda_device):
+    """One query side read for every pair (batch stride 0) equals the
+    query copied P times, bit for bit, and the plain version."""
+    a, b = _matrix_layouts(cuda_device, 9, 900, 16, 16, n_buckets=512)
+    q = [x[:1].contiguous() for x in a[:3]]
+    got = tk.matrix_products(*q, *b[:3])
+    copies = tk.matrix_products(*(x.expand(9, *x.shape[1:]).contiguous()
+                                  for x in q), *b[:3])
+    assert_bits(got, copies)
+    assert_close(got, matrix_products_ref(*q, *b[:3]))
+
+
+@pytest.mark.parametrize("d", [2, 8, 16, 33, 64])
+def test_payload_weight_card_equals_cpu(cuda_device, d):
+    rng = np.random.default_rng(d)
+    X = (rng.standard_normal((4096, d))
+         * rng.lognormal(0.0, 2.0, (4096, 1))).astype(np.float32)
+    for rows in (X, edge_values(rng, 512, d)):
+        for variant in ("l2", "l1"):
+            assert_bits(payload_weight(torch.as_tensor(rows,
+                                                       device=cuda_device),
+                                       variant),
+                        payload_weight(torch.as_tensor(rows), variant))
+
+
+def test_matrix_store_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(43)
+    stores = [MatrixSketchStore(64, dim=8, initial_capacity=2, device=dev)
+              for dev in (cuda_device, "cpu")]
+    mats = [_matrix_pair(rng, 2000, 8, 8)[k % 2] for k in range(6)]
+    for st in stores:
+        for k, X in enumerate(mats):
+            st.add(f"M{k}", X)
+    for name in ("_idx", "_rows", "_tau"):
+        assert_bits(getattr(stores[0], name), getattr(stores[1], name))
+    q = _matrix_pair(rng, 2000, 8, 8)[1]
+    before = tk.matrix_products.launches
+    got = np.stack([e for _, e in stores[0].query(q)])
+    assert tk.matrix_products.launches == before + 1
+    assert_close(got, np.stack([e for _, e in stores[1].query(q)]))
+    pairs = [("M0", "M1"), ("M2", "M3"), ("M5", "M4")]
+    assert_close(stores[0].products(pairs), stores[1].products(pairs))
+    assert_close(stores[0].product("M0", "M3"),
+                 stores[1].product("M0", "M3"))
+
+
+def test_matrix_products_rejects_bad_inputs(cuda_device):
+    a, b = _matrix_layouts(cuda_device, 3, 500, 4, 4)
+    with pytest.raises(ValueError, match="pair"):
+        tk.matrix_products(*(x[:2] for x in a[:3]), *b[:3])
+    with pytest.raises(ValueError, match="float32"):
+        tk.matrix_products(a[0], a[1].double(), a[2], *b[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.matrix_products(a[0], a[1].transpose(1, 2), a[2], *b[:3])
+    big = torch.zeros((1, 16384, 4), dtype=torch.int32, device=cuda_device)
+    rows = torch.zeros((1, 16384, 4, 4), device=cuda_device)
+    p = torch.ones((1, 16384, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.matrix_products(big, rows, p, big, rows, p)

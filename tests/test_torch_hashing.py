@@ -99,7 +99,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.core.threshold, repro_torch.core.merge, "
         "repro_torch.core.variance, repro_torch.core.batched, "
         "repro_torch.engine.merge, repro_torch.kernels.hash_rank, "
-        "repro_torch.kernels.sketch_merge\n"
+        "repro_torch.kernels.sketch_merge, repro_torch.matrix, "
+        "repro_torch.matrix.variance, repro_torch.engine.estimate, "
+        "repro_torch.kernels.matrix_sketch, repro_torch.serve.convert\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
