@@ -42,13 +42,26 @@ exits nonzero with no result line):
                  256 pairs against per-pair ``product``, the partitioned
                  build (P=4) against the one-shot build, the card's row
                  weight against the CPU's, the bucket-drop share;
-8. ``timing``    end-to-end and per-kernel CUDA-event times with each
+8. ``join_size_path`` ``benchmarks/fig10_joinsize.py`` at its full
+                 widths: Zipf (z=2) key-frequency tables of 500000 rows a
+                 side over 30000 keys (overlap 0.3), 50 trials at a budget
+                 of m=400; the TPC-H-like and Twitter-like panels with JL,
+                 CS, TS/PS weighted and uniform; the served panel
+                 (``SketchIndex(m=400, n_buckets=1024, head_h=16,
+                 dp=DPParams(epsilon=4.0))``, plain / bias_aware /
+                 private); the bias-aware CountSketch tail (h=16, 3
+                 tables); Fig. 10's four gates, the tail within 0.5 of the
+                 truth, the ledger (4.0 a release epoch, a cached release
+                 free) and the release bit-equal to one made from CPU
+                 copies with the same rng;
+9. ``timing``    end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, and the per-step split of ``add_many``,
                  ``query``, ``merge_from`` and the store's ``query``;
-9. ``kernels``   one line per the port's kernel table.
+10. ``kernels``  one line per the port's kernel table.
 
-Each path (4-7) zeroes every kernel's launch counter before it runs and
-reads them after; each of its kernels must have launched.
+Each path (4-8) zeroes every kernel's launch counter before it runs and
+reads them after; each of its kernels must have launched.  Each path's
+line gives its wall time (``seconds``).
 
 The last lines are ``nvidia-smi``'s name and power limit and then
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +95,18 @@ PARTITIONS = 4
 # ACC_POINT d, m and overlap
 MAT_N, MAT_D, MAT_M, MAT_OVERLAP = 1 << 16, 16, 256, 0.25
 MAT_C, MAT_QUERIES, MAT_PAIRS = 1024, 64, 256
+# the join-size path: benchmarks/fig10_joinsize.py's full run (its rng
+# seed 7 draws the same tables) and its served panel's index and DP
+JOIN_KEYS, JOIN_ROWS, JOIN_TRIALS, JOIN_M = 30_000, 500_000, 50, 400
+JOIN_OVERLAP, JOIN_Z, JOIN_BUCKETS, JOIN_HEAD = 0.3, 2.0, 1024, 16
+JOIN_EPS, JOIN_CLAMP, JOIN_P_FLOOR, CS_TAIL_REPS = 4.0, 1.0, 0.05, 3
+MERGE_EPS = 1.0
+# H100 SXM published int32 rate, non-tensor (NVIDIA H100 Tensor Core GPU
+# Architecture white paper): 64 lanes an SM a clock, an IMAD as 2 ops
+INT32_OPS_PER_S = 33.5e12
+JL_INT_OPS = 10   # a term's index add, mix32's 8 operations, the sign bit
+CS_TOL = 1e-5     # B8: rtol = atol (the reference's kernel test)
+JL_TOL = 1e-4     # B9: rtol, and atol times max(1, max |out|)
 
 
 def emit(obj) -> None:
@@ -125,6 +150,15 @@ def assert_close(got, ref, what: str) -> float:
                <= 2e-5 * scale + RTOL * r.abs()[fin]).all())
     check(ok, f"{what}: max abs err {err} beyond rtol={RTOL}, "
           f"atol={2e-5 * scale}")
+    return err
+
+
+def assert_tol(got, ref, rtol: float, atol: float, what: str) -> float:
+    """``|got - ref| <= atol + rtol |ref|`` everywhere; the max abs error."""
+    err = max_abs_err(got, ref)
+    r = ref.double()
+    ok = bool(((got.double() - r).abs() <= atol + rtol * r.abs()).all())
+    check(ok, f"{what}: max abs err {err} beyond rtol={rtol}, atol={atol}")
     return err
 
 
@@ -176,6 +210,32 @@ def matrix_pair(c: int, dev):
     return out
 
 
+def zipf_frequency_tables(rng, n_keys=30_000, rows_a=200_000,
+                          rows_b=200_000, overlap=0.2, z=2.0):
+    """TPC-H/Twitter-style join-size tables: key-frequency vectors with
+    Zipf skew and partial key overlap (``repro.data.synthetic``'s
+    generator, copied: the same draws from the same rng)."""
+    keys = rng.permutation(n_keys)
+    ka = keys[: n_keys // 2]
+    n_shared = int(len(ka) * overlap)
+    kb = np.concatenate([ka[:n_shared], keys[n_keys // 2:
+                                             n_keys - n_shared]])
+    fa = np.zeros(n_keys, np.float32)
+    fb = np.zeros(n_keys, np.float32)
+    draws_a = ka[np.minimum(rng.zipf(z, rows_a) - 1, len(ka) - 1)]
+    draws_b = kb[np.minimum(rng.zipf(z, rows_b) - 1, len(kb) - 1)]
+    np.add.at(fa, draws_a, 1.0)
+    np.add.at(fb, draws_b, 1.0)
+    return fa, fb
+
+
+def samples_for_budget(m_doubles: int) -> int:
+    """Sampling methods store (32-bit id, 64-bit value) pairs: 1.5 doubles
+    a sample, so a budget of m doubles buys m / 1.5 samples
+    (``benchmarks/common.py``)."""
+    return max(int(m_doubles / 1.5), 4)
+
+
 def drop_share(m: int, n_buckets: int, slots: int) -> float:
     """Chance that a sketch of m entries drops one in n_buckets x slots:
     bucket loads ~ Poisson(m / n_buckets), each must hold at most S."""
@@ -186,10 +246,15 @@ def drop_share(m: int, n_buckets: int, slots: int) -> float:
 
 
 def run_path(kernels, fn):
-    """Zero every launch counter, run one path, read the counters."""
+    """Zero every launch counter, run one path, read the counters; the
+    path's output gets its wall seconds under ``"seconds"``."""
     for k in kernels:
         k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out = fn()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
     return out, {k.__name__: k.launches for k in kernels}
 
 
@@ -209,9 +274,19 @@ def main() -> None:
     from repro_torch import quickstart
     from repro_torch.kernels import _build
     import repro_torch.kernels as tk
-    from repro_torch.core import (INVALID_IDX, Sketch, estimate_inner_product,
-                                  hash_unit, priority_sketch, sampling_ranks,
-                                  sketch_corpus, weight)
+    from repro_torch.core import (INVALID_IDX, Sketch, countsketch,
+                                  countsketch_estimate,
+                                  dp_chebyshev_halfwidth,
+                                  estimate_inner_product, fold_seed,
+                                  hash_bucket, hash_sign, hash_unit,
+                                  jl_estimate, jl_sketch,
+                                  priority_sketch, sampling_ranks,
+                                  sketch_corpus, threshold_sketch, weight)
+    from repro_torch.kernels.countsketch import countsketch_ref
+    from repro_torch.kernels.jl_rademacher import (jl_row_seeds, jl_rows_ref,
+                                                   jl_signs_ref)
+    from repro_torch.private import (DPParams, bias_aware_cs_sketch,
+                                     estimate_bias_aware_cs, head_split)
     from repro_torch.distributed import (partitioned_matrix_sketch,
                                          partitioned_sketch_corpus)
     from repro_torch.engine import (build_payload_corpus, pack_payloads,
@@ -415,11 +490,62 @@ def main() -> None:
     check(b7_drops > 0, "the 16-bucket matrix layout dropped nothing")
     err["matrix_products"] = b7_err
     del a, b, got
+
+    # B8 at the join-size path's shapes (Fig. 10's first table: n = 30000,
+    # m = 400, the modulo branch; the bias-aware tail's residual at
+    # m = (400 - 16) // 3 = 128, the mask branch) and the quickstart's
+    # (n = 100000, m = 600); B9 at (30000, 400) and at the main path's
+    # width (a 65536-wide row, m = 256) under both row-seed rules
+    # (kernels.jl_project's and core.baselines.jl_sketch's).  Each against
+    # its plain version and against a second launch, bit for bit
+    fa0, _ = zipf_frequency_tables(np.random.default_rng(7), JOIN_KEYS,
+                                   JOIN_ROWS, JOIN_ROWS,
+                                   overlap=JOIN_OVERLAP, z=JOIN_Z)
+    fa0_t = torch.as_tensor(fa0, device=dev)
+    tail_t = torch.as_tensor(head_split(fa0, JOIN_HEAD)[2], device=dev)
+    qs_t = torch.as_tensor(quickstart.make_vectors()[0], device=dev)
+    b8_cases = (("fig10", fa0_t, JOIN_M),
+                ("tail", tail_t, (JOIN_M - JOIN_HEAD) // CS_TAIL_REPS),
+                ("quickstart", qs_t, int(quickstart.M * 1.5)))
+    sb, ss = int(fold_seed(5, 1)), int(fold_seed(5, 2))
+    b8_err = 0.0
+    for case, v, m in b8_cases:
+        what = f"countsketch {case} n={v.shape[0]} m={m}"
+        got = tk.countsketch_scatter(v, m, sb, ss)
+        assert_bits(tk.countsketch_scatter(v, m, sb, ss), got,
+                    f"{what}, run to run")
+        b8_err = max(b8_err, assert_tol(got, countsketch_ref(v, sb, ss, m),
+                                        CS_TOL, CS_TOL, what))
+    err["countsketch_scatter"] = b8_err
+    b9_cases = (("fig10", fa0_t, JOIN_M), ("main", rand_block(1, N)[0], M))
+    b9_err = 0.0
+    for case, v, m in b9_cases:
+        rows = torch.arange(m, dtype=torch.int64, device=dev)
+        for rule, seeds in (
+                ("jl_project", jl_row_seeds(SEED, rows)),
+                ("jl_sketch", (int(fold_seed(SEED, 0)) + rows) & 0xFFFFFFFF)):
+            what = f"jl_rademacher {case} n={v.shape[0]} m={m} {rule}"
+            got = tk.jl_rademacher(v, seeds)
+            assert_bits(tk.jl_rademacher(v, seeds), got,
+                        f"{what}, run to run")
+            ref = jl_rows_ref(v, seeds)
+            scale = max(1.0, float(ref.abs().max()))
+            b9_err = max(b9_err, assert_tol(got, ref, JL_TOL,
+                                            JL_TOL * scale, what))
+    err["jl_rademacher"] = b9_err
     emit({"phase": "parity", "max_abs_err": err,
           "build_kernels": "bit-equal", "merge_kernel": "bit-equal",
           "merge_dropped": merge_drops, "estimators": f"rtol={RTOL}",
           "matrix_products_cases": [list(c) for c in b7_cases],
-          "matrix_products_layout_dropped": b7_drops})
+          "matrix_products_layout_dropped": b7_drops,
+          "countsketch_cases": [[c, int(v.shape[0]), m]
+                                for c, v, m in b8_cases],
+          "countsketch_tolerance": f"rtol=atol={CS_TOL}",
+          "jl_rademacher_cases": [[c, int(v.shape[0]), m]
+                                  for c, v, m in b9_cases],
+          "jl_rademacher_tolerance":
+              f"rtol={JL_TOL}, atol={JL_TOL} x max(1, max |out|)",
+          "repeat_launches": "bit-equal"})
 
     # ------------------------------------------------------------- main path
     rng = np.random.default_rng(2)
@@ -504,6 +630,7 @@ def main() -> None:
           "all_pairs_vs_query_max_abs_err": mp["row_err"],
           "diag_max_scaled_error": mp["diag_scaled"],
           "diag_bound": 8.0 / math.sqrt(M),
+          "seconds": mp["seconds"],
           "launches": launches["main_path"]})
 
     # -------------------------------------------------------- threshold path
@@ -581,12 +708,16 @@ def main() -> None:
           "quickstart_threshold_scaled_error":
               tp["qs"]["scaled_error"]["threshold"],
           "quickstart_threshold_size": tp["qs"]["threshold_size"],
+          "seconds": tp["seconds"],
           "launches": launches["threshold_path"]})
 
     # ------------------------------------------------------------ merge path
     def merge_path():
         lo_ix, hi_ix = (SketchIndex(M, n_buckets=N_BUCKETS, slots=SLOTS,
-                                    seed=SEED, device=dev) for _ in range(2))
+                                    seed=SEED,
+                                    dp=DPParams(epsilon=MERGE_EPS),
+                                    dp_rng=np.random.default_rng(21 + k),
+                                    device=dev) for k in range(2))
         for lo in range(0, D_BATCH, BLOCK_ROWS):
             rows = list(range(lo, min(lo + BLOCK_ROWS, D_BATCH)))
             block = dense_rows(vidx, vval, rows)
@@ -604,10 +735,17 @@ def main() -> None:
                for k in ("_idx", "_val", "_tau", "_dropped", "_head_idx",
                          "_head_val")}
         clean = (lo_ix._dropped[:D] == 0) & (hi_ix._dropped[:D] == 0)
+        # the peer releases once; merging composes its ledger here
+        hi_ix.query(planted(0, sources[0]), mode="private")
+        check(hi_ix.accountant.spent_epsilon == MERGE_EPS,
+              "the peer's release was not charged once")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lo_ix.merge_from(hi_ix)
         merge_ms = (time.perf_counter() - t0) * 1e3
+        check(lo_ix.accountant.spent_epsilon == MERGE_EPS
+              and lo_ix.accountant.ledger == hi_ix.accountant.ledger,
+              "merge_from did not compose the peer's privacy ledger")
         rows = np.flatnonzero(clean)
         for k in ("_idx", "_val", "_tau", "_dropped"):
             assert_bits(torch.as_tensor(getattr(lo_ix, k)[rows]),
@@ -625,7 +763,8 @@ def main() -> None:
               "merged index all_pairs differs on equal rows")
         return dict(other_rows=int(D - rows.size), merge_ms=merge_ms,
                     pre=pre, hi=hi_ix, dropped=index.total_dropped,
-                    merged_dropped=lo_ix.total_dropped)
+                    merged_dropped=lo_ix.total_dropped,
+                    merged_epsilon=lo_ix.accountant.spent_epsilon)
 
     mg, launches["merge_path"] = run_path(kernels, merge_path)
     need = ("hash_rank_hist", "rank_hist", "merge_bucketized",
@@ -645,6 +784,8 @@ def main() -> None:
           "full_index_dropped": mg["dropped"],
           "merged_index_dropped": mg["merged_dropped"],
           "merge_from_ms": mg["merge_ms"],
+          "peer_epsilon_composed": mg["merged_epsilon"],
+          "seconds": mg["seconds"],
           "launches": launches["merge_path"]})
 
     # ----------------------------------------------------------- matrix path
@@ -775,7 +916,172 @@ def main() -> None:
           "partitioned_threshold_tau_rel_err": mat_tau_rel,
           "stored_with_drop": drop_rows,
           "stored_with_drop_predicted": drop_expected,
+          "seconds": mx["seconds"],
           "launches": launches["matrix_path"]})
+
+    # -------------------------------------------------------- join-size path
+    jrng = np.random.default_rng(7)       # fig10_joinsize.py's rng
+    samples = samples_for_budget(JOIN_M)
+    join_methods = {
+        "JL": (lambda v, s: jl_sketch(v, JOIN_M, s), jl_estimate),
+        "CS": (lambda v, s: countsketch(v, JOIN_M, s), countsketch_estimate),
+        "TS-weighted": (lambda v, s: threshold_sketch(v, samples, s,
+                                                      backend="kernel"),
+                        estimate_inner_product),
+        "PS-weighted": (lambda v, s: priority_sketch(v, samples, s,
+                                                     backend="kernel"),
+                        estimate_inner_product),
+        "TS-uniform": (
+            lambda v, s: threshold_sketch(v, samples, s, variant="uniform",
+                                          backend="kernel"),
+            lambda a, b: estimate_inner_product(a, b, variant="uniform")),
+        "PS-uniform": (
+            lambda v, s: priority_sketch(v, samples, s, variant="uniform",
+                                         backend="kernel"),
+            lambda a, b: estimate_inner_product(a, b, variant="uniform")),
+    }
+    dp_join = DPParams(epsilon=JOIN_EPS, clamp=JOIN_CLAMP,
+                       p_floor=JOIN_P_FLOOR)
+
+    def join_tables():
+        return zipf_frequency_tables(jrng, JOIN_KEYS, JOIN_ROWS, JOIN_ROWS,
+                                     overlap=JOIN_OVERLAP, z=JOIN_Z)
+
+    def join_panel(skew_both: bool):
+        fa, fb = join_tables()
+        if not skew_both:   # TPC-H-like: only one side skewed
+            fb = np.where(fb > 0, np.ceil(fb.mean()), 0).astype(np.float32)
+        true = float(fa.astype(np.float64) @ fb.astype(np.float64))
+        ta, tb = (torch.as_tensor(x, device=dev) for x in (fa, fb))
+        errs, ms = {}, {}
+        for mname, (sk, est) in join_methods.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rel = [abs(float(est(sk(ta, s), sk(tb, s))) - true) / true
+                   for s in range(JOIN_TRIALS)]
+            ms[mname] = (time.perf_counter() - t0) / (2 * JOIN_TRIALS) * 1e3
+            errs[mname] = float(np.mean(rel))
+        return errs, ms
+
+    def served_index(s, device):
+        return SketchIndex(m=JOIN_M, n_buckets=JOIN_BUCKETS, seed=s,
+                           head_h=JOIN_HEAD, dp=dp_join,
+                           dp_rng=np.random.default_rng((17, s)),
+                           device=device)
+
+    def served_panel():
+        """The Twitter-like tables through SketchIndex: fa ingested (and
+        a [0, 1]-scaled copy for the private row, so the clamp 1.0 is
+        exact), fb the query; plain, bias_aware and private side by side;
+        then the bias-aware CountSketch tail on the same tables."""
+        fa, fb = join_tables()
+        true = float(fa.astype(np.float64) @ fb.astype(np.float64))
+        scale = max(float(fa.max()), 1.0)
+        fa_n = (fa / scale).astype(np.float32)
+        true_n = true / scale
+        band = float(dp_chebyshev_halfwidth(
+            float(fa_n.astype(np.float64) @ fa_n),
+            float(fb.astype(np.float64) @ fb), JOIN_M,
+            q=dp_join.survival, noise_scale=dp_join.noise_scale(JOIN_M),
+            clamp=dp_join.clamp, p_floor=dp_join.p_floor, capacity=JOIN_M,
+            universe=JOIN_KEYS, delta=0.05))
+        ta, tb = (torch.as_tensor(x, device=dev) for x in (fa, fb))
+        rel = {k: [] for k in ("direct", "plain", "bias_aware", "private")}
+        query_ms = {k: [] for k in ("plain", "bias_aware", "private")}
+        in_band, ledger = 0, {}
+        for s in range(JOIN_TRIALS):
+            sa = priority_sketch(ta, JOIN_M, s)
+            sb_ = priority_sketch(tb, JOIN_M, s)
+            rel["direct"].append(
+                abs(float(estimate_inner_product(sa, sb_)) - true) / true)
+            ix = served_index(s, dev)
+            ix.add("fa", fa)
+            ix.add("fa_private", fa_n)
+            ans = {}
+            for mode in query_ms:
+                t0 = time.perf_counter()
+                ans[mode] = dict(ix.query(fb, mode=mode))
+                query_ms[mode].append((time.perf_counter() - t0) * 1e3)
+            rel["plain"].append(abs(ans["plain"]["fa"] - true) / true)
+            rel["bias_aware"].append(
+                abs(ans["bias_aware"]["fa"] - true) / true)
+            err_priv = abs(ans["private"]["fa_private"] - true_n)
+            rel["private"].append(err_priv / abs(true_n))
+            in_band += err_priv <= band
+            if s == 0:
+                # one charge a release epoch; the cached release is free;
+                # the same release from CPU copies with the same rng
+                first = ix._private_release
+                ledger["first"] = ix.accountant.spent_epsilon
+                ix.query(fb, mode="private")
+                ledger["cached"] = ix.accountant.spent_epsilon
+                check(ix._private_release is first,
+                      "a query of the cached release made a new one")
+                cpu = served_index(s, "cpu")
+                cpu.add("fa", fa)
+                cpu.add("fa_private", fa_n)
+                cpu.query(fb, mode="private")
+                for k in ("idx", "z"):
+                    assert_bits(
+                        torch.as_tensor(getattr(cpu._private_release, k)),
+                        torch.as_tensor(getattr(first, k)),
+                        f"private release {k} from CPU copies")
+                ix.add("fb", fb)
+                ix.query(fb, mode="private")
+                ledger["second_epoch"] = ix.accountant.spent_epsilon
+        check(ledger == {"first": JOIN_EPS, "cached": JOIN_EPS,
+                         "second_epoch": 2 * JOIN_EPS},
+              f"privacy ledger {ledger}: want {JOIN_EPS} a release epoch")
+        cs_est = [estimate_bias_aware_cs(
+            bias_aware_cs_sketch(fa, JOIN_M, s, h=JOIN_HEAD,
+                                 reps=CS_TAIL_REPS, device=dev),
+            bias_aware_cs_sketch(fb, JOIN_M, s, h=JOIN_HEAD,
+                                 reps=CS_TAIL_REPS, device=dev))
+            for s in range(JOIN_TRIALS)]
+        return dict(rel={k: float(np.mean(v)) for k, v in rel.items()},
+                    in_band=in_band / JOIN_TRIALS, band=band,
+                    ledger=ledger,
+                    query_ms={k: float(np.percentile(v, 50))
+                              for k, v in query_ms.items()},
+                    cs_tail_rel=abs(float(np.median(cs_est)) - true) / true)
+
+    def join_size_path():
+        tpch, tpch_ms = join_panel(skew_both=False)
+        tw, tw_ms = join_panel(skew_both=True)
+        served = served_panel()
+        return dict(tpch=tpch, tw=tw, tpch_ms=tpch_ms, tw_ms=tw_ms,
+                    served=served)
+
+    jp, launches["join_size_path"] = run_path(kernels, join_size_path)
+    need = ("countsketch_scatter", "jl_rademacher", "hash_rank_hist",
+            "rank_hist", "hash_rank", "intersect_estimate")
+    check(all(launches["join_size_path"][k] > 0 for k in need),
+          f"a kernel of the join-size path never launched: {launches}")
+    tw, sv = jp["tw"], jp["served"]
+    gates = {
+        "served_matches_direct":
+            sv["rel"]["plain"] <= 2.5 * sv["rel"]["direct"] + 0.02,
+        "served_private_within_band": sv["in_band"] >= 0.75,
+        "weighted_beats_uniform_on_skew":
+            tw["PS-weighted"] < tw["PS-uniform"],
+        "weighted_competitive_with_linear":
+            tw["PS-weighted"] < 1.2 * tw["JL"],
+        "bias_aware_cs_tail_within_half": sv["cs_tail_rel"] < 0.5,
+    }
+    emit({"phase": "join_size_path", "n_keys": JOIN_KEYS,
+          "rows": JOIN_ROWS, "trials": JOIN_TRIALS, "m": JOIN_M,
+          "samples": samples, "overlap": JOIN_OVERLAP, "z": JOIN_Z,
+          "rel_err_tpch_like": jp["tpch"], "rel_err_twitter_like": tw,
+          "ms_per_sketch_tpch_like": jp["tpch_ms"],
+          "ms_per_sketch_twitter_like": jp["tw_ms"],
+          "served_rel_err": sv["rel"], "private_band": sv["band"],
+          "private_in_band": sv["in_band"],
+          "served_query_p50_ms": sv["query_ms"],
+          "bias_aware_cs_tail_median_rel_err": sv["cs_tail_rel"],
+          "epsilon_spent": sv["ledger"], "gates": gates,
+          "seconds": jp["seconds"],
+          "launches": launches["join_size_path"]})
+    check(all(gates.values()), f"Fig. 10 gates failed: {gates}")
 
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()
@@ -871,11 +1177,56 @@ def main() -> None:
                                              theirs.val, m_tau, SEED),
                 iters=3),
         None, D * B * S * 24 + D * 8, "bytes")
+    # B8 and B9 at Fig. 10's shape (n = 30000, m = 400), against their
+    # plain versions and one PyTorch call each with the hashes excluded:
+    # index_add_ of precomputed signed values into precomputed buckets
+    # (B8), torch.mv with a materialised sign matrix (B9)
+    idx_j = torch.arange(JOIN_KEYS, dtype=torch.int32, device=dev)
+    b8_bucket = hash_bucket(sb, idx_j, JOIN_M).to(torch.int64)
+    b8_signed = hash_sign(ss, idx_j) * fa0_t
+    t["countsketch_scatter"] = (
+        cuda_ms(lambda: tk.countsketch_scatter(fa0_t, JOIN_M, sb, ss)),
+        cuda_ms(lambda: countsketch_ref(fa0_t, sb, ss, JOIN_M), iters=5),
+        cuda_ms(lambda: torch.zeros(JOIN_M, device=dev).index_add_(
+            0, b8_bucket, b8_signed)),
+        (JOIN_KEYS + JOIN_M) * 4, "bytes")
+    jl_rows = torch.arange(JOIN_M, dtype=torch.int64, device=dev)
+    jl_seeds = jl_row_seeds(SEED, jl_rows)
+    jl_S = jl_signs_ref(SEED, jl_rows, JOIN_KEYS)
+    t["jl_rademacher"] = (
+        cuda_ms(lambda: tk.jl_rademacher(fa0_t, jl_seeds)),
+        cuda_ms(lambda: jl_rows_ref(fa0_t, jl_seeds), iters=3),
+        cuda_ms(lambda: torch.mv(jl_S, fa0_t)),
+        (JOIN_KEYS + 2 * JOIN_M) * 4, "ops")
+    del jl_S
+
+    def jl_bound_ms(n: int, m: int) -> float:
+        """m n terms: 10 integer operations and one float add each, or
+        the bytes (the vector and the row seeds read, the output
+        written), whichever takes longer."""
+        terms = float(n) * m
+        return max(terms * JL_INT_OPS / INT32_OPS_PER_S * 1e3,
+                   terms * 2 / FP32_OPS_PER_S * 1e3,
+                   (n + 2 * m) * 4 / HBM_BYTES_PER_S * 1e3)
+
+    # the other shapes the paths give them
+    b8_shapes = {f"{c} n={int(v.shape[0])} m={m}": (
+        cuda_ms(lambda v=v, m=m: tk.countsketch_scatter(v, m, sb, ss)),
+        (int(v.shape[0]) + m) * 4 / HBM_BYTES_PER_S * 1e3)
+        for c, v, m in b8_cases}
+    b9_shapes = {}
+    for c, v, m in b9_cases:
+        seeds = jl_row_seeds(SEED, torch.arange(m, device=dev))
+        b9_shapes[f"{c} n={int(v.shape[0])} m={m}"] = (
+            cuda_ms(lambda v=v, seeds=seeds: tk.jl_rademacher(v, seeds)),
+            jl_bound_ms(int(v.shape[0]), m))
     bounds = {}
     for kname, (ms, plain, lib, nbytes, _) in t.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = (join_ops / FP32_OPS_PER_S * 1e3
-                  if kname == "allpairs_estimate" else 0.0)
+                  if kname == "allpairs_estimate" else
+                  jl_bound_ms(JOIN_KEYS, JOIN_M)
+                  if kname == "jl_rademacher" else 0.0)
         bounds[kname] = (max(bytes_ms, ops_ms),
                          "operations" if ops_ms > bytes_ms else "bytes")
     # where one add_many block, one query and one merge_from spend their
@@ -1046,6 +1397,16 @@ def main() -> None:
           "matrix_products_bound_all_inputs_ms":
               b7_full_bytes / HBM_BYTES_PER_S * 1e3,
           "allpairs_join_compares": join_ops,
+          "join_size_path_s": jp["seconds"],
+          "join_served_query_p50_ms": sv["query_ms"],
+          "countsketch_ms_and_bound_by_shape": b8_shapes,
+          "jl_rademacher_ms_and_bound_by_shape": b9_shapes,
+          "int32_ops_per_s": INT32_OPS_PER_S,
+          "path_seconds": {"main_path": mp["seconds"],
+                           "threshold_path": tp["seconds"],
+                           "merge_path": mg["seconds"],
+                           "matrix_path": mx["seconds"],
+                           "join_size_path": jp["seconds"]},
           "kernel_ms": {k: v[0] for k, v in t.items()},
           "bound_ms": {k: v[0] for k, v in bounds.items()}})
 
@@ -1079,7 +1440,21 @@ def main() -> None:
             "src/repro_torch/csrc/matrix_sketch.cu",
             "src/repro/kernels/matrix_sketch/matrix_sketch.py:70",
             f"rtol={RTOL}"),
+        "countsketch_scatter": (
+            "src/repro_torch/csrc/countsketch.cu",
+            "src/repro/kernels/countsketch/countsketch.py:64",
+            f"rtol=atol={CS_TOL}"),
+        "jl_rademacher": (
+            "src/repro_torch/csrc/jl_rademacher.cu",
+            "src/repro/kernels/jl_rademacher/jl_rademacher.py:59",
+            f"rtol={JL_TOL}, atol={JL_TOL} x max(1, max |out|)"),
     }
+    library_call = {
+        "rank_hist": "torch.kthvalue (the whole selection)",
+        "countsketch_scatter": "index_add_ (hashes excluded: buckets and "
+                               "signed values precomputed)",
+        "jl_rademacher": "torch.mv (hashes excluded: the sign matrix "
+                         "materialised)"}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]
@@ -1091,6 +1466,7 @@ def main() -> None:
                      "max_abs_err": err[kname], "ms": ms, "plain_ms": plain,
                      "bound_ms": bounds[kname][0],
                      "bound_by": bounds[kname][1], "library_ms": lib,
+                     "library_call": library_call.get(kname),
                      "parity": parity})
     check(all(r["launches"] > 0 for r in rows),
           f"a ported kernel never launched: {launches}")

@@ -11,7 +11,11 @@ version.  ``csrc/`` holds the sources; ``_build`` compiles them with
 - ``sketch_merge``: ``merge_bucketized`` (the partition merge of two
   bucketized corpora);
 - ``matrix_sketch``: ``matrix_products`` (the batched ``A^T B`` estimates
-  of bucketized matrix-sketch pairs).
+  of bucketized matrix-sketch pairs);
+- ``countsketch``: ``countsketch_scatter`` (a CountSketch table: the
+  CountSketch baseline and the bias-aware estimator's tail);
+- ``jl_rademacher``: ``jl_rademacher`` (the matrix-free JL projection
+  under given row seeds: ``jl_project`` and the JL baseline).
 """
 from .hash_rank import hash_rank, hash_rank_batched
 from .intersect_estimate import (BucketizedSketch, allpairs_estimate,
@@ -25,6 +29,8 @@ from .sketch_build import (adaptive_tau_batched, build_priority_corpus,
                            kth_smallest_ranks, pack_kept, rank_hist)
 from .sketch_merge import (merge_bucketized, merge_bucketized_corpora,
                            merged_tau_bucketized)
+from .countsketch import countsketch, countsketch_ref, countsketch_scatter
+from .jl_rademacher import jl_project, jl_rademacher, jl_ref
 # last: matrix_sketch reaches repro_torch.matrix, whose builders import
 # the packages above
 from .matrix_sketch import (BucketizedMatrixSketch, bucketize_matrix_sketches,
@@ -33,7 +39,7 @@ from .matrix_sketch import (BucketizedMatrixSketch, bucketize_matrix_sketches,
 
 KERNELS = (hash_rank_hist, rank_hist, hash_rank_batched, hash_rank,
            intersect_estimate, allpairs_estimate, merge_bucketized,
-           matrix_products)
+           matrix_products, countsketch_scatter, jl_rademacher)
 
 __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
            "allpairs_estimate", "allpairs_moments", "bucketize",
@@ -46,4 +52,6 @@ __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
            "merge_bucketized_corpora", "merged_tau_bucketized",
            "BucketizedMatrixSketch", "bucketize_matrix_sketches",
            "matrix_products", "matrix_products_bucketized",
-           "matrix_slot_probs", "KERNELS"]
+           "matrix_slot_probs", "countsketch", "countsketch_ref",
+           "countsketch_scatter", "jl_project", "jl_rademacher", "jl_ref",
+           "KERNELS"]

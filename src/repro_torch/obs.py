@@ -9,7 +9,10 @@ uses, so the port never imports the JAX package:
   sums ``repro_op_seconds{op=...}``;
 - :func:`kernel_launch` — ``repro_kernel_launches_total{kernel=...}``;
 - :func:`counter` — a plain named counter (the serving boundary's
-  rejection counts).
+  rejection counts);
+- :func:`gauge` — a named value that ``set`` overwrites (the serving
+  index's ``repro_biasaware_head_fraction`` and
+  ``repro_dp_epsilon_spent``).
 
 While disabled every accessor returns a shared no-op object, so an
 instrumented call site costs one bool test.  The metric registry is a
@@ -132,6 +135,36 @@ def counter(name: str, label: str = "", n: float = 1) -> None:
     """Add ``n`` to the counter ``name{label}`` (no-op when off)."""
     if _ENABLED:
         _add(name, label, n)
+
+
+class _NoopGauge:
+    __slots__ = ()
+
+    def set(self, value) -> None:
+        pass
+
+
+NOOP_GAUGE = _NoopGauge()
+
+
+class _Gauge:
+    """``set`` overwrites the registry's value of ``name``."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def set(self, value) -> None:
+        with _LOCK:
+            _METRICS[(self.name, "")] = float(value)
+
+
+def gauge(name: str, help: str = ""):
+    """The gauge ``name`` (``help`` documents it; no-op object when off)."""
+    if not _ENABLED:
+        return NOOP_GAUGE
+    return _Gauge(name)
 
 
 if os.environ.get("REPRO_OBS", "").strip().lower() in ("1", "true", "on"):

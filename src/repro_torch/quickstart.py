@@ -4,8 +4,8 @@ confidence interval, and check the paper's error guarantees — the port of
 
 Both sketches are built through the linear-time kernel build
 (``backend="kernel"``); the asserts make this an end-to-end smoke test.
-The example's CountSketch baseline line (printed, never asserted) is left
-out: the baselines are ROADMAP step A10.
+The CountSketch baseline at the same storage is printed beside them, not
+asserted, as in the example.
 
     PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
 """
@@ -16,7 +16,8 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.core import (chebyshev_interval, estimate_inner_product,
+from repro_torch.core import (chebyshev_interval, countsketch,
+                              countsketch_estimate, estimate_inner_product,
                               priority_sketch, threshold_sketch)
 from repro_torch.device import resolve_device
 
@@ -62,6 +63,12 @@ def main(device=None) -> dict:
     print(f"threshold sampling    = {est_t:+.3f}"
           f"   (sketch size {int(xa.size())}, E[size]=m)")
 
+    # the linear-sketch baseline at the same storage (1.5x samples rule)
+    ca = countsketch(ta, int(m * 1.5), seed)
+    cb = countsketch(tb, int(m * 1.5), seed)
+    est_cs = float(countsketch_estimate(ca, cb))
+    print(f"CountSketch baseline  = {est_cs:+.3f}")
+
     # Theorem 1/3 concentration: the scaled error |est - true| /
     # (||a|| ||b||) is O(1/sqrt(m)); 8x covers the tail at this seed
     bound = 8.0 / np.sqrt(m)
@@ -73,6 +80,7 @@ def main(device=None) -> dict:
     assert int(sa.size()) == m, "priority sketch must have exactly m samples"
     print("error bounds ok")
     return {"true": true, "priority": est, "threshold": est_t,
+            "countsketch": est_cs,
             "scaled_error": scaled, "bound": bound,
             "threshold_size": int(xa.size())}
 

@@ -2,7 +2,8 @@
 
 The state of a ``SketchIndex`` is its host blocks, not weights: the
 bucketized ids and values, the taus and drop counts, the row summaries
-and the exact heads, plus the names and the layout parameters.  A
+and the exact heads, plus the names, the layout parameters and the
+private mode's state (its ``DPParams``, budget and privacy ledger).  A
 ``MatrixSketchStore`` holds its sketches' ids, rows and taus.  A caller
 that holds these as numpy arrays — for instance pulled out of the
 reference package's objects — gets a port object that answers exactly as
@@ -20,6 +21,7 @@ from .sketch_service import MatrixSketchStore, SketchIndex
 def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
                       head_kept, names: Sequence, dim, m: int, n_buckets: int,
                       slots: int, seed: int, nonfinite: str = "raise",
+                      dp=None, privacy_budget=None, ledger=(), dp_rng=None,
                       device=None) -> SketchIndex:
     """Build a port ``SketchIndex`` from host-state arrays.
 
@@ -28,7 +30,11 @@ def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
     ``head_kept``: (R, head_h); R >= len(names) rows, of which the first
     len(names) are occupied (the rest are dropped and refilled as
     padding).  ``dim`` is the coordinate universe (None for an empty
-    index)."""
+    index).  ``dp``, ``privacy_budget`` and ``dp_rng`` are the index's
+    private-mode arguments; ``ledger`` is the spent releases as
+    ``(label, epsilon, delta, mem_epsilon)`` tuples, charged in order on
+    the new index's accountant (strict, as any spend), and the release
+    numbering continues after the ledger's ``index-release-*`` entries."""
     D = len(names)
     idx = np.asarray(idx, np.int32)
     if idx.shape[1:] != (n_buckets, slots) or idx.shape[0] < D:
@@ -37,7 +43,8 @@ def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
     head_idx = np.asarray(head_idx, np.int64)
     out = SketchIndex(m, n_buckets=n_buckets, slots=slots, seed=seed,
                       initial_capacity=max(idx.shape[0], 1),
-                      nonfinite=nonfinite, head_h=head_idx.shape[1],
+                      nonfinite=nonfinite, head_h=head_idx.shape[1], dp=dp,
+                      privacy_budget=privacy_budget, dp_rng=dp_rng,
                       device=device)
     while out.capacity < D:
         out._grow()
@@ -56,6 +63,10 @@ def index_from_arrays(*, idx, val, tau, dropped, g, kn, head_idx, head_val,
         raise ValueError("names must be unique")
     out._dim = None if dim is None else int(dim)
     out._stats_epoch = 1 if D else 0
+    for label, epsilon, delta, mem_epsilon in ledger:
+        out.accountant.spend(epsilon, delta, label=label,
+                             mem_epsilon=mem_epsilon)
+        out._release_count += str(label).startswith("index-release-")
     return out
 
 

@@ -11,15 +11,17 @@ all D estimates with one launch of the query kernel; ``all_pairs`` gives
 the (D, D) matrix with one launch of the all-pairs kernel;
 ``merge_from`` folds a partition peer's index in with one launch of the
 bucketized merge kernel.  The device copy of the occupied corpus is rebuilt
-lazily after each mutation.
+lazily after each mutation.  ``query(mode=...)`` also answers with the
+bias-aware exact-head correction and against a differentially-private
+release of the corpus (``dp=DPParams(...)``), charged on the index's
+privacy accountant.
 
 :class:`MatrixSketchStore` is the matrix surface: a library of
 row-sampled matrix sketches answering ``A^T B`` estimates, one query
 against the whole library with one launch of the matrix-product kernel.
 
-Plain mode only: the bias-aware and private query modes (and the privacy
-accountant that ``merge_from`` composes in the reference), ``top_pairs``
-and ``top_k_for_query`` come with later slices (ROADMAP queue A).
+``top_pairs`` and ``top_k_for_query`` come with a later slice (ROADMAP
+queue A, step 11).
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from repro_torch.kernels import (BucketizedSketch, bucketize,
 from repro_torch.matrix import (MatrixSketch, estimate_matrix_product,
                                 estimate_matrix_products,
                                 priority_matrix_sketch)
+from repro_torch.private import (PrivacyAccountant, estimate_private_dense,
+                                 private_release_corpus)
 
 from .validation import (check_finite, check_nonfinite_policy, check_sparse,
                          check_unique_name, check_unique_names, check_vector)
@@ -88,7 +92,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 class SketchIndex:
-    """Incremental priority-sketch index (plain mode).
+    """Incremental priority-sketch index.
 
     ``m``: samples per indexed vector; ``n_buckets``/``slots``: the
     bucketized layout (``n_buckets >= 2 m`` keeps overflow drops near
@@ -98,11 +102,29 @@ class SketchIndex:
     ``head_h``: exact top-``head_h`` coordinates kept per row for the
     bias-aware mode; ``device``: where sketches are built and estimated
     (default ``cuda``; ``"cpu"`` runs the kernels' plain versions).
+
+    ``query(..., mode=...)`` selects
+
+    - ``"plain"``: Algorithm 2 on the query kernel (the default);
+    - ``"bias_aware"``: the same plus an exact-head correction — each
+      row's top-``head_h`` coordinates (tracked at ingest) contribute
+      their exact product with the known query instead of the sampled
+      Horvitz-Thompson term;
+    - ``"private"``: estimates against a differentially-private release
+      of the corpus (``dp=DPParams(...)`` required), built lazily, charged
+      once on :attr:`accountant` (disjoint rows compose in parallel),
+      cached until the corpus changes; queries of a cached release are
+      free.  ``privacy_budget`` pins a finite epsilon budget; overdrawing
+      raises ``PrivacyBudgetExceeded`` before any release is made.
+      Release randomness is OS entropy, never the public ``seed``;
+      ``dp_rng`` injects a seeded generator for tests only.
     """
 
     def __init__(self, m: int = 256, *, n_buckets: int = 512, slots: int = 4,
                  seed: int = 11, initial_capacity: int = 64,
-                 nonfinite: str = "raise", head_h: int = 16, device=None):
+                 nonfinite: str = "raise", head_h: int = 16, dp=None,
+                 privacy_budget: Optional[float] = None, dp_rng=None,
+                 device=None):
         self.device = resolve_device(device)
         self.m = m
         self.n_buckets = n_buckets
@@ -112,6 +134,11 @@ class SketchIndex:
         if head_h < 0:
             raise ValueError(f"need head_h >= 0, got {head_h}")
         self.head_h = int(head_h)
+        self.dp = dp.validate() if dp is not None else None
+        # release randomness is secret curator state: OS entropy unless a
+        # test injects a generator; never derived from the public seed
+        self._dp_rng = dp_rng
+        self.accountant = PrivacyAccountant(epsilon_budget=privacy_budget)
         self._dim: Optional[int] = None  # universe size, fixed on first add
         self._name_set: set = set()
         self._names: list = []
@@ -133,6 +160,9 @@ class SketchIndex:
         self._head_idx = np.full((self._cap, self.head_h), -1, np.int64)
         self._head_val = np.zeros((self._cap, self.head_h), np.float32)
         self._head_kept = np.zeros((self._cap, self.head_h), bool)
+        # the cached private release of rows [0, D), or None
+        self._private_release = None
+        self._release_count = 0
 
     def __len__(self):
         return len(self._names)
@@ -263,6 +293,7 @@ class SketchIndex:
             self._name_set.add(name)
             self._refresh_row_stats(d, d + 1)
             self._device_corpus = None
+            self._private_release = None  # the next release pays anew
 
     def add_many(self, names: Sequence, matrix: np.ndarray) -> None:
         """Batch-ingest a (D, n) block: one linear-time build of all D
@@ -301,6 +332,7 @@ class SketchIndex:
             self._name_set.update(names)
             self._refresh_row_stats(d0, d0 + D)
             self._device_corpus = None
+            self._private_release = None
 
     def _rollback_last(self, k: int) -> None:
         """Undo the last ``k`` appended rows, restoring padding state
@@ -320,6 +352,7 @@ class SketchIndex:
             self._head_kept[d] = False
         self._stats_epoch += 1
         self._device_corpus = None
+        self._private_release = None
 
     def _corpus(self) -> BucketizedSketch:
         """Occupied corpus prefix on the device, rounded up to a power of
@@ -337,15 +370,13 @@ class SketchIndex:
     def query(self, vector: np.ndarray, top_k: Optional[int] = None, *,
               mode: str = "plain"):
         """Inner-product estimates of ``vector`` against every indexed
-        vector, with one launch of the query kernel.  Returns
+        vector: one launch of the query kernel (``plain``, ``bias_aware``)
+        or the private release (``private``; class docstring).  Returns
         ``[(name, estimate)]`` in index order, or the ``top_k`` largest,
         descending (ties by ascending index)."""
         if mode not in QUERY_MODES:
             raise ValueError(f"unknown mode {mode!r}; expected "
                              "'plain'|'bias_aware'|'private'")
-        if mode != "plain":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP step A12)")
         if not self._names:
             raise ValueError("query on an empty index: add vectors before "
                              "querying")
@@ -354,15 +385,94 @@ class SketchIndex:
             sp.set("mode", mode)
             vector = check_vector(vector, "query vector", dim=self._dim,
                                   nonfinite=self.nonfinite)
-            sq = priority_sketch(torch.as_tensor(vector, device=self.device),
-                                 self.m, self.seed)
-            q = bucketize(sq, n_buckets=self.n_buckets, slots=self.slots)
-            est = _host(query_corpus(q, self._corpus())).astype(
-                np.float64)[: len(self._names)]
+            if mode == "private":
+                est = self._query_private(vector)
+            else:
+                sq = priority_sketch(torch.as_tensor(vector,
+                                                     device=self.device),
+                                     self.m, self.seed)
+                q = bucketize(sq, n_buckets=self.n_buckets, slots=self.slots)
+                est = _host(query_corpus(q, self._corpus())).astype(
+                    np.float64)[: len(self._names)]
+                if mode == "bias_aware":
+                    est = est + self._bias_aware_correction(
+                        _host(q.idx), float(sq.tau), vector)
             if top_k is None:
                 return list(zip(self._names, est.tolist()))
             order = _top_k_desc(est, top_k)
             return [(self._names[i], float(est[i])) for i in order]
+
+    def _bias_aware_correction(self, q_idx: np.ndarray, tau_q: float,
+                               vector: np.ndarray) -> np.ndarray:
+        """Exact-head correction: per row, subtract the query kernel's
+        sampled Horvitz-Thompson term of the row's head coordinates (there
+        only when a coordinate is kept in both bucketized layouts) and add
+        their exact product with the known query.  Unbiased for any
+        ``head_h``: the kernel's terms of the other coordinates stay."""
+        D = len(self._names)
+        if self.head_h == 0:
+            return np.zeros(D)
+        hi = self._head_idx[:D]
+        valid = hi >= 0
+        hic = np.where(valid, hi, 0)
+        hv = self._head_val[:D].astype(np.float64)
+        qv = np.where(valid, np.asarray(vector, np.float64)[hic], 0.0)
+        exact = hv * qv
+        # the kernel matched a head coordinate only if both layouts keep
+        # it (a coordinate's bucket depends on the coordinate alone)
+        q_idx = q_idx.ravel()
+        kept_q = np.isin(hic, q_idx[q_idx != INVALID_IDX]) & valid
+        kept = kept_q & self._head_kept[:D]
+        wq, wr = qv * qv, hv * hv
+        tau_r = self._tau[:D, None].astype(np.float64)
+        with np.errstate(over="ignore", invalid="ignore"):
+            p_q = np.where(wq > 0, np.minimum(1.0, tau_q * wq), 1.0)
+            p_r = np.where(wr > 0, np.minimum(1.0, tau_r * wr), 1.0)
+        p_min = np.minimum(p_q, p_r)
+        sampled = np.where(kept & (exact != 0),
+                           exact / np.where(p_min > 0, p_min, 1.0), 0.0)
+        if obs.enabled():
+            n_valid = int(valid.sum())
+            obs.gauge("repro_biasaware_head_fraction",
+                      "fraction of head entries the plain sketch kept").set(
+                          float(kept[valid].mean()) if n_valid else 0.0)
+        return (exact - sampled).sum(axis=1)
+
+    def _ensure_private_release(self):
+        """The cached DP release of the whole corpus: one accountant
+        charge per release epoch (rows are disjoint records: parallel
+        composition), dropped by any change to the corpus.  Strict: raises
+        ``PrivacyBudgetExceeded`` before releasing anything when the budget
+        would be overdrawn."""
+        if self.dp is None:
+            raise ValueError("private mode needs the index constructed "
+                             "with dp=DPParams(...)")
+        if self._private_release is None:
+            D = len(self._names)
+            flat_idx = self._idx[:D].reshape(D, -1)
+            flat_val = self._val[:D].reshape(D, -1)
+            # compact the (B, S) blocks to m slots: valid coordinates sort
+            # ahead of the INVALID sentinel (int32 max), a row keeps <= m
+            order = np.argsort(flat_idx, axis=1, kind="stable")
+            idx_c = np.take_along_axis(flat_idx, order, axis=1)[:, : self.m]
+            val_c = np.take_along_axis(flat_val, order, axis=1)[:, : self.m]
+            self._release_count += 1
+            rng = (self._dp_rng if self._dp_rng is not None
+                   else np.random.default_rng())   # OS entropy, unseeded
+            self._private_release = private_release_corpus(
+                idx_c, val_c, self._tau[:D], self._dim, self.dp, rng=rng,
+                accountant=self.accountant,
+                label=f"index-release-{self._release_count}")
+        return self._private_release
+
+    def _query_private(self, vector: np.ndarray) -> np.ndarray:
+        est = np.asarray(estimate_private_dense(
+            self._ensure_private_release(), vector))
+        if obs.enabled():
+            obs.gauge("repro_dp_epsilon_spent",
+                      "cumulative epsilon charged on this index's "
+                      "accountant").set(self.accountant.spent_epsilon)
+        return est
 
     def all_pairs(self, *, use_kernel: bool = True) -> np.ndarray:
         """(D, D) inner-product estimate matrix over the indexed vectors,
@@ -386,7 +496,9 @@ class SketchIndex:
         column).  One launch of the merge kernel merges all rows; raw
         vectors are never touched.  Exact up to bucket-overflow drops on
         either side (counted in ``total_dropped``): an entry already lost
-        to a full bucket cannot re-enter the union."""
+        to a full bucket cannot re-enter the union.  A merged release
+        would reveal both inputs, so the peer's privacy ledger is charged
+        here first (strict: raises before anything changes)."""
         if (other.m, other.n_buckets, other.slots, other.seed) != \
                 (self.m, self.n_buckets, self.slots, self.seed):
             raise ValueError("indexes must share m/n_buckets/slots/seed "
@@ -396,6 +508,7 @@ class SketchIndex:
         D = len(self._names)
         if D == 0:
             return
+        self.accountant.merge_from(other.accountant)
         with obs.op("serve.index.merge_from") as sp:
             sp.set("rows", D)
             dev = self.device
@@ -426,6 +539,7 @@ class SketchIndex:
             # every row's kept set and tau changed: all D rows are dirty
             self._refresh_row_stats(0, D)
             self._device_corpus = None
+            self._private_release = None
 
 
 class MatrixSketchStore:

@@ -23,8 +23,13 @@ from repro_torch.kernels.sketch_build import (build_priority_corpus_ref,
                                               rank_hist_ref)
 from repro_torch.kernels.matrix_sketch import matrix_products_ref
 from repro_torch.kernels.sketch_merge import merge_bucketized_ref
+from repro_torch.kernels.countsketch import countsketch_ref
+from repro_torch.kernels.jl_rademacher import jl_row_seeds, jl_rows_ref
 from repro_torch.engine import payload_weight
+from repro_torch.core import fold_seed
+import repro_torch.core as tc
 import repro_torch.matrix as tm
+from repro_torch.private import DPParams
 from repro_torch.serve import MatrixSketchStore, SketchIndex
 
 pytestmark = pytest.mark.cuda
@@ -339,3 +344,128 @@ def test_matrix_products_rejects_bad_inputs(cuda_device):
     p = torch.ones((1, 16384, 4), device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         tk.matrix_products(big, rows, p, big, rows, p)
+
+
+def _zipf_counts(rng, n_keys, rows, z=2.0):
+    """A Zipf key-frequency table (integer counts, as Fig. 10's)."""
+    keys = rng.permutation(n_keys)
+    f = np.zeros(n_keys, np.float32)
+    np.add.at(f, keys[np.minimum(rng.zipf(z, rows) - 1, n_keys - 1)], 1.0)
+    return f
+
+
+def _cs_exact(t, m, seed_b, seed_s):
+    """The table summed in float64, and the float32 summation error bound
+    of each bucket (terms in the bucket x 2^-24 x their absolute sum)."""
+    idx = torch.arange(t.shape[0], dtype=torch.int32, device=t.device)
+    bucket = tc.hash_bucket(seed_b, idx, m).to(torch.int64)
+    sign = tc.hash_sign(seed_s, idx).double()
+    zero = torch.zeros(m, dtype=torch.float64, device=t.device)
+    exact = zero.index_add(0, bucket, sign * t.double())
+    mass = zero.index_add(0, bucket, t.double().abs())
+    count = torch.bincount(bucket, minlength=m).double()
+    return exact.cpu().numpy(), (count * 2.0**-24 * mass).cpu().numpy()
+
+
+@pytest.mark.parametrize("n", [30000, 100000, 65536])
+@pytest.mark.parametrize("m", [128, 400, 600])
+def test_countsketch_kernel_matches_plain(cuda_device, n, m):
+    """Both bucket branches (m = 128 masks, 400 and 600 take the modulo),
+    ragged n; two launches give the same bits.  Integer counts sum
+    exactly in any order, so kernel and plain version are equal there; on
+    U(-1, 1) values each is within float32 summation error of the float64
+    table (two summation orders over buckets of hundreds of terms may
+    differ by more than a fixed 1e-5)."""
+    rng = np.random.default_rng(n + m)
+    for v in (rng.uniform(-1, 1, n).astype(np.float32),
+              _zipf_counts(rng, n, 5 * n)):
+        t = torch.as_tensor(v, device=cuda_device)
+        before = tk.countsketch_scatter.launches
+        got = tk.countsketch_scatter(t, m, 0x9E3779B9, 12345)
+        assert tk.countsketch_scatter.launches == before + 1
+        assert_bits(tk.countsketch_scatter(t, m, 0x9E3779B9, 12345), got)
+        ref = countsketch_ref(t, 0x9E3779B9, 12345, m)
+        exact, bound = _cs_exact(t, m, 0x9E3779B9, 12345)
+        for table in (got, ref):
+            assert np.all(np.abs(table.cpu().numpy() - exact) <= bound)
+        if np.all(v == np.round(v)):
+            assert_bits(got, ref)
+
+
+@pytest.mark.parametrize("n", [30000, 65536])
+@pytest.mark.parametrize("m", [256, 400])
+@pytest.mark.parametrize("rule", ["jl_project", "jl_sketch"])
+def test_jl_rademacher_kernel_matches_plain(cuda_device, n, m, rule):
+    rng = np.random.default_rng(n + m)
+    t = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=cuda_device)
+    rows = torch.arange(m, dtype=torch.int64, device=cuda_device)
+    seeds = (jl_row_seeds(11, rows) if rule == "jl_project"
+             else (int(fold_seed(11, 0)) + rows) & 0xFFFFFFFF)
+    before = tk.jl_rademacher.launches
+    got = tk.jl_rademacher(t, seeds)
+    assert tk.jl_rademacher.launches == before + 1
+    assert_bits(tk.jl_rademacher(t, seeds), got)
+    # sums of n terms of random sign in another order: the absolute
+    # tolerance scales with the largest output, as the estimators' does
+    ref = jl_rows_ref(t, seeds).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                               atol=1e-4 * max(1.0, np.abs(ref).max()))
+
+
+def test_baselines_on_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(44)
+    a = rng.standard_normal(20000).astype(np.float32)
+    a[rng.random(20000) < 0.6] = 0
+    t, c = torch.as_tensor(a, device=cuda_device), torch.as_tensor(a)
+    np.testing.assert_allclose(tc.jl_sketch(t, 300, 5).cpu().numpy(),
+                               tc.jl_sketch(c, 300, 5).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tc.countsketch(t, 400, 5).cpu().numpy(),
+                               tc.countsketch(c, 400, 5).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for g, r in zip(tc.minhash_sketch(t, 40, 5), tc.minhash_sketch(c, 40, 5)):
+        assert_bits(g, r)
+
+
+def test_served_modes_on_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(45)
+    fa = _zipf_counts(rng, 5000, 50000)
+    fb = _zipf_counts(rng, 5000, 50000)
+    params = DPParams(epsilon=4.0, clamp=1.0, p_floor=0.05)
+    idx = [SketchIndex(m=128, n_buckets=256, head_h=16, dp=params,
+                       dp_rng=np.random.default_rng(7), device=dev)
+           for dev in (cuda_device, "cpu")]
+    for index in idx:
+        index.add("fa", fa)
+        index.add("fa_n", fa / fa.max())
+        index.add_many(["fb"], fb[None])
+    for name in ("_idx", "_val", "_tau", "_head_idx", "_head_kept"):
+        assert_bits(getattr(idx[0], name), getattr(idx[1], name))
+    for mode in ("plain", "bias_aware"):
+        assert_close(np.array([e for _, e in idx[0].query(fb, mode=mode)]),
+                     np.array([e for _, e in idx[1].query(fb, mode=mode)]))
+    got, ref = (np.array([e for _, e in ix.query(fb, mode="private")])
+                for ix in idx)
+    assert_bits(got, ref)
+    assert idx[0].accountant.spent_epsilon == 4.0
+
+
+def test_countsketch_and_jl_reject_bad_inputs(cuda_device):
+    v = torch.zeros(100, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tk.countsketch_scatter(v.double(), 10, 0, 0)
+    with pytest.raises(ValueError, match="float32"):
+        tk.countsketch_scatter(v.reshape(10, 10), 10, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.countsketch_scatter(torch.zeros((100, 2), device=cuda_device)[:, 0],
+                               10, 0, 0)
+    with pytest.raises(ValueError, match="m"):
+        tk.countsketch_scatter(v, 0, 0, 0)
+    seeds = torch.arange(8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tk.jl_rademacher(v.double(), seeds)
+    with pytest.raises(ValueError, match="row_seeds"):
+        tk.jl_rademacher(v, seeds.float())
+    with pytest.raises(ValueError, match="row_seeds on"):
+        tk.jl_rademacher(v, seeds.cpu())

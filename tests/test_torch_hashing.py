@@ -102,6 +102,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.kernels.sketch_merge, repro_torch.matrix, "
         "repro_torch.matrix.variance, repro_torch.engine.estimate, "
         "repro_torch.kernels.matrix_sketch, repro_torch.serve.convert\n"
+        "import repro_torch.private, repro_torch.private.accountant, "
+        "repro_torch.private.release, repro_torch.private.biasaware, "
+        "repro_torch.core.baselines, repro_torch.kernels.countsketch.ops, "
+        "repro_torch.kernels.jl_rademacher.ops\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -171,9 +171,11 @@ def test_index_query_error_paths():
         idx.query(np.ones((2, 64), np.float32))
     with pytest.raises(ValueError, match="unknown mode"):
         idx.query(np.ones(64, np.float32), mode="fast")
-    for mode in ("bias_aware", "private"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            idx.query(np.ones(64, np.float32), mode=mode)
+    # the bias-aware mode answers; the private mode needs dp=DPParams
+    assert np.isfinite(idx.query(np.ones(64, np.float32),
+                                 mode="bias_aware")[0][1])
+    with pytest.raises(ValueError, match="dp=DPParams"):
+        idx.query(np.ones(64, np.float32), mode="private")
     with pytest.raises(ValueError, match="coordinates"):
         idx.add_many(["z"], np.ones((1, 32), np.float32))
     with pytest.raises(ValueError, match="len"):
