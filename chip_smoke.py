@@ -55,8 +55,11 @@ exits nonzero with no result line):
                  free) and the release bit-equal to one made from CPU
                  copies with the same rng;
 9. ``timing``    end-to-end and per-kernel CUDA-event times with each
-                 kernel's bound, and the per-step split of ``add_many``,
-                 ``query``, ``merge_from`` and the store's ``query``;
+                 kernel's bound, the per-step split of ``add_many``,
+                 ``query``, ``all_pairs``, ``merge_from`` and the store's
+                 ``query``, B5's compaction and join apart, and the
+                 device-only times of the small kernels (raw launches in a
+                 CUDA graph) beside their wrappers' times;
 10. ``kernels``  one line per the port's kernel table.
 
 Each path (4-8) zeroes every kernel's launch counter before it runs and
@@ -67,6 +70,7 @@ The last lines are ``nvidia-smi``'s name and power limit and then
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -258,6 +262,32 @@ def run_path(kernels, fn):
     return out, {k.__name__: k.launches for k in kernels}
 
 
+def graph_ms(launch, reps: int = 50, replays: int = 5) -> float:
+    """Device time of one raw kernel launch: ``reps`` launches (preallocated
+    outputs, no wrapper) captured back to back into a CUDA graph, replayed
+    under CUDA events, so the host's launch overhead is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            launch()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
 def quiet(fn, *args, **kw):
     """Call ``fn`` with its printed lines kept off this script's output."""
     with contextlib.redirect_stdout(io.StringIO()):
@@ -299,9 +329,9 @@ def main() -> None:
     from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                                hash_rank_ref)
     from repro_torch.kernels.intersect_estimate import (
-        allpairs_estimate_ref, intersect_estimate_ref)
+        allpairs_compact_ref, allpairs_estimate_ref, intersect_estimate_ref)
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
-                                                  rank_hist_ref)
+                                                  kth_smallest_ranks_ref)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
     from repro_torch.serve import MatrixSketchStore, SketchIndex
     from repro_torch.serve.validation import check_finite, check_vector
@@ -373,19 +403,45 @@ def main() -> None:
                               ("h", "rank")):
             assert_bits(g, r, f"hash_rank {variant} n=100000 {what}")
     err["hash_rank"] = 0.0
+    # B2 (radix_select) at the shapes the paths give it, each against
+    # torch.kthvalue and the plain four-level descent, bit for bit: the
+    # priority tau of a ragged block (with and without the level-0
+    # histogram), adaptive tau's weight cutoff, the store add's (1, 65536)
+    # row-weight ranks, the single vectors of the quickstart (n = 100000)
+    # and of Fig. 10 (n = 30000, k = 267), the merge's (4096, 4098)
+    # candidates, a per-row k
     _, rank_l2, hist0_l2 = tk.hash_rank_hist(ragged, SEED)
-    kth = tk.kth_smallest_ranks(rank_l2, M + 1, hist0=hist0_l2)
-    assert_bits(kth, torch.kthvalue(rank_l2, M + 1, dim=1).values,
-                "kth_smallest_ranks vs torch.kthvalue")
-    bits = kth.view(torch.int32).to(torch.int64)
-    for shift in (24, 16, 8, 0):
-        prefix = ((bits >> (shift + 8)) if shift < 24
-                  else torch.zeros_like(bits)).to(torch.int32)
-        assert_bits(tk.rank_hist(rank_l2, prefix, shift=shift),
-                    rank_hist_ref(rank_l2, prefix, shift=shift),
-                    f"rank_hist shift {shift}")
-    err["rank_hist"] = 0.0
-    del rank_l2, hist0_l2
+    W_l2 = weight(ragged, "l2")
+    mat_ranks = sampling_ranks(payload_weight(matrix_pair(0, dev)[0][None],
+                                              "l2"),
+                               hash_unit(SEED, torch.arange(
+                                   MAT_N, dtype=torch.int32, device=dev))[None])
+    merge_keys = torch.rand((4096, 4098), generator=gen, device=dev)
+    merge_keys[torch.rand(merge_keys.shape, generator=gen, device=dev)
+               < 0.6] = torch.inf
+    per_row_k = torch.randint(1, N + 78, (BLOCK_ROWS,), generator=gen,
+                              device=dev)
+    b2_cases = [
+        ("priority tau, hist0", rank_l2, M + 1, hist0_l2),
+        ("priority tau", rank_l2, M + 1, None),
+        ("adaptive cutoff", W_l2, W_l2.shape[1] - M + 1, None),
+        ("per-row k", rank_l2, per_row_k, None),
+        ("store add", mat_ranks, MAT_M + 1, None),
+        ("quickstart vector", tk.hash_rank(vec, SEED)[1][None], M + 1, None),
+        ("fig10 vector", tk.hash_rank(vec[:JOIN_KEYS], SEED, variant=
+                                      "uniform")[1][None], 267, None),
+        ("merge candidates", merge_keys, M + 1, None)]
+    for what, keys, k, h0 in b2_cases:
+        got = tk.radix_select(keys, k, hist0=h0)
+        want = torch.stack([torch.kthvalue(row, k if isinstance(k, int)
+                                           else int(k[d])).values
+                            for d, row in enumerate(keys)]) \
+            if not isinstance(k, int) else torch.kthvalue(keys, k, dim=1).values
+        assert_bits(got, want, f"radix_select {what} vs torch.kthvalue")
+        assert_bits(got, kth_smallest_ranks_ref(keys, k, hist0=h0),
+                    f"radix_select {what} vs the plain descent")
+    err["radix_select"] = 0.0
+    del rank_l2, hist0_l2, W_l2, mat_ranks, merge_keys
 
     corpus_blocks = [tk.bucketize_corpus(
         tk.build_priority_corpus(rand_block(BLOCK_ROWS, N), M, SEED,
@@ -412,8 +468,21 @@ def main() -> None:
     e_mom = max(assert_close(got_m[..., c], ref_m[..., c],
                              f"allpairs moments channel {c}")
                 for c in range(6))
+    assert_bits(tk.allpairs_estimate(sub.idx, sub.val, p_sub, sub.idx,
+                                     sub.val, p_sub, moments=True), got_m,
+                "allpairs moments, run to run")
     err["allpairs_estimate"] = max(e_plain, e_mom)
-    del corpus_blocks, pc, sub, got_m, ref_m
+    # the compaction pass against its plain version, up to each count
+    # (entries past a count are unspecified on the card)
+    p_c4096 = tk.slot_inclusion_probs(pc)
+    got_c = tk.allpairs_compact(pc.idx, pc.val, p_c4096)
+    ref_c = allpairs_compact_ref(pc.idx, pc.val, p_c4096)
+    assert_bits(got_c[1], ref_c[1], "allpairs_compact counts")
+    used = (torch.arange(ref_c[0].shape[2], device=dev)[None, None, :]
+            < ref_c[1][..., None])
+    assert_bits(got_c[0][used], ref_c[0][used], "allpairs_compact entries")
+    err["allpairs_compact"] = 0.0
+    del corpus_blocks, pc, sub, got_m, ref_m, got_c, ref_c, used, p_c4096
 
     # B6 on two half-partition corpora of one block, and with 16 buckets,
     # where the merge itself overflows (m = 64 there, as the reference's
@@ -535,6 +604,10 @@ def main() -> None:
     err["jl_rademacher"] = b9_err
     emit({"phase": "parity", "max_abs_err": err,
           "build_kernels": "bit-equal", "merge_kernel": "bit-equal",
+          "radix_select_cases": [[w, list(kk.shape),
+                                  k if isinstance(k, int) else "per-row",
+                                  h0 is not None]
+                                 for w, kk, k, h0 in b2_cases],
           "merge_dropped": merge_drops, "estimators": f"rtol={RTOL}",
           "matrix_products_cases": [list(c) for c in b7_cases],
           "matrix_products_layout_dropped": b7_drops,
@@ -617,8 +690,8 @@ def main() -> None:
 
     mp, launches["main_path"] = run_path(kernels, main_path)
     index, ap = mp["index"], mp["ap"]
-    need = ("hash_rank_hist", "rank_hist", "intersect_estimate",
-            "allpairs_estimate")
+    need = ("hash_rank_hist", "radix_select", "intersect_estimate",
+            "allpairs_compact", "allpairs_estimate")
     check(all(launches["main_path"][k] > 0 for k in need),
           f"a kernel of the main path never launched: {launches}")
     emit({"phase": "main_path", "D": D, "n": N, "nnz": NNZ, "m": M,
@@ -694,7 +767,7 @@ def main() -> None:
                     qs=qs)
 
     tp, launches["threshold_path"] = run_path(kernels, threshold_path)
-    need = ("hash_rank_batched", "hash_rank", "rank_hist")
+    need = ("hash_rank_batched", "hash_rank", "radix_select")
     check(all(launches["threshold_path"][k] > 0 for k in need),
           f"a kernel of the threshold path never launched: {launches}")
     emit({"phase": "threshold_path", "D": D, "n": N, "m": M, "cap": CAP,
@@ -767,8 +840,8 @@ def main() -> None:
                     merged_epsilon=lo_ix.accountant.spent_epsilon)
 
     mg, launches["merge_path"] = run_path(kernels, merge_path)
-    need = ("hash_rank_hist", "rank_hist", "merge_bucketized",
-            "intersect_estimate", "allpairs_estimate")
+    need = ("hash_rank_hist", "radix_select", "merge_bucketized",
+            "intersect_estimate", "allpairs_compact", "allpairs_estimate")
     check(all(launches["merge_path"][k] > 0 for k in need),
           f"a kernel of the merge path never launched: {launches}")
     # a half-index row drops an entry with probability drop_share; either
@@ -828,7 +901,7 @@ def main() -> None:
                     products_ms=products_ms, part=part, part_ms=part_ms)
 
     mx, launches["matrix_path"] = run_path(kernels, matrix_path)
-    need = ("rank_hist", "matrix_products")
+    need = ("radix_select", "matrix_products")
     check(all(launches["matrix_path"][k] > 0 for k in need),
           f"a kernel of the matrix path never launched: {launches}")
     store = mx["store"]
@@ -1054,7 +1127,7 @@ def main() -> None:
 
     jp, launches["join_size_path"] = run_path(kernels, join_size_path)
     need = ("countsketch_scatter", "jl_rademacher", "hash_rank_hist",
-            "rank_hist", "hash_rank", "intersect_estimate")
+            "radix_select", "hash_rank", "intersect_estimate")
     check(all(launches["join_size_path"][k] > 0 for k in need),
           f"a kernel of the join-size path never launched: {launches}")
     tw, sv = jp["tw"], jp["served"]
@@ -1090,8 +1163,6 @@ def main() -> None:
                           device=dev)
     Db, nb = blk.shape
     _, rank, hist0 = tk.hash_rank_hist(blk, SEED)
-    kth = tk.kth_smallest_ranks(rank, M + 1, hist0=hist0)
-    prefix16 = (kth.view(torch.int32) >> 24).contiguous()
     qv = np.zeros(N, np.float32)
     qv[vidx[sources[0]]] = vval[sources[0]]
     q = tk.bucketize(priority_sketch(torch.as_tensor(qv, device=dev), M,
@@ -1115,17 +1186,28 @@ def main() -> None:
                                           hi_ix._tau, hi_ix._dropped)])
     m_tau = tk.merged_tau_bucketized(mine, theirs, SEED, m=M)
 
+    # host clock around one step, the device synchronised before and after
+    def step_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
     t = {}
     t["hash_rank_hist"] = (cuda_ms(lambda: tk.hash_rank_hist(blk, SEED)),
                            cuda_ms(lambda: hash_rank_hist_ref(blk, SEED),
                                    iters=5), None,
                            (2 * Db * nb + nb + Db * 256) * 4, "bytes")
-    t["rank_hist"] = (cuda_ms(lambda: tk.rank_hist(rank, prefix16, shift=16)),
-                      cuda_ms(lambda: rank_hist_ref(rank, prefix16, shift=16),
-                              iters=5),
-                      cuda_ms(lambda: torch.kthvalue(rank, M + 1, dim=1),
-                              iters=5),
-                      (Db * nb + Db + Db * 256) * 4, "bytes")
+    # B2: the whole selection (priority tau of one block, level 0 from
+    # the hash/rank pass), one launch, against the plain descent and
+    # torch.kthvalue on the same ranks
+    t["radix_select"] = (
+        cuda_ms(lambda: tk.radix_select(rank, M + 1, hist0=hist0)),
+        cuda_ms(lambda: kth_smallest_ranks_ref(rank, M + 1, hist0=hist0),
+                iters=5),
+        cuda_ms(lambda: torch.kthvalue(rank, M + 1, dim=1), iters=5),
+        (Db * nb + Db * 256 + Db) * 4, "bytes")
     t["hash_rank_batched"] = (
         cuda_ms(lambda: tk.hash_rank_batched(blk, SEED)),
         cuda_ms(lambda: hash_rank_batched_ref(blk, SEED), iters=5), None,
@@ -1133,8 +1215,8 @@ def main() -> None:
     t["hash_rank"] = (cuda_ms(lambda: tk.hash_rank(qa, 42)),
                       cuda_ms(lambda: hash_rank_ref(qa, 42), iters=5), None,
                       3 * qn * 4, "bytes")
-    selection_ms = cuda_ms(lambda: tk.kth_smallest_ranks(rank, M + 1,
-                                                         hist0=hist0))
+    # without the level-0 histogram: a counting pass and a compaction pass
+    selection_no_hist0_ms = cuda_ms(lambda: tk.radix_select(rank, M + 1))
     threshold_ms = cuda_ms(lambda: tk.build_threshold_corpus(
         blk, M, SEED, device=dev), iters=10)
     threshold_plain_ms = cuda_ms(lambda: tk.build_threshold_corpus(
@@ -1147,22 +1229,62 @@ def main() -> None:
                                                corpus.idx, corpus.val,
                                                corpus.tau), iters=5),
         None, C * B * S * 8 + C * 8 + B * S * 8 + 4, "bytes")
+    # B5: the compaction pass (once: one corpus against itself) and the
+    # join, as all_pairs launches them; each step alone as well
     ap_ms = cuda_ms(lambda: tk.allpairs_estimate(
         corpus.idx, corpus.val, p_c, corpus.idx, corpus.val, p_c),
-        warmup=1, iters=3)
+        warmup=2, iters=10)
+    compact_ms = cuda_ms(lambda: tk.allpairs_compact(corpus.idx, corpus.val,
+                                                     p_c))
+    compact_plain_ms = cuda_ms(lambda: allpairs_compact_ref(
+        corpus.idx, corpus.val, p_c), iters=3)
+    compacted = tk.allpairs_compact(corpus.idx, corpus.val, p_c)
+    ap_out = torch.empty((C, C), device=dev)
+    ie_lib = importlib.import_module(
+        "repro_torch.kernels.intersect_estimate.intersect_estimate")._lib()
+
+    def join_raw():
+        _build.check(ie_lib.repro_allpairs_join(
+            compacted[0].data_ptr(), compacted[1].data_ptr(),
+            compacted[0].data_ptr(), compacted[1].data_ptr(),
+            ap_out.data_ptr(), C, C, B, S, 0,
+            torch.cuda.current_stream().cuda_stream), "allpairs_join")
+
+    join_ms = cuda_ms(join_raw, warmup=2, iters=10)
+    occupied = int(compacted[1].sum())
     ap_plain = cuda_ms(lambda: allpairs_estimate_ref(
         corpus.idx, corpus.val, p_c, corpus.idx, corpus.val, p_c, ct=64),
         warmup=0, iters=1)
     # the full D x D matrix against its plain version too (the parity
-    # phase held a 512 x 512 block; this is the main path's shape)
+    # phase held a 512 x 512 block; this is the main path's shape), and
+    # against a second launch bit for bit
+    ap_full = tk.allpairs_estimate(corpus.idx, corpus.val, p_c, corpus.idx,
+                                   corpus.val, p_c)
     err["allpairs_estimate"] = max(err["allpairs_estimate"], assert_close(
-        tk.allpairs_estimate(corpus.idx, corpus.val, p_c, corpus.idx,
-                             corpus.val, p_c),
-        allpairs_estimate_ref(corpus.idx, corpus.val, p_c, corpus.idx,
-                              corpus.val, p_c, ct=64),
+        ap_full, allpairs_estimate_ref(corpus.idx, corpus.val, p_c,
+                                       corpus.idx, corpus.val, p_c, ct=64),
         f"allpairs_estimate {C}x{C}"))
-    ap_bytes = 2 * C * B * S * 12 + C * C * 4
+    assert_bits(tk.allpairs_estimate(corpus.idx, corpus.val, p_c, corpus.idx,
+                                     corpus.val, p_c), ap_full,
+                f"allpairs_estimate {C}x{C}, run to run")
+    del ap_full
+    # one corpus on both sides, compacted once: read once, D x D written
+    ap_bytes = C * B * S * 12 + C * C * 4
     t["allpairs_estimate"] = (ap_ms, ap_plain, None, ap_bytes, "ops")
+    # the compaction's bytes: the corpus read once, the occupied entries
+    # (16 bytes) and the counts written once
+    t["allpairs_compact"] = (compact_ms, compact_plain_ms, None,
+                             C * B * S * 12 + occupied * 16
+                             + compacted[1].numel() * 4, "bytes")
+    # all_pairs step by step: the slot probabilities, B5, the copy of the
+    # D x D matrix to the host
+    ap_steps = {}
+    pc_steps, ap_steps["slot_probabilities"] = step_ms(
+        lambda: tk.slot_inclusion_probs(corpus))
+    est_ap, ap_steps["kernel"] = step_ms(lambda: tk.allpairs_estimate(
+        corpus.idx, corpus.val, pc_steps, corpus.idx, corpus.val, pc_steps))
+    _, ap_steps["device_to_host"] = step_ms(lambda: est_ap.cpu().numpy())
+    del est_ap, pc_steps
     # the merge kernel at the merge path's shape, against its plain version
     got = tk.merge_bucketized(mine.idx, mine.val, theirs.idx, theirs.val,
                               m_tau, SEED)
@@ -1220,6 +1342,67 @@ def main() -> None:
         b9_shapes[f"{c} n={int(v.shape[0])} m={m}"] = (
             cuda_ms(lambda v=v, seeds=seeds: tk.jl_rademacher(v, seeds)),
             jl_bound_ms(int(v.shape[0]), m))
+    # device-only times of the kernels whose wrappers' host time hides
+    # them (B3 single-vector, B8, B9, B2 on one vector): raw launches of
+    # the C entries with preallocated outputs, back to back in a CUDA
+    # graph (graph_ms), beside the wrapper's time (cuda_ms over calls)
+    def raw(module, lib_fn, entry, *args):
+        fn = getattr(getattr(importlib.import_module(
+            f"repro_torch.kernels.{module}"), lib_fn)(), entry)
+
+        def launch():
+            _build.check(fn(*args, torch.cuda.current_stream().cuda_stream),
+                         entry)
+        return launch
+
+    h_o, r_o = (torch.empty(qn, device=dev) for _ in range(2))
+    cs_part = torch.empty(-(-JOIN_KEYS // 4096) * JOIN_M, device=dev)
+    cs_o, jl_o = (torch.empty(JOIN_M, device=dev) for _ in range(2))
+    jl_seeds32 = jl_seeds.to(torch.int32).contiguous()
+    sel_o = torch.empty(1, device=dev)
+    qs_keys = tk.hash_rank(qa, 42)[1][None].contiguous()
+    _, fig_keys, fig_h0 = tk.hash_rank_hist(fa0_t[None].contiguous(), 42,
+                                            variant="uniform")
+    fig_k = samples_for_budget(JOIN_M) + 1
+    # the store add's shape, the most launched selection: (1, 65536)
+    # row-weight ranks, no level-0 histogram
+    store_keys = sampling_ranks(
+        payload_weight(matrix_pair(0, dev)[0][None], "l2"),
+        hash_unit(SEED, torch.arange(MAT_N, dtype=torch.int32,
+                                     device=dev))[None]).contiguous()
+    small = {
+        f"hash_rank n={qn}": (
+            raw("hash_rank.hash_rank", "_lib", "repro_hash_rank",
+                qa.data_ptr(), h_o.data_ptr(), r_o.data_ptr(), qn, 42, 0),
+            t["hash_rank"][0]),
+        f"countsketch_scatter n={JOIN_KEYS} m={JOIN_M}": (
+            raw("countsketch.countsketch", "_lib", "repro_countsketch",
+                fa0_t.data_ptr(), JOIN_KEYS, JOIN_M, sb & 0xFFFFFFFF,
+                ss & 0xFFFFFFFF, cs_part.data_ptr(), cs_o.data_ptr()),
+            t["countsketch_scatter"][0]),
+        f"jl_rademacher n={JOIN_KEYS} m={JOIN_M}": (
+            raw("jl_rademacher.jl_rademacher", "_lib", "repro_jl_rademacher",
+                fa0_t.data_ptr(), jl_seeds32.data_ptr(), JOIN_KEYS, JOIN_M,
+                jl_o.data_ptr()),
+            t["jl_rademacher"][0]),
+        f"radix_select D=1 n={qn} k={M + 1}": (
+            raw("sketch_build.sketch_build", "_select_lib",
+                "repro_radix_select", qs_keys.data_ptr(), None, None, M + 1,
+                sel_o.data_ptr(), 1, qn),
+            cuda_ms(lambda: tk.radix_select(qs_keys, M + 1))),
+        f"radix_select D=1 n={MAT_N} k={MAT_M + 1} (store add)": (
+            raw("sketch_build.sketch_build", "_select_lib",
+                "repro_radix_select", store_keys.data_ptr(), None, None,
+                MAT_M + 1, sel_o.data_ptr(), 1, MAT_N),
+            cuda_ms(lambda: tk.radix_select(store_keys, MAT_M + 1))),
+        f"radix_select D=1 n={JOIN_KEYS} k={fig_k} hist0": (
+            raw("sketch_build.sketch_build", "_select_lib",
+                "repro_radix_select", fig_keys.data_ptr(), fig_h0.data_ptr(),
+                None, fig_k, sel_o.data_ptr(), 1, JOIN_KEYS),
+            cuda_ms(lambda: tk.radix_select(fig_keys, fig_k, hist0=fig_h0))),
+    }
+    device_only = {what: {"device_ms": graph_ms(launch), "wrapper_ms": wrapper}
+                   for what, (launch, wrapper) in small.items()}
     bounds = {}
     for kname, (ms, plain, lib, nbytes, _) in t.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1231,14 +1414,7 @@ def main() -> None:
                          "operations" if ops_ms > bytes_ms else "bytes")
     # where one add_many block, one query and one merge_from spend their
     # time: each step of the calls, in order, host clock with the device
-    # synchronised around each step
-    def step_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
+    # synchronised around each step (step_ms)
     add_steps, query_steps, merge_steps = {}, {}, {}
     rows = list(range(BLOCK_ROWS))
     mat = dense_rows(vidx, vval, rows)
@@ -1370,7 +1546,15 @@ def main() -> None:
           "query_p50_ms": float(np.percentile(mp["query_ms"], 50)),
           "query_p99_ms": float(np.percentile(mp["query_ms"], 99)),
           "all_pairs_ms": mp["all_pairs_ms"],
-          "selection_ms": selection_ms,
+          "selection_ms": t["radix_select"][0],
+          "selection_no_hist0_ms": selection_no_hist0_ms,
+          "kthvalue_ms": t["radix_select"][2],
+          "all_pairs_steps_ms": ap_steps,
+          "allpairs_compact_and_join_ms": ap_ms,
+          "allpairs_compact_ms": compact_ms,
+          "allpairs_join_ms": join_ms,
+          "allpairs_occupied_slots": occupied,
+          "device_only_ms": device_only,
           "threshold_path_block_ms": tp["block_ms"],
           "threshold_build_ms_per_block": threshold_ms,
           "threshold_build_plain_ms_per_block": threshold_plain_ms,
@@ -1415,9 +1599,9 @@ def main() -> None:
         "hash_rank_hist": ("src/repro_torch/csrc/sketch_build.cu",
                            "src/repro/kernels/sketch_build/sketch_build.py:69",
                            "bit-equal"),
-        "rank_hist": ("src/repro_torch/csrc/sketch_build.cu",
-                      "src/repro/kernels/sketch_build/sketch_build.py:114",
-                      "bit-equal"),
+        "radix_select": ("src/repro_torch/csrc/radix_select.cu",
+                         "src/repro/kernels/sketch_build/sketch_build.py:114",
+                         "bit-equal"),
         "hash_rank_batched": ("src/repro_torch/csrc/sketch_build.cu",
                               "src/repro/kernels/hash_rank/hash_rank.py:111",
                               "bit-equal"),
@@ -1428,6 +1612,10 @@ def main() -> None:
             "src/repro_torch/csrc/intersect_estimate.cu",
             "src/repro/kernels/intersect_estimate/intersect_estimate.py:73",
             f"rtol={RTOL}"),
+        "allpairs_compact": (
+            "src/repro_torch/csrc/intersect_estimate.cu",
+            "src/repro/kernels/intersect_estimate/intersect_estimate.py:150",
+            "bit-equal"),
         "allpairs_estimate": (
             "src/repro_torch/csrc/intersect_estimate.cu",
             "src/repro/kernels/intersect_estimate/intersect_estimate.py:150",
@@ -1449,12 +1637,16 @@ def main() -> None:
             "src/repro/kernels/jl_rademacher/jl_rademacher.py:59",
             f"rtol={JL_TOL}, atol={JL_TOL} x max(1, max |out|)"),
     }
+    # B8's and B9's library times are partial calls: they exclude the
+    # hashes, so they do not compute the kernel's function
     library_call = {
-        "rank_hist": "torch.kthvalue (the whole selection)",
-        "countsketch_scatter": "index_add_ (hashes excluded: buckets and "
-                               "signed values precomputed)",
-        "jl_rademacher": "torch.mv (hashes excluded: the sign matrix "
-                         "materialised)"}
+        "radix_select": "torch.kthvalue (the same function)",
+        "countsketch_scatter": "partial call, not the same function: "
+                               "index_add_ of precomputed buckets and "
+                               "signed values (hashes excluded)",
+        "jl_rademacher": "partial call, not the same function: torch.mv "
+                         "with the sign matrix materialised (hashes "
+                         "excluded)"}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

@@ -17,25 +17,41 @@
 // once and compares each with the S query slots, and the warp sums its
 // lanes with shuffles.
 //
-// allpairs_estimate replaces
+// allpairs_compact and allpairs_join replace
 //   src/repro/kernels/intersect_estimate/intersect_estimate.py::allpairs_estimate_pallas
 // (D1, B, S) x (D2, B, S) with per-slot inclusion probabilities ->
 // (D1, D2) estimates sum eq * va * vb * max(1/pa, 1/pb), or with MOMENTS
 // the six Eq. (9) channels (n, sum_x, sum_y, xy, sum_x2, sum_y2) ->
-// (D1, D2, 6).  Bound on the card: operations — an equality join, about
-// (valid A slots) x (valid B slots) compares per bucket summed over the
-// buckets and the row pairs, on the CUDA cores (there is no product for
-// the tensor cores).  Design: one block of 16 x 16 threads per 64 x 64
-// output tile, each thread a 4 x 4 register tile of (a, b) pairs (rows
-// ty + 16i of A, tx + 16j of B), so a staged slot is reused four times per
-// thread from shared memory and each block restages 128 rows, not 32 for
-// 256 pairs; the block stages a chunk of whole buckets of its 64 A rows
-// and 64 B rows in shared memory (slot-major, row-minor, padded to 65 to
-// spread banks), padding is remapped to -1 (A) / -2 (B) so it never
-// matches, the reciprocal 1/p is taken only for occupied slots, and a
-// thread skips a slot whose four A rows are all empty — most are, since a
-// row keeps m of B*S slots — so the work follows the valid entries.
-//
+// (D1, D2, 6).  Bound on the card: the bytes (both corpora read once, the
+// output written once) or the compares the data needs — per bucket, the
+// occupied A slots times the occupied B slots — on the CUDA cores (an
+// equality join: no product for the tensor cores), whichever is larger.
+// A row keeps m of its B*S slots (an eighth at the serving widths), so the
+// work has to follow the occupied slots.  Design, in two launches:
+// - allpairs_compact: for each tile of 64 rows and each bucket, the
+//   occupied slots of those rows (idx != INVALID) as 16-byte entries (id,
+//   row in tile | entries with this id << 8, v, 1/p), sorted by id (ties in row, slot order), and
+//   their count; 1/p is taken once a slot (__fdiv_rn), and padding never
+//   reaches the join.  A warp takes a bucket: its lanes gather the rows'
+//   slots into shared memory (a shuffle scan for the positions), then
+//   place each entry at its rank.  One corpus compacted once serves both
+//   sides of all_pairs.
+// - allpairs_join: one block a 64 x 64 output tile; its warps take the
+//   buckets in turn (warp w: w, w + W, ...), each into sums of its own in
+//   shared memory, so no warp waits for another.  Per bucket a warp holds
+//   the A list's first 64 entries in registers (two a lane) and stages the
+//   B list with cp.async into a ring of two, one bucket ahead of the
+//   compares (the counts two ahead).  It is a sort-merge join: each lane
+//   finds its A id in the id-sorted B list by binary search, which gives
+//   the run of equal ids it matches, and the matched pairs are then dealt
+//   out one a lane, in list order, so the work is the matches (~3% of the
+//   slot pairs a bucket shares at the serving widths) and a log of the
+//   list, not every pair.  Pairs that fall on one cell in one batch of 32
+//   add one at a time, in pair order.  No float atomics: each warp sums a
+//   cell in ascending bucket order and within a bucket in ascending id
+//   order, the warps' sums are added in warp order, so a cell's bits
+//   depend on its two rows alone (the same on every launch, and whatever
+//   other rows the corpora hold).
 // Sums run in another order than the reference's, so estimates agree
 // within float32 summation tolerance, not bit for bit.
 #include <cuda_runtime.h>
@@ -98,124 +114,315 @@ intersect_estimate_kernel(const int* __restrict__ q_idx,
 }
 
 // ------------------------------------------------------------ all pairs
-constexpr int SUB = 16;                   // threads along each tile side
-constexpr int REG = 4;                    // rows per thread along each side
-constexpr int TILE = SUB * REG;           // output tile is TILE x TILE
-constexpr int KS = 16;                    // staged slots per row per step
-constexpr int LD = TILE + 1;              // padded slot stride in smem
+constexpr int TILE = 64;                  // output tile and compaction tile
+constexpr int AP_WARPS = 8;               // compaction: a warp a bucket
+constexpr int AP_THREADS = 32 * AP_WARPS;
+constexpr int SB = 64;                    // B entries staged a bucket
+constexpr int UNR = 4;                    // B entries compared per vote
+constexpr int MAX_S = 16;
+constexpr unsigned FULL = 0xffffffffu;
 
-struct Stage {
-  int idx[KS * LD];
-  float val[KS * LD];
-  float rcp[KS * LD];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// entries (T, B, TILE*S) int4, counts (T, B): grid (ceil(B / 8), T);
+// dynamic shared memory TILE*S entries a warp.  A warp gathers one
+// bucket's occupied slots of the tile's rows in (row, slot) order, then
+// writes each to its place in (id, row, slot) order: its rank among the
+// bucket's entries.
+__global__ void __launch_bounds__(AP_THREADS)
+allpairs_compact_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                        const float* __restrict__ p, int4* __restrict__ entries,
+                        int* __restrict__ counts, int64_t D, int B, int S) {
+  extern __shared__ int4 cp_smem[];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * AP_WARPS + (threadIdx.x >> 5);
+  const int64_t t = blockIdx.y;
+  if (b >= B) return;                       // the whole warp
+  int4* list = cp_smem + (threadIdx.x >> 5) * (TILE * S);
+  int n = 0;
+  for (int r0 = 0; r0 < TILE; r0 += 32) {
+    const int rl = r0 + lane;
+    const int64_t row = t * TILE + rl;
+    const int64_t o = (row * B + b) * S;
+    int cnt = 0;
+    if (row < D)
+      for (int s = 0; s < S; ++s) cnt += idx[o + s] != INVALID;
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += v;
+    }
+    int pos = n + incl - cnt;
+    if (cnt)
+      for (int s = 0; s < S; ++s) {
+        const int id = idx[o + s];
+        if (id == INVALID) continue;
+        const float rc = __fdiv_rn(1.0f, p[o + s]);
+        list[pos++] = make_int4(id, rl, __float_as_int(val[o + s]),
+                                __float_as_int(rc));
+      }
+    n += __shfl_sync(FULL, incl, 31);
+  }
+  __syncwarp();
+  int4* out = entries + ((int64_t)t * B + b) * (TILE * S);
+  const int* ids = reinterpret_cast<const int*>(list);
+  for (int i = lane; i - lane < n; i += 32) {
+    int4 e = i < n ? list[i] : make_int4(0, 0, 0, 0);
+    int rank = 0, same = 0;
+    for (int j = 0; j < n; ++j) {
+      const int f = ids[4 * j];
+      rank += f < e.x || (f == e.x && j < i);
+      same += f == e.x;
+    }
+    e.y |= same << 8;                       // the length of the id's run
+    if (i < n) out[rank] = e;
+  }
+  if (lane == 0) counts[t * B + b] = n;
+}
+
+template <bool MOMENTS>
+__device__ __forceinline__ void add_pair(float* a, int4 e, int4 f) {
+  constexpr int CS = TILE * TILE;           // channel stride of the sums
+  const float av = __int_as_float(e.z), bv = __int_as_float(f.z);
+  const float inv = fmaxf(__int_as_float(e.w), __int_as_float(f.w));
+  if (MOMENTS) {
+    a[0] = __fadd_rn(a[0], inv);
+    a[CS] = __fadd_rn(a[CS], __fmul_rn(av, inv));
+    a[2 * CS] = __fadd_rn(a[2 * CS], __fmul_rn(bv, inv));
+    a[3 * CS] = __fadd_rn(a[3 * CS], __fmul_rn(__fmul_rn(av, bv), inv));
+    a[4 * CS] = __fadd_rn(a[4 * CS], __fmul_rn(__fmul_rn(av, av), inv));
+    a[5 * CS] = __fadd_rn(a[5 * CS], __fmul_rn(__fmul_rn(bv, bv), inv));
+  } else {
+    a[0] = __fadd_rn(a[0], __fmul_rn(__fmul_rn(av, bv), inv));
+  }
+}
+
+// Up to 64 A entries, two a lane (x0 and x1, valid v0 and v1; x1 the later
+// 32 of the id-sorted list), against an id-sorted B list of nb entries
+// (staged in shared memory, or in global memory).  Each lane finds its ids
+// by binary search (the two searches interleaved); a found id's run of
+// equal ids in the B list is the entry's run length (entry.y >> 8).  The
+// matched pairs, in list order (x0's lanes' runs end to end, then x1's),
+// are dealt out 32 at a time, one a lane (scans of the run lengths, and a
+// binary search over them for each pair's lane), so the adds keep every
+// lane busy however the runs are spread.  Pairs of one batch that fall on
+// one cell add one at a time, in pair order.  A cell's pairs in a bucket
+// are thus added in ascending id order whatever else the tiles hold.
+template <bool MOMENTS>
+__device__ __forceinline__ void join_windows(float* acc, int4 x0, bool v0,
+                                             int4 x1, bool v1, const int4* bl,
+                                             int nb) {
+  const int lane = threadIdx.x & 31;
+  const int* ids = reinterpret_cast<const int*>(bl);
+  const int pw = 1 << (31 - __clz(nb));     // largest power of two <= nb
+  const bool two = __any_sync(FULL, v1);
+  int j0 = 0, j1 = 0;                       // first ids not below x0.x, x1.x
+  if (two) {
+    for (int st = pw; st > 0; st >>= 1) {
+      if (j0 + st <= nb && ids[4 * (j0 + st - 1)] < x0.x) j0 += st;
+      if (j1 + st <= nb && ids[4 * (j1 + st - 1)] < x1.x) j1 += st;
+    }
+  } else {                                  // one window (at most 32 entries)
+    for (int st = pw; st > 0; st >>= 1)
+      if (j0 + st <= nb && ids[4 * (j0 + st - 1)] < x0.x) j0 += st;
+  }
+  const int c0 = v0 && j0 < nb && ids[4 * j0] == x0.x ? ids[4 * j0 + 1] >> 8 : 0;
+  const int c1 = v1 && j1 < nb && ids[4 * j1] == x1.x ? ids[4 * j1 + 1] >> 8 : 0;
+  int in0 = c0, in1 = c1;                   // pairs of lanes <= this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t0 = __shfl_up_sync(FULL, in0, off);
+    const int t1 = __shfl_up_sync(FULL, in1, off);
+    if (lane >= off) {
+      in0 += t0;
+      in1 += t1;
+    }
+  }
+  const int total0 = __shfl_sync(FULL, in0, 31);
+  const int total = total0 + __shfl_sync(FULL, in1, 31);
+  for (int base = 0; base < total; base += 32) {
+    const int t = base + lane;              // this lane's pair
+    const bool second = t >= total0;        // from x1's window
+    const int u = second ? t - total0 : t;  // its place in that window
+    int src = 0;                            // the lane it comes from
+#pragma unroll
+    for (int st = 16; st > 0; st >>= 1) {
+      const int e0 = __shfl_sync(FULL, in0, src + st - 1);
+      const int e1 = __shfl_sync(FULL, in1, src + st - 1);
+      if ((second ? e1 : e0) <= u) src += st;
+    }
+    src = min(src, 31);
+    const int b0 = __shfl_sync(FULL, j0 - (in0 - c0), src);
+    const int b1 = __shfl_sync(FULL, j1 - (in1 - c1), src);
+    const int ay0 = __shfl_sync(FULL, x0.y, src), ay1 = __shfl_sync(FULL, x1.y, src);
+    const int az0 = __shfl_sync(FULL, x0.z, src), az1 = __shfl_sync(FULL, x1.z, src);
+    const int aw0 = __shfl_sync(FULL, x0.w, src), aw1 = __shfl_sync(FULL, x1.w, src);
+    const int4 a = second ? make_int4(0, ay1, az1, aw1) : make_int4(0, ay0, az0, aw0);
+    const bool act = t < total;
+    const int4 f = act ? bl[(second ? b1 : b0) + u] : make_int4(0, 0, 0, 0);
+    // the active lanes whose cell equals this lane's: one vote a bit of
+    // the 12-bit cell (cheaper than a match instruction)
+    const int cell = (a.y & 0xFF) * TILE + (f.y & 0xFF);
+    unsigned peers = __ballot_sync(FULL, act);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const unsigned m = __ballot_sync(FULL, (cell >> k) & 1);
+      peers &= (cell >> k) & 1 ? m : ~m;
+    }
+    const bool solo = peers == (1u << lane);
+    if (act && solo) add_pair<MOMENTS>(acc + cell, a, f);
+    for (unsigned r = __ballot_sync(FULL, act && !solo); r; r &= r - 1) {
+      __syncwarp();
+      if (lane == __ffs(r) - 1) add_pair<MOMENTS>(acc + cell, a, f);
+    }
+    __syncwarp();
+  }
+}
+
+// One bucket's lists as a warp holds them: the counts, the counts of the
+// bucket it takes two turns later, the A list's first 64 entries.
+struct Lists {
+  int na, nb, na2, nb2;
+  int4 e0, e1;
 };
 
-// Stage slots [g0, g0 + ks) of rows [row0, row0 + TILE) as [slot][row];
-// empty slots get the side's padding id, value 0 and reciprocal 1.
-__device__ __forceinline__ void stage(Stage& st, const int* __restrict__ idx,
-                                      const float* __restrict__ val,
-                                      const float* __restrict__ p,
-                                      int64_t row0, int64_t D, int64_t BS,
-                                      int64_t g0, int ks, int pad_id) {
-  for (int e = threadIdx.x; e < TILE * KS; e += blockDim.x) {
-    const int r = e / KS, k = e - r * KS;
-    const int64_t row = row0 + r;
-    int id = pad_id;
-    float v = 0.0f, rc = 1.0f;
-    if (k < ks && row < D) {
-      const int64_t o = row * BS + g0 + k;
-      const int raw = idx[o];
-      if (raw != INVALID) {
-        id = raw;
-        v = val[o];
-        rc = __fdiv_rn(1.0f, p[o]);
-      }
+template <bool MOMENTS>
+struct JoinShape {
+  static constexpr int WARPS = MOMENTS ? 2 : 4;   // buckets in parallel
+  static constexpr int NCH = MOMENTS ? 6 : 1;
+  static constexpr size_t smem() {
+    return (size_t)WARPS * 2 * SB * sizeof(int4) +
+           (size_t)WARPS * NCH * TILE * TILE * sizeof(float);
+  }
+};
+
+// grid (ceil(D2 / TILE), ceil(D1 / TILE)), one block of WARPS warps a
+// TILE x TILE output tile; dynamic shared memory: each warp's ring of two
+// staged B lists (SB entries each), then each warp's sums
+// [channel][A row][B row].
+template <bool MOMENTS>
+__global__ void __launch_bounds__(32 * JoinShape<MOMENTS>::WARPS)
+allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
+                     const int4* __restrict__ eb, const int* __restrict__ cb,
+                     float* __restrict__ out, int64_t D1, int64_t D2, int B,
+                     int S) {
+  constexpr int W = JoinShape<MOMENTS>::WARPS;
+  constexpr int NCH = JoinShape<MOMENTS>::NCH;
+  constexpr int SUMS = NCH * TILE * TILE;   // floats of one warp's sums
+  extern __shared__ int4 ap_smem[];
+  float* sums = reinterpret_cast<float*>(ap_smem + W * 2 * SB);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < W * SUMS; i += 32 * W) sums[i] = 0.0f;
+  __syncthreads();
+  float* acc = sums + warp * SUMS;
+  int4* ring = ap_smem + warp * 2 * SB;
+  const int64_t ta = blockIdx.y, tb = blockIdx.x;
+  const int cap = TILE * S;
+  const int4* ga = ea + ta * B * (int64_t)cap;
+  const int4* gb = eb + tb * B * (int64_t)cap;
+  const int* na_of = ca + ta * B;
+  const int* nb_of = cb + tb * B;
+  const int4 none = make_int4(0, 0, 0, 0);
+
+  // the B list's first SB entries into ring slot `slot`, one commit group
+  auto stage = [&](int b, int slot, int nb) {
+    if (b < B) {
+      const int4* src = gb + (int64_t)b * cap;
+      for (int i = lane; i < min(nb, SB); i += 32)
+        cp_async16(ring + slot * SB + i, src + i);
     }
-    st.idx[k * LD + r] = id;
-    st.val[k * LD + r] = v;
-    st.rcp[k * LD + r] = rc;
+    cp_async_commit();
+  };
+  // A list's first 64 entries of bucket b, two a lane (cap >= 64, so the
+  // loads stay inside the bucket; entries past the count are not used)
+  auto load_a = [&](int b, Lists& l) {
+    l.e0 = b < B ? ga[(int64_t)b * cap + lane] : none;
+    l.e1 = b < B ? ga[(int64_t)b * cap + 32 + lane] : none;
+  };
+  auto load_counts = [&](int b, Lists& l) {
+    l.na2 = b < B ? na_of[b] : 0;
+    l.nb2 = b < B ? nb_of[b] : 0;
+  };
+  // One bucket b of this warp (buckets warp, warp + W, ...), its lists in
+  // `cur`.  Meanwhile the next bucket's A entries load into `nxt` and its
+  // B list into the other ring slot, and the counts of the bucket after
+  // it into `cur`: the two register sets take turns, so nothing loaded
+  // for a later bucket is waited for in this one.
+  auto bucket = [&](int b, int it, Lists& cur, Lists& nxt) {
+    cur.na = cur.na2;
+    cur.nb = cur.nb2;
+    stage(b + W, (it & 1) ^ 1, nxt.nb2);
+    load_a(b + W, nxt);
+    load_counts(b + 2 * W, cur);
+    cp_async_wait_one();                    // this bucket's B list landed
+    __syncwarp();
+    const int na = cur.na, nb = cur.nb;
+    const int4* sbk = ring + (it & 1) * SB;
+    const int4* gbk = gb + (int64_t)b * cap;
+    const int4* gak = ga + (int64_t)b * cap;
+    for (int ia = 0; nb && ia < na; ia += 64) {
+      const bool v0 = ia + lane < na, v1 = ia + 32 + lane < na;
+      const int4 x0 = ia == 0 ? cur.e0 : (v0 ? gak[ia + lane] : none);
+      const int4 x1 = ia == 0 ? cur.e1 : (v1 ? gak[ia + 32 + lane] : none);
+      if (nb <= SB)   // the common case: the whole B list is staged
+        join_windows<MOMENTS>(acc, x0, v0, x1, v1, sbk, nb);
+      else
+        join_windows<MOMENTS>(acc, x0, v0, x1, v1, gbk, nb);
+    }
+    __syncwarp();                           // the slot is refilled next
+  };
+  Lists X, Y;
+  int b = warp;
+  load_counts(b, X);
+  load_counts(b + W, Y);
+  load_a(b, X);
+  stage(b, 0, X.nb2);
+  for (int it = 0; b < B;) {
+    bucket(b, it++, X, Y);
+    if ((b += W) >= B) break;
+    bucket(b, it++, Y, X);
+    b += W;
+  }
+  __syncthreads();
+  // each cell: the warps' sums added in warp order
+  const int64_t a0 = ta * TILE, b0 = tb * TILE;
+  for (int x = threadIdx.x; x < SUMS; x += 32 * W) {
+    const int c = x % NCH, rest = x / NCH;
+    const int col = rest % TILE, r = rest / TILE;
+    const int64_t a = a0 + r, bcol = b0 + col;
+    if (a >= D1 || bcol >= D2) continue;
+    const int k = (c * TILE + r) * TILE + col;
+    float v = sums[k];
+#pragma unroll
+    for (int w = 1; w < W; ++w) v = __fadd_rn(v, sums[w * SUMS + k]);
+    out[(a * D2 + bcol) * NCH + c] = v;
   }
 }
 
 template <bool MOMENTS>
-__global__ void __launch_bounds__(SUB * SUB)
-allpairs_estimate_kernel(const int* __restrict__ a_idx,
-                         const float* __restrict__ a_val,
-                         const float* __restrict__ a_p,
-                         const int* __restrict__ b_idx,
-                         const float* __restrict__ b_val,
-                         const float* __restrict__ b_p, float* __restrict__ out,
-                         int64_t D1, int64_t D2, int B, int S) {
-  constexpr int NCH = MOMENTS ? 6 : 1;
-  __shared__ Stage sa, sb;
-  const int tx = threadIdx.x % SUB;        // B rows tx + SUB*j
-  const int ty = threadIdx.x / SUB;        // A rows ty + SUB*i
-  const int64_t a0 = (int64_t)blockIdx.y * TILE, b0 = (int64_t)blockIdx.x * TILE;
-  const int64_t BS = (int64_t)B * S;
-  const int step = (KS / S) * S;           // whole buckets per step
-  float acc[REG][REG][NCH];
-#pragma unroll
-  for (int i = 0; i < REG; ++i)
-#pragma unroll
-    for (int j = 0; j < REG; ++j)
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[i][j][c] = 0.0f;
-  for (int64_t g0 = 0; g0 < BS; g0 += step) {
-    const int ks = (int)min((int64_t)step, BS - g0);
-    __syncthreads();
-    stage(sa, a_idx, a_val, a_p, a0, D1, BS, g0, ks, -1);
-    stage(sb, b_idx, b_val, b_p, b0, D2, BS, g0, ks, -2);
-    __syncthreads();
-    for (int kb = 0; kb < ks; kb += S) {          // one bucket
-      for (int sq = 0; sq < S; ++sq) {
-        const int ka = (kb + sq) * LD + ty;
-        int ai[REG];
-        bool any = false;
-#pragma unroll
-        for (int i = 0; i < REG; ++i) {
-          ai[i] = sa.idx[ka + SUB * i];
-          any |= ai[i] >= 0;
-        }
-        if (!any) continue;                       // four empty A slots
-        for (int sc = 0; sc < S; ++sc) {
-          const int kc = (kb + sc) * LD + tx;
-#pragma unroll
-          for (int j = 0; j < REG; ++j) {
-            const int bi = sb.idx[kc + SUB * j];
-#pragma unroll
-            for (int i = 0; i < REG; ++i) {
-              if (ai[i] != bi) continue;
-              const float av = sa.val[ka + SUB * i], bv = sb.val[kc + SUB * j];
-              const float inv = fmaxf(sa.rcp[ka + SUB * i], sb.rcp[kc + SUB * j]);
-              float* a = acc[i][j];
-              if (MOMENTS) {
-                a[0] = __fadd_rn(a[0], inv);
-                a[1] = __fadd_rn(a[1], __fmul_rn(av, inv));
-                a[2] = __fadd_rn(a[2], __fmul_rn(bv, inv));
-                a[3] = __fadd_rn(a[3], __fmul_rn(__fmul_rn(av, bv), inv));
-                a[4] = __fadd_rn(a[4], __fmul_rn(__fmul_rn(av, av), inv));
-                a[5] = __fadd_rn(a[5], __fmul_rn(__fmul_rn(bv, bv), inv));
-              } else {
-                a[0] = __fadd_rn(a[0], __fmul_rn(__fmul_rn(av, bv), inv));
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < REG; ++i) {
-    const int64_t a = a0 + ty + SUB * i;
-    if (a >= D1) continue;
-#pragma unroll
-    for (int j = 0; j < REG; ++j) {
-      const int64_t b = b0 + tx + SUB * j;
-      if (b >= D2) continue;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) out[(a * D2 + b) * NCH + c] = acc[i][j][c];
-    }
-  }
+int launch_join(const int4* ea, const int* ca, const int4* eb, const int* cb,
+                float* out, int64_t D1, int64_t D2, int B, int S,
+                cudaStream_t s) {
+  constexpr size_t smem = JoinShape<MOMENTS>::smem();
+  const cudaError_t e = cudaFuncSetAttribute(
+      allpairs_join_kernel<MOMENTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((D2 + TILE - 1) / TILE),
+                  (unsigned)((D1 + TILE - 1) / TILE));
+  allpairs_join_kernel<MOMENTS><<<grid, 32 * JoinShape<MOMENTS>::WARPS, smem,
+                                  s>>>(ea, ca, eb, cb, out, D1, D2, B, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -243,25 +450,40 @@ int repro_intersect_estimate(const int* q_idx, const float* q_val,
   return (int)cudaGetLastError();
 }
 
-// a (D1, B, S) idx/val/p, b (D2, B, S) idx/val/p -> out (D1, D2) f32, or
-// (D1, D2, 6) when moments != 0.  S <= 16.
-int repro_allpairs_estimate(const int* a_idx, const float* a_val,
-                            const float* a_p, const int* b_idx,
-                            const float* b_val, const float* b_p, float* out,
-                            int64_t D1, int64_t D2, int B, int S, int moments,
-                            void* stream) {
+// Compact one corpus (D, B, S) idx/val/p for the join: entries (T, B,
+// 64*S, 4) int32, each tile's bucket in (id, row, slot) order, and counts
+// (T, B) int32, T = ceil(D / 64).  S <= 16.
+int repro_allpairs_compact(const int* idx, const float* val, const float* p,
+                           void* entries, int* counts, int64_t D, int B, int S,
+                           void* stream) {
+  if (D <= 0) return 0;
+  if (B <= 0 || S <= 0 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)AP_WARPS * TILE * S * sizeof(int4);
+  const cudaError_t e = cudaFuncSetAttribute(
+      allpairs_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((B + AP_WARPS - 1) / AP_WARPS),
+                  (unsigned)((D + TILE - 1) / TILE));
+  allpairs_compact_kernel<<<grid, AP_THREADS, smem, (cudaStream_t)stream>>>(
+      idx, val, p, static_cast<int4*>(entries), counts, D, B, S);
+  return (int)cudaGetLastError();
+}
+
+// Join two compacted corpora -> out (D1, D2) f32, or (D1, D2, 6) when
+// moments != 0.
+int repro_allpairs_join(const void* a_entries, const int* a_counts,
+                        const void* b_entries, const int* b_counts, float* out,
+                        int64_t D1, int64_t D2, int B, int S, int moments,
+                        void* stream) {
   if (D1 <= 0 || D2 <= 0) return 0;
-  if (B <= 0 || S <= 0 || S > KS) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((D2 + TILE - 1) / TILE),
-                  (unsigned)((D1 + TILE - 1) / TILE));
+  if (B <= 0 || S <= 0 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  const int4* ea = static_cast<const int4*>(a_entries);
+  const int4* eb = static_cast<const int4*>(b_entries);
   cudaStream_t s = (cudaStream_t)stream;
   if (moments)
-    allpairs_estimate_kernel<true><<<grid, SUB * SUB, 0, s>>>(
-        a_idx, a_val, a_p, b_idx, b_val, b_p, out, D1, D2, B, S);
-  else
-    allpairs_estimate_kernel<false><<<grid, SUB * SUB, 0, s>>>(
-        a_idx, a_val, a_p, b_idx, b_val, b_p, out, D1, D2, B, S);
-  return (int)cudaGetLastError();
+    return launch_join<true>(ea, a_counts, eb, b_counts, out, D1, D2, B, S, s);
+  return launch_join<false>(ea, a_counts, eb, b_counts, out, D1, D2, B, S, s);
 }
 
 }  // extern "C"

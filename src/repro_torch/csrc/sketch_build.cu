@@ -7,8 +7,8 @@
 //   src/repro/kernels/hash_rank/hash_rank.py::hash_rank_batched_pallas
 // (entry repro_hash_rank_batched) and, launched with D = 1,
 //   src/repro/kernels/hash_rank/hash_rank.py::hash_rank_pallas
-// (entry repro_hash_rank), and rank_hist replaces
-//   src/repro/kernels/sketch_build/sketch_build.py::rank_hist_pallas.
+// (entry repro_hash_rank).  The refinement levels of rank_hist_pallas
+// run in radix_select.cu.
 //
 // hash_rank_kernel: one pass over a (D, n) float32 block.  For coordinate
 // j it computes the unit hash hu (the shared hash row, (n,)) and the rank
@@ -18,12 +18,9 @@
 // bit-coordinated.  With HIST it also counts a per-row 256-bin histogram
 // of bits(rank) >> 24 (sign + exponent: the log-domain level 0 of the k-th
 // smallest rank); without, it is the threshold build's front end.
-// rank_hist: one refinement level, counting (bits >> shift) & 0xFF over the
-// keys whose bits above shift + 8 equal a per-row prefix.
 //
 // Bound on the card: memory.  hash_rank_kernel reads D*n*4 bytes and
-// writes D*n*4 + n*4 bytes (the histogram is 1 KiB a row); rank_hist reads
-// D*n*4 bytes.  Design: every thread rebuilds its coordinate from its
+// writes D*n*4 + n*4 bytes (the histogram is 1 KiB a row).  Design: every thread rebuilds its coordinate from its
 // position, so no index array is read; the hash row is written once, by
 // the blocks of row 0; with HIST each block counts into a 256-bin shared
 // histogram with warp-aggregated atomics (__match_any_sync: the lanes that
@@ -102,33 +99,6 @@ int launch_hash_rank(const float* vals, float* h_out, float* rank, int* hist,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS)
-rank_hist_kernel(const float* __restrict__ keys, const int* __restrict__ prefix,
-                 int* __restrict__ hist, int64_t n, int shift) {
-  __shared__ int sh[NBINS];
-  for (int i = threadIdx.x; i < NBINS; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  const int64_t d = blockIdx.y;
-  const int64_t start = (int64_t)blockIdx.x * CHUNK;
-  const int64_t end = min(start + (int64_t)CHUNK, n);
-  const float* row = keys + d * n;
-  const uint32_t pre = (uint32_t)prefix[d];
-  for (int64_t base = start; base < end; base += THREADS) {
-    const int64_t j = base + threadIdx.x;
-    bool on = j < end;
-    uint32_t u = 0;
-    if (on) {
-      u = __float_as_uint(row[j]);
-      // shift 24 is the top level: every key is active (and u >> 32 is
-      // undefined in C++, so it is never evaluated)
-      on = shift >= 24 || (u >> (shift + 8)) == pre;
-    }
-    const unsigned act = __ballot_sync(0xffffffffu, on);
-    if (on) hist_add(sh, act, (int)((u >> shift) & 0xFFu));
-  }
-  flush_hist(sh, hist + d * NBINS);
-}
-
 }  // namespace
 
 extern "C" {
@@ -155,19 +125,6 @@ int repro_hash_rank(const float* vals, float* h_out, float* rank, int64_t n,
                     uint32_t seed, int variant, void* stream) {
   return launch_hash_rank<false>(vals, h_out, rank, nullptr, 1, n, seed,
                                  variant, stream);
-}
-
-// keys (D, n) f32 (nonnegative), prefix (D,) int32, hist (D, 256) int32
-// zeroed by the caller.  shift in {0, 8, 16, 24}.
-int repro_rank_hist(const float* keys, const int* prefix, int* hist, int64_t D,
-                    int64_t n, int shift, void* stream) {
-  if (D <= 0 || n <= 0) return 0;
-  if (shift != 0 && shift != 8 && shift != 16 && shift != 24)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + CHUNK - 1) / CHUNK), (unsigned)D);
-  rank_hist_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(keys, prefix, hist,
-                                                               n, shift);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sketch_build", "intersect_estimate", "sketch_merge",
-           "matrix_sketch", "countsketch", "jl_rademacher")
+SOURCES = ("sketch_build", "radix_select", "intersect_estimate",
+           "sketch_merge", "matrix_sketch", "countsketch", "jl_rademacher")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -4,7 +4,10 @@
   bucketized query against a corpus -> (C,) estimates.
 - :func:`allpairs_estimate` (replaces ``allpairs_estimate_pallas``): two
   bucketized corpora -> the (D1, D2) estimate matrix, or the (D1, D2, 6)
-  co-moment channels with ``moments=True``.
+  co-moment channels with ``moments=True``.  On the card it compacts each
+  corpus to its occupied slots (:func:`allpairs_compact`, once when both
+  sides are the same corpus) and joins the compacted lists (its own
+  count covers the join launch).
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  Each wrapper counts its launches in ``.launches``.
@@ -16,16 +19,19 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import MOMENT_CHANNELS, allpairs_estimate_ref, intersect_estimate_ref
+from .ref import (COMPACT_TILE, MOMENT_CHANNELS, allpairs_compact_ref,
+                  allpairs_estimate_ref, intersect_estimate_ref)
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "repro_intersect_estimate": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                                  _INT, _P],
-    "repro_allpairs_estimate": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
-                                _INT, _INT, _P],
+    "repro_allpairs_compact": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _P],
+    "repro_allpairs_join": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
+                            _P],
 }
-# the all-pairs kernel stages whole buckets of at most 16 slots
+# the all-pairs kernels hold a bucket's entries of 64 rows, at most 64 x 16
+# a side, in shared memory
 MAX_SLOTS = 16
 # the query kernel holds the query's B*S ids, values and probabilities
 # (12 bytes a slot) in one block's shared memory (227 KiB on Hopper)
@@ -76,6 +82,40 @@ def intersect_estimate(q_idx, q_val, q_tau, c_idx, c_val, c_tau
     return out
 
 
+def allpairs_compact(idx, val, p):
+    """One (D, B, S) corpus (int32 ids, float32 values and inclusion
+    probabilities) -> its compacted all-pairs layout ``(entries (T, B,
+    64*S, 4) int32, counts (T, B) int32)``: per tile of 64 rows and
+    bucket, the occupied slots in (id, row, slot) order as (id, row in
+    tile + 256 x the entries with this id, bits of v, bits of 1/p).
+    Entries past a count are unspecified on the card (zeros in the plain
+    version)."""
+    if idx.device.type == "cpu":
+        return allpairs_compact_ref(idx, val, p)
+    dev = idx.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    D, B, S = idx.shape
+    if S > MAX_SLOTS:
+        raise ValueError(f"slots={S} > {MAX_SLOTS} is not supported")
+    for t, what, dt in ((idx, "idx", torch.int32), (val, "val", torch.float32),
+                        (p, "p", torch.float32)):
+        _check(t, what, dt, (D, B, S), dev)
+    T = -(-D // COMPACT_TILE)
+    entries = torch.empty((T, B, COMPACT_TILE * S, 4), dtype=torch.int32,
+                          device=dev)
+    counts = torch.empty((T, B), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_allpairs_compact(
+            idx.data_ptr(), val.data_ptr(), p.data_ptr(), entries.data_ptr(),
+            counts.data_ptr(), D, B, S, stream)
+    _build.check(err, "allpairs_compact")
+    allpairs_compact.launches += 1
+    return entries, counts
+
+
 def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
                       moments: bool = False) -> torch.Tensor:
     """(D1, B, S) and (D2, B, S) idx/val/inclusion-probability triples ->
@@ -98,15 +138,19 @@ def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
             (b_val, "b_val", torch.float32, (D2, B, S)),
             (b_p, "b_p", torch.float32, (D2, B, S))):
         _check(t, what, dt, shape, dev)
+    a = allpairs_compact(a_idx, a_val, a_p)
+    same = all(x.data_ptr() == y.data_ptr() for x, y in
+               ((a_idx, b_idx), (a_val, b_val), (a_p, b_p))) and D1 == D2
+    b = a if same else allpairs_compact(b_idx, b_val, b_p)
     shape = (D1, D2, len(MOMENT_CHANNELS)) if moments else (D1, D2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_allpairs_estimate(
-            a_idx.data_ptr(), a_val.data_ptr(), a_p.data_ptr(),
-            b_idx.data_ptr(), b_val.data_ptr(), b_p.data_ptr(),
-            out.data_ptr(), D1, D2, B, S, int(moments), stream)
+        err = lib.repro_allpairs_join(
+            a[0].data_ptr(), a[1].data_ptr(), b[0].data_ptr(),
+            b[1].data_ptr(), out.data_ptr(), D1, D2, B, S, int(moments),
+            stream)
     _build.check(err, "allpairs_estimate")
     allpairs_estimate.launches += 1
     return out
@@ -114,3 +158,4 @@ def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
 
 intersect_estimate.launches = 0
 allpairs_estimate.launches = 0
+allpairs_compact.launches = 0

@@ -130,12 +130,14 @@ def estimate_all_pairs_bucketized(A: BucketizedSketch, B: BucketizedSketch,
                                   *, variant: str = "l2",
                                   ref_chunk: int | None = None,
                                   use_kernel: bool = True) -> torch.Tensor:
-    """(D1, B, S) x (D2, B, S) bucketized corpora -> (D1, D2) estimates in
-    one kernel launch.  ``ref_chunk`` chunks the plain version's corpus
-    side (intermediates (D1, ref_chunk, B))."""
+    """(D1, B, S) x (D2, B, S) bucketized corpora -> (D1, D2) estimates
+    (on the card: the compaction pass, then one join launch).
+    ``ref_chunk`` chunks the plain version's corpus side (intermediates
+    (D1, ref_chunk, B))."""
     obs.kernel_launch("intersect_estimate.allpairs")
     a_p = slot_inclusion_probs(A, variant=variant)
-    b_p = slot_inclusion_probs(B, variant=variant)
+    # one corpus against itself (all_pairs) is compacted once on the card
+    b_p = a_p if B is A else slot_inclusion_probs(B, variant=variant)
     if not use_kernel:
         return allpairs_estimate_ref(A.idx, A.val, a_p, B.idx, B.val, b_p,
                                      ct=ref_chunk)

@@ -82,3 +82,92 @@ def allpairs_estimate_ref(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
     return torch.cat([_allpairs_block(a_idx, av, ar, b_idx[j:j + ct],
                                       bv[j:j + ct], br[j:j + ct], moments)
                       for j in range(0, D2, ct)], dim=1)
+
+
+# rows of a tile of the compacted all-pairs layout (and of the join's
+# output tiles)
+COMPACT_TILE = 64
+
+
+def allpairs_compact_ref(idx, val, p):
+    """The all-pairs kernel's compacted layout of one (D, B, S) corpus.
+
+    For each tile of ``COMPACT_TILE`` rows and each bucket, the occupied
+    slots (``idx != INVALID_IDX``) of those rows in (id, row, slot) order,
+    as int32 quadruples (id, row in the tile + 256 x the number of entries
+    with this id in the list, bits of v, bits of 1/p), then zeros.  Returns (entries (T, B, tile*S, 4) int32, counts (T, B)
+    int32), T = ceil(D / tile)."""
+    tile = COMPACT_TILE
+    D, B, S = idx.shape
+    T = -(-D // tile)
+    pad = T * tile - D
+    dev = idx.device
+    if pad:
+        idx = torch.cat([idx, torch.full((pad, B, S), INVALID_IDX,
+                                         dtype=idx.dtype, device=dev)])
+        val = torch.cat([val, val.new_zeros((pad, B, S))])
+        p = torch.cat([p, p.new_ones((pad, B, S))])
+
+    def lay(x):          # (T*tile, B, S) -> (T, B, tile*S), (row, slot) order
+        return x.reshape(T, tile, B, S).permute(0, 2, 1, 3).reshape(
+            T, B, tile * S)
+
+    i4 = lay(idx.to(torch.int32))
+    valid = i4 != INVALID_IDX
+    counts = valid.sum(dim=-1).to(torch.int32)
+    rows = (torch.arange(tile * S, device=dev, dtype=torch.int32) // S
+            ).expand(T, B, -1)
+    fields = torch.stack([
+        i4, rows, lay(val.to(torch.float32)).view(torch.int32),
+        (1.0 / lay(p.to(torch.float32))).view(torch.int32)], dim=-1)
+    # occupied slots by id, ties in (row, slot) order; padding last
+    key = torch.where(valid, i4.to(torch.int64), 1 << 32)
+    order = torch.argsort(key, dim=-1, stable=True)
+    out = torch.gather(fields, 2, order[..., None].expand(-1, -1, -1, 4))
+    pos = torch.arange(tile * S, device=dev)
+    used = pos[None, None, :] < counts[..., None]
+    # each entry's run of equal ids in the sorted list: from the last run
+    # start at or before it to the first run end at or after it
+    ids = out[..., 0]
+    new = torch.ones_like(used)
+    new[..., 1:] = ids[..., 1:] != ids[..., :-1]
+    end = torch.ones_like(used)
+    end[..., :-1] = new[..., 1:]
+    start = torch.cummax(torch.where(new, pos, 0), dim=-1).values
+    stop = torch.flip(torch.cummin(torch.flip(
+        torch.where(end, pos, tile * S), [-1]), dim=-1).values, [-1])
+    out[..., 1] += 256 * (stop - start + 1).to(torch.int32)
+    return torch.where(used[..., None], out, torch.zeros_like(out)), counts
+
+
+def allpairs_join_ref(a_entries, a_counts, b_entries, b_counts, D1: int,
+                      D2: int, *, moments: bool = False) -> torch.Tensor:
+    """The join of two compacted corpora (:func:`allpairs_compact_ref`):
+    every pair of entries with the same bucket and id adds
+    ``va * vb * max(1/pa, 1/pb)`` (or the six moment terms) to its cell.
+    -> (D1, D2), or (D1, D2, 6) when ``moments``."""
+    def flat(entries, counts):
+        cap = entries.shape[2]
+        used = (torch.arange(cap, device=entries.device)[None, None, :]
+                < counts[..., None])
+        t, b, j = used.nonzero(as_tuple=True)
+        e = entries[t, b, j]
+        return (b, e[:, 0], t * COMPACT_TILE + e[:, 1] % 256,
+                e[:, 2].contiguous().view(torch.float32),
+                e[:, 3].contiguous().view(torch.float32))
+
+    ba, ida, ra, va, rca = flat(a_entries, a_counts)
+    bb, idb, rb, vb, rcb = flat(b_entries, b_counts)
+    ia, ib = ((ba[:, None] == bb[None, :])
+              & (ida[:, None] == idb[None, :])).nonzero(as_tuple=True)
+    va, vb = va[ia], vb[ib]
+    inv = torch.maximum(rca[ia], rcb[ib])
+    if moments:
+        terms = torch.stack([inv, va * inv, vb * inv, va * vb * inv,
+                             va * va * inv, vb * vb * inv], dim=-1)
+    else:
+        terms = (va * vb * inv)[:, None]
+    out = torch.zeros((D1 * D2, terms.shape[1]), dtype=torch.float32,
+                      device=terms.device)
+    out.index_add_(0, (ra[ia] * D2 + rb[ib]).to(torch.int64), terms)
+    return out.reshape(D1, D2, -1) if moments else out.reshape(D1, D2)

@@ -9,9 +9,8 @@ Pipeline per (D, n) block:
 2. **Exact k-th smallest rank** — positive float32 values compare like
    their bit patterns, so the (m+1)-st smallest rank (priority tau) is
    resolved by four 8-bit histogram levels: level 0 from step 1, then
-   :func:`rank_hist` at shifts 16, 8, 0.  The descent between levels
-   (cumulative sum, first bin whose count reaches k, rebase k) is plain
-   tensor code on the block's device.
+   shifts 16, 8, 0, all inside one launch of :func:`radix_select` (the
+   plain version runs the same descent as tensor code).
 3. **Compaction** — kept entries go to output slot ``cumsum(keep) - 1``
    (coordinates ascend, so the output is idx-sorted without a sort).
 
@@ -37,8 +36,8 @@ from repro_torch.device import resolve_device
 
 from ..hash_rank import hash_rank, hash_rank_batched
 from ..hash_rank.ref import hash_rank_batched_ref, hash_rank_ref
-from .ref import hash_rank_hist_ref, rank_hist_ref
-from .sketch_build import hash_rank_hist, rank_hist
+from .ref import hash_rank_hist_ref, kth_smallest_ranks_ref
+from .sketch_build import check_k, hash_rank_hist, radix_select
 
 
 def kth_smallest_ranks(keys: torch.Tensor, k, *,
@@ -47,37 +46,19 @@ def kth_smallest_ranks(keys: torch.Tensor, k, *,
     """Exact per-row k-th smallest of (D, n) nonnegative float32 keys
     (+inf allowed, no NaN), 1 <= k <= n.  ``hist0`` is the level-0
     histogram when the caller already has it (from :func:`hash_rank_hist`);
-    without it the top level runs :func:`rank_hist` at shift 24 too.
-    Returns (D,) float32.
+    without it the top level is counted too.  One launch of
+    :func:`radix_select` on the card (no host synchronisation); the plain
+    descent (``kth_smallest_ranks_ref``) on the CPU or with
+    ``use_kernel=False``.  Returns (D,) float32.
 
     The shared selection primitive: priority tau is the (m+1)-st smallest
     rank, the threshold overflow cut the (cap+1)-st smallest included
     rank, adaptive tau's cutoff the (n-m+1)-st smallest weight and the
     merged tau the (m+1)-st smallest union candidate."""
-    D, n = keys.shape
-    if isinstance(k, int) and not 1 <= k <= n:
-        raise ValueError(f"need 1 <= k <= n for the k-th smallest of {n} "
-                         f"keys, got k={k}")
-    dev = keys.device
-    keys = keys.contiguous()
-    remaining = torch.broadcast_to(
-        torch.as_tensor(k, dtype=torch.int64, device=dev), (D,)).clone()
-    prefix = torch.zeros((D,), dtype=torch.int64, device=dev)
-    for shift in (24, 16, 8, 0):
-        if shift == 24 and hist0 is not None:
-            hist = hist0
-        else:
-            level = rank_hist if use_kernel else rank_hist_ref
-            hist = level(keys, prefix.to(torch.int32), shift=shift)
-        csum = torch.cumsum(hist.to(torch.int64), dim=1)
-        # first bin whose running count reaches the remaining rank
-        d_star = (csum < remaining[:, None]).sum(dim=1)
-        below = torch.gather(csum, 1, (d_star - 1).clamp(min=0)[:, None])[:, 0]
-        remaining = remaining - torch.where(d_star > 0, below,
-                                            torch.zeros_like(below))
-        prefix = (prefix << 8) | d_star
-    # ranks are nonnegative: the sign bit is 0 and the pattern fits int32
-    return prefix.to(torch.int32).view(torch.float32)
+    check_k(k, keys.shape[1])
+    if not use_kernel:
+        return kth_smallest_ranks_ref(keys, k, hist0=hist0)
+    return radix_select(keys.contiguous(), k, hist0=hist0)
 
 
 def pack_kept(keep: torch.Tensor, vals: torch.Tensor, cap: int,
@@ -157,8 +138,8 @@ def _overflow_cut(include: torch.Tensor, scores: torch.Tensor, cap: int, *,
 
     The cut is the (cap+1)-st smallest included score; strictly below it
     keeps exactly cap entries (score ties at the cut: DESIGN.md §13 of the
-    reference).  The selection's histogram passes run only when some row
-    overflows: one host sync on the row counts decides it."""
+    reference).  The selection runs only when some row overflows: one host
+    sync on the row counts decides it."""
     n = include.shape[1]
     if cap + 1 > n:
         return include

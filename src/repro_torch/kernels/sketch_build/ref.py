@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the sketch_build kernels, and the build oracle.
 
-``hash_rank_hist_ref`` and ``rank_hist_ref`` compute what the CUDA kernels
-compute, on any device; the wrappers in ``sketch_build.py`` use them for
-CPU tensors, and the tests and ``chip_smoke.py`` compare the kernels with
-them.  ``build_priority_corpus_ref`` runs the single-vector reference
+``hash_rank_hist_ref`` computes what the hash/rank/histogram kernel
+computes and ``kth_smallest_ranks_ref`` (the four-level descent over
+``rank_hist_ref``, one 8-bit histogram level each) what the radix select
+kernel computes, on any device; the wrappers in ``sketch_build.py`` use
+them for CPU tensors, and the tests and ``chip_smoke.py`` compare the
+kernels with them.  ``build_priority_corpus_ref`` runs the single-vector reference
 ``priority_sketch`` and ``build_threshold_corpus_ref`` the reference
 ``threshold_sketch`` (full sorts) row by row: the oracles for the
 linear-time builds.
@@ -54,6 +56,36 @@ def rank_hist_ref(keys: torch.Tensor, prefix: torch.Tensor, *,
     if shift < 24:
         active = (u >> (shift + 8)) == prefix.to(torch.int64)[:, None]
     return _row_hist(digits, active)
+
+
+def kth_smallest_ranks_ref(keys: torch.Tensor, k, *,
+                           hist0: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact per-row k-th smallest of (D, n) nonnegative float32 keys by
+    the four-level descent: at shifts 24, 16, 8, 0 count the next byte
+    under the prefix found so far (:func:`rank_hist_ref`; level 0 is
+    ``hist0`` when given), take the first bin whose running count reaches
+    k, rebase k.  ``k``: int or (D,) tensor, 1 <= k <= n.  -> (D,)
+    float32."""
+    D = keys.shape[0]
+    dev = keys.device
+    keys = keys.contiguous()
+    remaining = torch.broadcast_to(
+        torch.as_tensor(k, dtype=torch.int64, device=dev), (D,)).clone()
+    prefix = torch.zeros((D,), dtype=torch.int64, device=dev)
+    for shift in (24, 16, 8, 0):
+        if shift == 24 and hist0 is not None:
+            hist = hist0
+        else:
+            hist = rank_hist_ref(keys, prefix.to(torch.int32), shift=shift)
+        csum = torch.cumsum(hist.to(torch.int64), dim=1)
+        # first bin whose running count reaches the remaining rank
+        d_star = (csum < remaining[:, None]).sum(dim=1)
+        below = torch.gather(csum, 1, (d_star - 1).clamp(min=0)[:, None])[:, 0]
+        remaining = remaining - torch.where(d_star > 0, below,
+                                            torch.zeros_like(below))
+        prefix = (prefix << 8) | d_star
+    # ranks are nonnegative: the sign bit is 0 and the pattern fits int32
+    return prefix.to(torch.int32).view(torch.float32)
 
 
 def build_priority_corpus_ref(A: torch.Tensor, m: int, seed, *,

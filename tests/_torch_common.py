@@ -73,3 +73,35 @@ def edge_values(rng, D: int, n: int) -> np.ndarray:
     pick = rng.random((D, n)) < 0.05
     A[pick] = rng.choice(traps, int(pick.sum()))
     return A
+
+
+def selection_cases(rng) -> list:
+    """(name, keys (D, n) float32, k) cases for the exact k-th smallest
+    key: k = 1, k = n and a per-row k; all-+inf rows; ties across the k-th
+    key; rows whose keys share one top byte (more candidates than a block
+    holds on chip); zeros from flushed subnormals; n not a multiple of any
+    chunk."""
+    n = 3000 + 77
+    mixed = np.abs(edge_values(rng, 5, n)) * np.float32(1e3)
+    mixed[rng.random(mixed.shape) < 0.4] = np.inf
+    mixed[mixed < np.finfo(np.float32).tiny] = 0.0
+    per_row = rng.integers(1, n + 1, 5)
+    inf_rows = np.full((3, 4098), np.inf, np.float32)
+    inf_rows[1, :100] = rng.random(100)             # k past the finite keys
+    ties = rng.choice(np.array([0.25, 0.5, 0.5000001, 3.0, np.inf],
+                               np.float32), (4, 5000))
+    top = (1.0 + rng.random((3, 20011))).astype(np.float32)   # all 0x3F..
+    top[2, ::7] = 1.5                               # and a heavy tie
+    zeros = rng.random((3, 9001)).astype(np.float32)
+    zeros[:, rng.random(9001) < 0.6] = 0.0
+    return [
+        ("mixed_k1", mixed, 1), ("mixed_kn", mixed, n),
+        ("mixed_k257", mixed, 257), ("mixed_per_row", mixed, per_row),
+        ("all_inf_k1", inf_rows, 1), ("all_inf_k200", inf_rows, 200),
+        ("all_inf_kn", inf_rows, 4098),
+        ("ties_mid", ties, 2500), ("ties_per_row", ties,
+                                   rng.integers(1, 5001, 4)),
+        ("top_byte", top, 10006), ("top_byte_k1", top, 1),
+        ("zeros_in", zeros, 3000), ("zeros_edge", zeros,
+                                    np.array([5400, 5401, 9001])),
+    ]

@@ -11,16 +11,17 @@ import pytest
 import torch
 
 from _torch_common import (assert_bits, assert_close, cuda_device,  # noqa: F401
-                           edge_values, sparse_block)
+                           edge_values, selection_cases, sparse_block)
 
 import repro_torch.kernels as tk
-from repro_torch.kernels.intersect_estimate import (allpairs_estimate_ref,
+from repro_torch.kernels.intersect_estimate import (allpairs_compact_ref,
+                                                    allpairs_estimate_ref,
                                                     intersect_estimate_ref)
 from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                            hash_rank_ref)
 from repro_torch.kernels.sketch_build import (build_priority_corpus_ref,
                                               hash_rank_hist_ref,
-                                              rank_hist_ref)
+                                              kth_smallest_ranks_ref)
 from repro_torch.kernels.matrix_sketch import matrix_products_ref
 from repro_torch.kernels.sketch_merge import merge_bucketized_ref
 from repro_torch.kernels.countsketch import countsketch_ref
@@ -48,16 +49,96 @@ def test_hash_rank_hist_kernel_matches_plain(cuda_device, variant):
 
 
 def test_rank_hist_kernel_and_selection(cuda_device):
+    """The selection on hash/rank output, with and without the level-0
+    histogram: one radix_select launch a call, bit-equal to
+    torch.kthvalue and to the plain four-level descent."""
     rng = np.random.default_rng(2)
     A = torch.as_tensor(edge_values(rng, 9, 20000 + 5), device=cuda_device)
     _, rank, hist0 = tk.hash_rank_hist(A, 5)
-    for shift in (24, 16, 8, 0):
-        prefix = torch.arange(9, dtype=torch.int32, device=cuda_device)
-        assert_bits(tk.rank_hist(rank, prefix, shift=shift),
-                    rank_hist_ref(rank, prefix, shift=shift))
     for k in (1, 65, 20005):
-        assert_bits(tk.kth_smallest_ranks(rank, k, hist0=hist0),
-                    torch.kthvalue(rank, k, dim=1).values)
+        want = torch.kthvalue(rank, k, dim=1).values
+        for h in (hist0, None):
+            before = tk.radix_select.launches
+            got = tk.kth_smallest_ranks(rank, k, hist0=h)
+            assert tk.radix_select.launches == before + 1
+            assert_bits(got, want)
+        assert_bits(kth_smallest_ranks_ref(rank, k, hist0=hist0), want)
+
+
+_SELECTION = selection_cases(np.random.default_rng(77))
+
+
+def _kth_rows(keys, k):
+    return torch.stack([torch.kthvalue(row, k if isinstance(k, int)
+                                       else int(k[d])).values
+                        for d, row in enumerate(keys)])
+
+
+@pytest.mark.parametrize("name,keys,k", _SELECTION,
+                         ids=[c[0] for c in _SELECTION])
+def test_radix_select_edge_cases(cuda_device, name, keys, k):
+    """k = 1, k = n, per-row k; all-+inf rows; ties across the k-th key;
+    rows sharing one top byte (more candidates than fit on chip, so levels
+    re-read the row); flushed zeros; ragged n.  One launch, bit-equal to
+    torch.kthvalue and to the plain descent."""
+    keys_t = torch.as_tensor(keys, device=cuda_device)
+    k_t = k if isinstance(k, int) else torch.as_tensor(k, device=cuda_device)
+    before = tk.radix_select.launches
+    got = tk.radix_select(keys_t, k_t)
+    assert tk.radix_select.launches == before + 1
+    assert_bits(got, _kth_rows(keys_t, k))
+    assert_bits(got, kth_smallest_ranks_ref(keys_t, k_t))
+
+
+@pytest.mark.parametrize("D,n,k", [(1, 100_000, 267), (1, 100_000, 99_999),
+                                   (1, 30_000, 1), (4096, 4098, 257)])
+def test_radix_select_path_shapes(cuda_device, D, n, k):
+    """The shapes the paths give it: a single vector's ranks and the merge
+    candidates, each with +inf padding; no host synchronisation."""
+    rng = np.random.default_rng(n + k)
+    keys = rng.random((D, n)).astype(np.float32) / np.float32(0.01)
+    keys[rng.random((D, n)) < 0.5] = np.inf
+    keys_t = torch.as_tensor(keys, device=cuda_device)
+    k_dev = torch.full((D,), k, dtype=torch.int64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tk.kth_smallest_ranks(keys_t, k)
+        got_t = tk.radix_select(keys_t, k_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = torch.kthvalue(keys_t, k, dim=1).values
+    assert_bits(got, want)
+    assert_bits(got_t, want)
+
+
+def _split_row_case(name, rng):
+    if name == "one_top_byte":       # every key 0x3F..: levels re-read
+        return (1.0 + rng.random((1, 65536))).astype(np.float32), 30000
+    if name == "all_inf":
+        return np.full((1, 65536), np.inf, np.float32), 100
+    if name == "ragged_slices":      # the last block's slice is short
+        keys = rng.random((1, 65537)).astype(np.float32)
+        keys[rng.random(keys.shape) < 0.3] = np.inf
+        return keys, 257
+    keys = rng.random((16, 40003)).astype(np.float32) * np.float32(7.0)
+    return keys, rng.integers(1, 40004, 16)      # "per_row_k"
+
+
+@pytest.mark.parametrize("name", ["one_top_byte", "all_inf", "ragged_slices",
+                                  "per_row_k"])
+def test_radix_select_rows_split_across_blocks(cuda_device, name):
+    """Few long rows are split across a cluster of blocks whose counts
+    are summed on chip: one launch, bit-equal to torch.kthvalue and to
+    the plain descent, also where a bin overflows shared memory."""
+    keys, k = _split_row_case(name, np.random.default_rng(len(name)))
+    keys_t = torch.as_tensor(keys, device=cuda_device)
+    k_t = k if isinstance(k, int) else torch.as_tensor(k, device=cuda_device)
+    before = tk.radix_select.launches
+    got = tk.radix_select(keys_t, k_t)
+    assert tk.radix_select.launches == before + 1
+    assert_bits(got, _kth_rows(keys_t, k))
+    assert_bits(got, kth_smallest_ranks_ref(keys_t, k_t))
 
 
 def test_build_on_card_matches_reference_sketches(cuda_device):
@@ -90,7 +171,7 @@ def test_intersect_estimate_kernel_matches_plain(cuda_device, slots):
 @pytest.mark.parametrize("moments", [False, True])
 @pytest.mark.parametrize("slots", [4, 3])
 def test_allpairs_estimate_kernel_matches_plain(cuda_device, moments, slots):
-    """Ragged tiles on both sides (37 x 141 against 64 x 64 tiles)."""
+    """Ragged tiles on both sides (37 x 141 against 128 or 64 row tiles)."""
     a = _card_corpus(cuda_device, 37, slots=slots, seed=1)
     b = _card_corpus(cuda_device, 141, slots=slots, seed=2)
     pa, pb = tk.slot_inclusion_probs(a), tk.slot_inclusion_probs(b)
@@ -99,6 +180,69 @@ def test_allpairs_estimate_kernel_matches_plain(cuda_device, moments, slots):
     ref = allpairs_estimate_ref(a.idx, a.val, pa, b.idx, b.val, pb,
                                 moments=moments)
     assert_close(got, ref)
+
+
+def _compact_equal(got, ref):
+    """The kernel's compacted layout against the plain one, up to each
+    count (entries past a count are unspecified on the card)."""
+    assert_bits(got[1], ref[1])
+    cap = ref[0].shape[2]
+    used = (torch.arange(cap, device=ref[1].device)[None, None, :]
+            < ref[1][..., None])
+    assert_bits(got[0][used], ref[0][used])
+
+
+@pytest.mark.parametrize("moments", [False, True])
+@pytest.mark.parametrize("slots", [1, 2, 4, 8, 16])
+def test_allpairs_compacted_join_matches_plain(cuda_device, moments, slots):
+    """S = 1..16, full buckets (32 slots a row for m = 64 sketches, so
+    buckets fill and drop), empty rows (all padding),
+    D = 150 x 203 (not multiples of the tile); the compaction bit-equal to
+    its plain version, the estimates within tolerance of the plain
+    all-pairs, the same bits on a second launch, and A against itself
+    compacted once."""
+    nb = 32 // slots
+    a = _card_corpus(cuda_device, 150, n_buckets=nb, slots=slots, seed=5)
+    b = _card_corpus(cuda_device, 203, n_buckets=nb, slots=slots, seed=6)
+    a.idx[[0, 77, 149]] = 0x7FFFFFFF                 # empty rows
+    a.val[[0, 77, 149]] = 0.0
+    pa, pb = tk.slot_inclusion_probs(a), tk.slot_inclusion_probs(b)
+    assert int((a.idx != 0x7FFFFFFF).sum(dim=2).max()) == slots
+    _compact_equal(tk.allpairs_compact(a.idx, a.val, pa),
+                   allpairs_compact_ref(a.idx, a.val, pa))
+    got = tk.allpairs_estimate(a.idx, a.val, pa, b.idx, b.val, pb,
+                               moments=moments)
+    ref = allpairs_estimate_ref(a.idx, a.val, pa, b.idx, b.val, pb,
+                                moments=moments)
+    assert_close(got, ref)
+    assert_bits(tk.allpairs_estimate(a.idx, a.val, pa, b.idx, b.val, pb,
+                                     moments=moments), got)
+    assert bool((got[[0, 77, 149]] == 0).all())
+    before = tk.allpairs_compact.launches
+    self_est = tk.allpairs_estimate(a.idx, a.val, pa, a.idx, a.val, pa,
+                                    moments=moments)
+    assert tk.allpairs_compact.launches == before + 1
+    assert_close(self_est, allpairs_estimate_ref(a.idx, a.val, pa, a.idx,
+                                                 a.val, pa, moments=moments))
+
+
+def test_allpairs_cells_depend_on_their_rows_only(cuda_device):
+    """A cell's bits depend on its two rows alone: emptying other rows,
+    or a row's slots in other buckets, leaves the cells of untouched row
+    pairs bit-equal (what a merged index's all_pairs relies on)."""
+    a = _card_corpus(cuda_device, 200, slots=4, seed=9)
+    pa = tk.slot_inclusion_probs(a)
+    full = tk.allpairs_estimate(a.idx, a.val, pa, a.idx, a.val, pa)
+    cut = tk.BucketizedSketch(a.idx.clone(), a.val.clone(), a.tau, a.dropped)
+    gone = torch.arange(0, 200, 7, device=cuda_device)
+    cut.idx[gone] = 0x7FFFFFFF
+    cut.val[gone] = 0.0
+    pc = tk.slot_inclusion_probs(cut)
+    part = tk.allpairs_estimate(cut.idx, cut.val, pc, cut.idx, cut.val, pc)
+    keep = torch.ones(200, dtype=torch.bool, device=cuda_device)
+    keep[gone] = False
+    assert_bits(part[keep][:, keep], full[keep][:, keep])
+    assert bool((part[gone] == 0).all())
 
 
 def test_index_on_card_matches_cpu(cuda_device):
@@ -206,12 +350,14 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         tk.hash_rank_hist(x, 0)
     keys = torch.zeros((2, 8), device=cuda_device)
-    with pytest.raises(ValueError, match="prefix"):
-        tk.rank_hist(keys, torch.zeros(2, dtype=torch.int64,
-                                       device=cuda_device), shift=8)
-    with pytest.raises(ValueError, match="shift"):
-        tk.rank_hist(keys, torch.zeros(2, dtype=torch.int32,
-                                       device=cuda_device), shift=4)
+    with pytest.raises(ValueError, match="hist0"):
+        tk.radix_select(keys, 3, hist0=torch.zeros(
+            (2, 256), dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="float32"):
+        tk.radix_select(x, 3)
+    for k in (0, 9):
+        with pytest.raises(ValueError, match="1 <= k <= n"):
+            tk.radix_select(keys, k)
     with pytest.raises(ValueError, match="float32"):
         tk.hash_rank_batched(x, 0)
     with pytest.raises(ValueError, match="variant"):

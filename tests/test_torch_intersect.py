@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from _torch_common import (assert_bits, assert_close,
                            edge_values, sparse_block, to_np)
+from parity._grid import VECTOR_CASES, make_payloads
 
 import repro.engine as je
 import repro.kernels as jk
@@ -18,7 +19,9 @@ from repro.core import Sketch as JSketch
 import repro_torch.engine as te
 import repro_torch.kernels as tk
 from repro_torch.core import Sketch
-from repro_torch.kernels.intersect_estimate import (allpairs_estimate_ref,
+from repro_torch.kernels.intersect_estimate import (allpairs_compact_ref,
+                                                    allpairs_estimate_ref,
+                                                    allpairs_join_ref,
                                                     intersect_estimate_ref)
 
 
@@ -133,3 +136,87 @@ def test_allpairs_moments_matches_pallas():
 def test_round_up_pow2():
     assert [tk.round_up_pow2(x) for x in (0, 1, 2, 3, 8, 9, 1000)] == \
         [1, 1, 2, 4, 8, 16, 1024]
+
+
+def _grid_corpora(case, D=5, n_buckets=16, slots=2):
+    """The case's block sketched and bucketized by ``repro`` (priority or
+    threshold, the case's variant), as (torch, jax) bucketized corpora: a
+    small layout, so buckets fill, drop and share rows."""
+    A = make_payloads(case, D=D)[..., 0]
+    build = (jk.build_priority_corpus if case.method == "priority"
+             else jk.build_threshold_corpus)
+    j = jk.bucketize_corpus(build(jnp.asarray(A), case.m, case.seed,
+                                  variant=case.variant),
+                            n_buckets=n_buckets, slots=slots)
+    t = tk.BucketizedSketch(*(torch.as_tensor(np.array(x)) for x in j))
+    return t, j
+
+
+@pytest.mark.parametrize("moments", [False, True])
+@pytest.mark.parametrize("case", VECTOR_CASES, ids=lambda c: c.name)
+def test_compacted_join_matches_pallas(case, moments):
+    """The all-pairs kernel's two steps in their plain versions (the
+    compaction of each corpus to its occupied slots, then the join of the
+    compacted lists) against ``repro``'s all-pairs Pallas kernel in
+    interpret mode, A != B and A against itself, estimates and moments,
+    within the float32 summation tolerance of ``_torch_common.RTOL``."""
+    At, Aj = _grid_corpora(case)
+    Bt, Bj = _grid_corpora(case._replace(name=case.name + "-b"), D=3)
+    for (xt, xj), (yt, yj) in (((At, Aj), (Bt, Bj)), ((At, Aj), (At, Aj))):
+        pt = tk.slot_inclusion_probs(xt, variant=case.variant)
+        qt = tk.slot_inclusion_probs(yt, variant=case.variant)
+        ca = allpairs_compact_ref(xt.idx, xt.val, pt)
+        cb = allpairs_compact_ref(yt.idx, yt.val, qt)
+        got = allpairs_join_ref(*ca, *cb, xt.idx.shape[0], yt.idx.shape[0],
+                                moments=moments)
+        if moments:
+            pj = jk.slot_inclusion_probs(xj, variant=case.variant)
+            qj = jk.slot_inclusion_probs(yj, variant=case.variant)
+            ref = np.asarray(jk.allpairs_moments(xj.idx, xj.val, pj, yj.idx,
+                                                 yj.val, qj, use_pallas=True))
+            for ch in range(6):
+                assert_close(to_np(got)[..., ch], ref[..., ch])
+        else:
+            ref = jk.estimate_all_pairs_bucketized(
+                xj, yj, variant=case.variant, use_pallas=True)
+            assert_close(got, ref)
+
+
+def test_compaction_layout():
+    """The compacted layout by hand: occupied slots only, in (id, row,
+    slot) order per tile and bucket (an id in two rows stays in row
+    order), each row tagged with the length of its id's run (x 256), 1/p
+    correctly rounded, padding absent, zeros past each count."""
+    INV = 0x7FFFFFFF
+    idx = torch.tensor([[[17, INV], [INV, INV]],
+                        [[INV, 7], [9, 11]],
+                        [[13, 15], [9, INV]]], dtype=torch.int32)
+    val = torch.arange(12, dtype=torch.float32).reshape(3, 2, 2) + 1
+    p = torch.full((3, 2, 2), 0.3)
+    entries, counts = allpairs_compact_ref(idx, val, p)
+    assert entries.shape == (1, 2, 64 * 2, 4)
+    assert_bits(counts, np.array([[4, 3]], np.int32))
+    rc = np.float32(1) / np.float32(0.3)
+    want = [[(7, 1 + 256, 6.0), (13, 2 + 256, 9.0), (15, 2 + 256, 10.0),
+             (17, 256, 1.0)],
+            [(9, 1 + 512, 7.0), (9, 2 + 512, 11.0), (11, 1 + 256, 8.0)]]
+    e = to_np(entries)
+    for b, rows in enumerate(want):
+        got = e[0, b]
+        for j, (i, r, v) in enumerate(rows):
+            assert list(got[j, :2]) == [i, r]
+            assert got[j, 2:].view(np.float32).tolist() == [v, rc]
+        assert not got[len(rows):].any()
+
+
+def test_compaction_kernel_wrapper_on_cpu():
+    """A CPU tensor takes the plain version through the wrapper; every
+    occupied slot is in the layout once."""
+    t, _ = _corpora(D=70)
+    bt = tk.bucketize_corpus(t, n_buckets=128)
+    pt = tk.slot_inclusion_probs(bt)
+    got = tk.allpairs_compact(bt.idx, bt.val, pt)
+    for g, r in zip(got, allpairs_compact_ref(bt.idx, bt.val, pt)):
+        assert_bits(g, r)
+    assert got[0].shape[0] == 2                    # 70 rows: two tiles
+    assert int(got[1].sum()) == int((bt.idx != 0x7FFFFFFF).sum())

@@ -11,11 +11,12 @@ import torch
 import jax.numpy as jnp
 
 from parity._grid import VECTOR_CASES, MATRIX_CASES, make_payloads
-from _torch_common import (assert_bits, edge_values,
+from _torch_common import (assert_bits, edge_values, selection_cases,
                            sparse_block, to_np)
 
 from repro.engine import build_payload_corpus as j_build_payload
 from repro.kernels import build_priority_corpus as j_build
+from repro.kernels import kth_smallest_ranks as j_kth
 from repro.kernels.sketch_build import pack_kept as j_pack_kept
 from repro.kernels.sketch_build import hash_rank_hist_pallas, rank_hist_pallas
 from repro_torch.core import priority_sketch
@@ -24,8 +25,10 @@ from repro_torch.kernels.sketch_build import (build_priority_corpus,
                                               build_priority_corpus_ref,
                                               hash_rank_hist,
                                               hash_rank_hist_ref,
-                                              kth_smallest_ranks, pack_kept,
-                                              rank_hist, rank_hist_ref)
+                                              kth_smallest_ranks,
+                                              kth_smallest_ranks_ref,
+                                              pack_kept, radix_select,
+                                              rank_hist_ref)
 
 PRIORITY_CASES = [c for c in VECTOR_CASES if c.method == "priority"]
 BLOCK = 1024   # the Pallas kernels' (8, 128) tile
@@ -68,8 +71,8 @@ def test_rank_hist_plain_matches_pallas(shift):
     kth = to_np(kth_smallest_ranks(rank, 40))
     bits = kth.view(np.uint32).astype(np.int64)
     prefix = (bits >> (shift + 8)) if shift < 24 else np.zeros_like(bits)
-    got = rank_hist(rank, torch.as_tensor(prefix.astype(np.int32)),
-                    shift=shift)
+    got = rank_hist_ref(rank, torch.as_tensor(prefix.astype(np.int32)),
+                        shift=shift)
     ref = rank_hist_pallas(jnp.asarray(to_np(rank).reshape(4, -1, 128)),
                            jnp.asarray(prefix.astype(np.uint32)),
                            shift=shift, interpret=True)
@@ -85,6 +88,53 @@ def test_kth_smallest_matches_kthvalue(k):
     want = torch.kthvalue(rank, k, dim=1).values
     assert_bits(kth_smallest_ranks(rank, k, hist0=hist0), want)
     assert_bits(kth_smallest_ranks(rank, k), want)
+
+
+_SELECTION = selection_cases(np.random.default_rng(77))
+
+
+@pytest.mark.parametrize("name,keys,k", _SELECTION,
+                         ids=[c[0] for c in _SELECTION])
+def test_kth_smallest_edge_cases(name, keys, k):
+    """The selection's plain descent, through ``kth_smallest_ranks`` and
+    the ``radix_select`` wrapper's CPU route, bit-equal to
+    ``torch.kthvalue`` and to ``repro``'s k-th smallest on the cases the
+    card test holds the kernel to (the reference's XLA descent; a per-row
+    k as a tensor)."""
+    keys_t = torch.as_tensor(keys)
+    k_t = k if isinstance(k, int) else torch.as_tensor(k)
+    want = torch.stack([torch.kthvalue(row, k if isinstance(k, int)
+                                       else int(k[d])).values
+                        for d, row in enumerate(keys_t)])
+    got = kth_smallest_ranks(keys_t, k_t)
+    assert_bits(got, want)
+    assert_bits(radix_select(keys_t, k_t), want)
+    assert_bits(kth_smallest_ranks(keys_t, k_t, use_kernel=False), want)
+    assert_bits(got, j_kth(jnp.asarray(keys), jnp.asarray(k)))
+
+
+def test_kth_smallest_ref_takes_hist0():
+    """With the level-0 histogram given, the descent skips its first count
+    and lands on the same bits."""
+    rng = np.random.default_rng(8)
+    A = edge_values(rng, 4, 5000)
+    _, rank, hist0 = hash_rank_hist(torch.as_tensor(A), 9)
+    for k in (1, 300, 5000):
+        assert_bits(kth_smallest_ranks_ref(rank, k, hist0=hist0),
+                    kth_smallest_ranks_ref(rank, k))
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        kth_smallest_ranks(rank, 5001)
+
+
+@pytest.mark.parametrize("k", [0, -1, 5001])
+def test_radix_select_rejects_k_outside_the_row(k):
+    """The public select raises for an int k that names no key, as
+    ``kth_smallest_ranks`` does (on the card it would return NaN)."""
+    keys = torch.rand((2, 5000), generator=torch.Generator().manual_seed(3))
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        radix_select(keys, k)
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        kth_smallest_ranks(keys, k, use_kernel=False)
 
 
 def test_pack_kept_matches_reference():
