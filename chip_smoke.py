@@ -59,7 +59,11 @@ exits nonzero with no result line):
                  ``query``, ``all_pairs``, ``merge_from`` and the store's
                  ``query``, B5's compaction and join apart, and the
                  device-only times of the small kernels (raw launches in a
-                 CUDA graph) beside their wrappers' times;
+                 CUDA graph) beside their wrappers' times; B4 at both of
+                 its shapes (4096 x 512 x 4, and the join panel's 2 x
+                 1024 x 4) against its two bounds (the full stream, and the
+                 bytes the query's work needs), B1 at the join path's
+                 (1, 30000);
 10. ``kernels``  one line per the port's kernel table.
 
 Each path (4-8) zeroes every kernel's launch counter before it runs and
@@ -247,6 +251,25 @@ def drop_share(m: int, n_buckets: int, slots: int) -> float:
     fits = sum(math.exp(-lam) * lam ** j / math.factorial(j)
                for j in range(slots + 1))
     return 1.0 - fits ** n_buckets
+
+
+def b4_needed_bytes(q_idx, c_idx) -> int:
+    """Bytes one query against a (C, B, S) corpus needs read and written:
+    the 32-byte sectors of corpus ids that hold a bucket the query
+    occupies, the 32-byte sectors of corpus values of matched slots, the
+    query whole (ids, values, tau), and per row its tau and its output."""
+    C, B, S = c_idx.shape
+    dev = c_idx.device
+    bks = torch.nonzero((q_idx != 0x7FFFFFFF).any(dim=1)).flatten()
+    start = (torch.arange(C, device=dev)[:, None] * B + bks[None, :]) * S * 4
+    span = torch.arange((S * 4 + 31) // 32 + 1, device=dev)
+    sec = start[..., None] // 32 + span
+    sec = sec[sec <= ((start + S * 4 - 1) // 32)[..., None]]
+    match = ((q_idx[None, :, :, None] == c_idx[:, :, None, :])
+             & (q_idx != 0x7FFFFFFF)[None, :, :, None]).any(dim=2)
+    val_sec = torch.nonzero(match.flatten()).flatten() * 4 // 32
+    n_sectors = torch.unique(sec).numel() + torch.unique(val_sec).numel()
+    return 32 * n_sectors + B * S * 8 + 4 + C * 8
 
 
 def run_path(kernels, fn):
@@ -450,10 +473,15 @@ def main() -> None:
     pc = tk.BucketizedSketch(*(torch.cat(parts) for parts in
                                zip(*corpus_blocks)))
     q = tk.BucketizedSketch(*(x[17] for x in pc))
+    pc_shape = tuple(pc.idx.shape)
+    got = tk.intersect_estimate(q.idx, q.val, q.tau, pc.idx, pc.val, pc.tau)
     err["intersect_estimate"] = assert_close(
-        tk.intersect_estimate(q.idx, q.val, q.tau, pc.idx, pc.val, pc.tau),
-        intersect_estimate_ref(q.idx, q.val, q.tau, pc.idx, pc.val, pc.tau),
-        "intersect_estimate C=4096")
+        got, intersect_estimate_ref(q.idx, q.val, q.tau, pc.idx, pc.val,
+                                    pc.tau), "intersect_estimate C=4096")
+    b4_err = {"served": err["intersect_estimate"]}
+    assert_bits(tk.intersect_estimate(q.idx, q.val, q.tau, pc.idx, pc.val,
+                                      pc.tau), got,
+                "intersect_estimate C=4096, run to run")
     sub = tk.BucketizedSketch(*(x[:512] for x in pc))
     p_sub = tk.slot_inclusion_probs(sub)
     e_plain = assert_close(
@@ -567,10 +595,33 @@ def main() -> None:
     # width (a 65536-wide row, m = 256) under both row-seed rules
     # (kernels.jl_project's and core.baselines.jl_sketch's).  Each against
     # its plain version and against a second launch, bit for bit
-    fa0, _ = zipf_frequency_tables(np.random.default_rng(7), JOIN_KEYS,
-                                   JOIN_ROWS, JOIN_ROWS,
-                                   overlap=JOIN_OVERLAP, z=JOIN_Z)
+    fa0, fb0 = zipf_frequency_tables(np.random.default_rng(7), JOIN_KEYS,
+                                     JOIN_ROWS, JOIN_ROWS,
+                                     overlap=JOIN_OVERLAP, z=JOIN_Z)
     fa0_t = torch.as_tensor(fa0, device=dev)
+    # B4 at the served join-size panel's shape: its index (m = 400, 1024
+    # buckets x 4 slots, trial 0's seed) holding fa, fa scaled to [0, 1]
+    # and fb, queried by fb
+    join_rows = torch.as_tensor(np.stack(
+        [fa0, fa0 / max(float(fa0.max()), 1.0), fb0]).astype(np.float32),
+        device=dev)
+    jc = tk.bucketize_corpus(tk.build_priority_corpus(
+        join_rows, JOIN_M, 0, device=dev), n_buckets=JOIN_BUCKETS,
+        slots=SLOTS)
+    jq = tk.bucketize(priority_sketch(torch.as_tensor(fb0, device=dev),
+                                      JOIN_M, 0), n_buckets=JOIN_BUCKETS,
+                      slots=SLOTS)
+    got = tk.intersect_estimate(jq.idx, jq.val, jq.tau, jc.idx, jc.val,
+                                jc.tau)
+    ref = intersect_estimate_ref(jq.idx, jq.val, jq.tau, jc.idx, jc.val,
+                                 jc.tau)
+    b4_err["join"] = assert_close(got, ref, "intersect_estimate join shape")
+    b4_err["join_max_abs_estimate"] = float(ref.abs().max())
+    err["intersect_estimate"] = max(err["intersect_estimate"],
+                                    b4_err["join"])
+    assert_bits(tk.intersect_estimate(jq.idx, jq.val, jq.tau, jc.idx, jc.val,
+                                      jc.tau), got,
+                "intersect_estimate join shape, run to run")
     tail_t = torch.as_tensor(head_split(fa0, JOIN_HEAD)[2], device=dev)
     qs_t = torch.as_tensor(quickstart.make_vectors()[0], device=dev)
     b8_cases = (("fig10", fa0_t, JOIN_M),
@@ -609,6 +660,8 @@ def main() -> None:
                                   h0 is not None]
                                  for w, kk, k, h0 in b2_cases],
           "merge_dropped": merge_drops, "estimators": f"rtol={RTOL}",
+          "intersect_estimate_cases": [list(pc_shape), list(jc.idx.shape)],
+          "intersect_estimate_max_abs_err_by_shape": b4_err,
           "matrix_products_cases": [list(c) for c in b7_cases],
           "matrix_products_layout_dropped": b7_drops,
           "countsketch_cases": [[c, int(v.shape[0]), m]
@@ -1222,13 +1275,17 @@ def main() -> None:
     threshold_plain_ms = cuda_ms(lambda: tk.build_threshold_corpus(
         blk, M, SEED, device=dev, use_kernel=False), iters=5)
     threshold_bytes = Db * nb * 4 + Db * (CAP * 8 + 4)
+    # B4's two bounds: the full stream (every id and value read once) and
+    # the bytes this query's work needs (b4_needed_bytes)
+    b4_full = {"served": C * B * S * 8 + C * 8 + B * S * 8 + 4}
+    b4_need = {"served": b4_needed_bytes(q.idx, corpus.idx)}
     t["intersect_estimate"] = (
         cuda_ms(lambda: tk.intersect_estimate(q.idx, q.val, q.tau, corpus.idx,
                                               corpus.val, corpus.tau)),
         cuda_ms(lambda: intersect_estimate_ref(q.idx, q.val, q.tau,
                                                corpus.idx, corpus.val,
                                                corpus.tau), iters=5),
-        None, C * B * S * 8 + C * 8 + B * S * 8 + 4, "bytes")
+        None, b4_need["served"], "bytes")
     # B5: the compaction pass (once: one corpus against itself) and the
     # join, as all_pairs launches them; each step alone as well
     ap_ms = cuda_ms(lambda: tk.allpairs_estimate(
@@ -1356,8 +1413,36 @@ def main() -> None:
         return launch
 
     h_o, r_o = (torch.empty(qn, device=dev) for _ in range(2))
-    cs_part = torch.empty(-(-JOIN_KEYS // 4096) * JOIN_M, device=dev)
     cs_o, jl_o = (torch.empty(JOIN_M, device=dev) for _ in range(2))
+    # B4 at the join path's shape: the served index's two rows (fa, fa
+    # scaled) queried by fb; a raw launch takes 16-byte loads only on
+    # aligned arrays, as the wrapper decides
+    jc2 = tk.BucketizedSketch(*(x[:2] for x in jc))
+    b4_full["join"] = 2 * JOIN_BUCKETS * SLOTS * 8 + 2 * 8 + \
+        JOIN_BUCKETS * SLOTS * 8 + 4
+    b4_need["join"] = b4_needed_bytes(jq.idx, jc2.idx)
+    ie_o = torch.empty(C, device=dev)
+    ie_cases = {"served": (q, corpus), "join": (jq, jc2)}
+
+    def ie_raw(case):
+        qq, cc = ie_cases[case]
+        ptrs = (qq.idx.data_ptr(), qq.val.data_ptr(), cc.idx.data_ptr(),
+                cc.val.data_ptr())
+        vec = int(cc.idx.shape[2] == 4 and not any(p % 16 for p in ptrs))
+        return raw("intersect_estimate.intersect_estimate", "_lib",
+                   "repro_intersect_estimate", ptrs[0], ptrs[1],
+                   qq.tau.data_ptr(), ptrs[2], ptrs[3], cc.tau.data_ptr(),
+                   ie_o.data_ptr(), *cc.idx.shape, vec)
+
+    ie_join_ms = cuda_ms(lambda: tk.intersect_estimate(
+        jq.idx, jq.val, jq.tau, jc2.idx, jc2.val, jc2.tau))
+    # B1 at the join path's shape: one (1, 30000) vector, the uniform
+    # variant (the PS/TS-uniform sketches)
+    b1_v = fa0_t[None].contiguous()
+    b1_h, b1_r = torch.empty(JOIN_KEYS, device=dev), torch.empty(
+        (1, JOIN_KEYS), device=dev)
+    b1_hist = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+    b1_join_bytes = (2 * JOIN_KEYS + JOIN_KEYS + 256) * 4
     jl_seeds32 = jl_seeds.to(torch.int32).contiguous()
     sel_o = torch.empty(1, device=dev)
     qs_keys = tk.hash_rank(qa, 42)[1][None].contiguous()
@@ -1378,8 +1463,17 @@ def main() -> None:
         f"countsketch_scatter n={JOIN_KEYS} m={JOIN_M}": (
             raw("countsketch.countsketch", "_lib", "repro_countsketch",
                 fa0_t.data_ptr(), JOIN_KEYS, JOIN_M, sb & 0xFFFFFFFF,
-                ss & 0xFFFFFFFF, cs_part.data_ptr(), cs_o.data_ptr()),
+                ss & 0xFFFFFFFF, cs_o.data_ptr(), None),
             t["countsketch_scatter"][0]),
+        f"intersect_estimate C={C} B={B} S={S}": (
+            ie_raw("served"), t["intersect_estimate"][0]),
+        f"intersect_estimate C=2 B={JOIN_BUCKETS} S={SLOTS} (join)": (
+            ie_raw("join"), ie_join_ms),
+        f"hash_rank_hist D=1 n={JOIN_KEYS} uniform (join)": (
+            raw("sketch_build.sketch_build", "_lib", "repro_hash_rank_hist",
+                b1_v.data_ptr(), b1_h.data_ptr(), b1_r.data_ptr(),
+                b1_hist.data_ptr(), 1, JOIN_KEYS, 42, 2),
+            cuda_ms(lambda: tk.hash_rank_hist(b1_v, 42, variant="uniform"))),
         f"jl_rademacher n={JOIN_KEYS} m={JOIN_M}": (
             raw("jl_rademacher.jl_rademacher", "_lib", "repro_jl_rademacher",
                 fa0_t.data_ptr(), jl_seeds32.data_ptr(), JOIN_KEYS, JOIN_M,
@@ -1403,6 +1497,27 @@ def main() -> None:
     }
     device_only = {what: {"device_ms": graph_ms(launch), "wrapper_ms": wrapper}
                    for what, (launch, wrapper) in small.items()}
+    # B4 against both bounds at both shapes, device-only and through the
+    # wrapper: each bound's time over the kernel's (a share)
+    b4_keys = {"served": f"intersect_estimate C={C} B={B} S={S}",
+               "join": f"intersect_estimate C=2 B={JOIN_BUCKETS} S={SLOTS} "
+                       "(join)"}
+    b4_bounds = {}
+    for case, key in b4_keys.items():
+        full_ms = b4_full[case] / HBM_BYTES_PER_S * 1e3
+        need_ms = b4_need[case] / HBM_BYTES_PER_S * 1e3
+        dev_ms, wrap_ms = (device_only[key][k]
+                           for k in ("device_ms", "wrapper_ms"))
+        b4_bounds[case] = {
+            "full_stream_bytes": b4_full[case], "full_stream_ms": full_ms,
+            "needed_bytes": b4_need[case], "needed_ms": need_ms,
+            "device_ms": dev_ms, "wrapper_ms": wrap_ms,
+            "device_share_of_full_stream": full_ms / dev_ms,
+            "device_share_of_needed": need_ms / dev_ms,
+            "wrapper_share_of_full_stream": full_ms / wrap_ms,
+            "wrapper_share_of_needed": need_ms / wrap_ms}
+    b1_join = device_only[f"hash_rank_hist D=1 n={JOIN_KEYS} uniform (join)"]
+    b1_join["bound_ms"] = b1_join_bytes / HBM_BYTES_PER_S * 1e3
     bounds = {}
     for kname, (ms, plain, lib, nbytes, _) in t.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1584,6 +1699,7 @@ def main() -> None:
           "join_size_path_s": jp["seconds"],
           "join_served_query_p50_ms": sv["query_ms"],
           "countsketch_ms_and_bound_by_shape": b8_shapes,
+          "intersect_estimate_bounds": b4_bounds,
           "jl_rademacher_ms_and_bound_by_shape": b9_shapes,
           "int32_ops_per_s": INT32_OPS_PER_S,
           "path_seconds": {"main_path": mp["seconds"],
@@ -1647,6 +1763,16 @@ def main() -> None:
         "jl_rademacher": "partial call, not the same function: torch.mv "
                          "with the sign matrix materialised (hashes "
                          "excluded)"}
+    # beside the bound: B4's full-stream bound, and the device-only times
+    # of the kernels a wrapper's host time hides
+    extra = {
+        "intersect_estimate": {
+            "bound_full_stream_ms": b4_bounds["served"]["full_stream_ms"],
+            "device_ms": b4_bounds["served"]["device_ms"],
+            "join_shape": b4_bounds["join"]},
+        "countsketch_scatter": {"device_ms": device_only[
+            f"countsketch_scatter n={JOIN_KEYS} m={JOIN_M}"]["device_ms"]},
+        "hash_rank_hist": {"join_shape": b1_join}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]
@@ -1659,7 +1785,7 @@ def main() -> None:
                      "bound_ms": bounds[kname][0],
                      "bound_by": bounds[kname][1], "library_ms": lib,
                      "library_call": library_call.get(kname),
-                     "parity": parity})
+                     "parity": parity, **extra.get(kname, {})})
     check(all(r["launches"] > 0 for r in rows),
           f"a ported kernel never launched: {launches}")
     print(json.dumps({"kernels": rows}), flush=True)

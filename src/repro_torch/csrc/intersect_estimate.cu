@@ -9,13 +9,31 @@
 //   src/repro/kernels/intersect_estimate/intersect_estimate.py::intersect_estimate_pallas
 // One (B, S) query against a (C, B, S) corpus -> (C,) estimates, each the
 // sum over matched slots of q*c / min(min(1, tau_q q^2), min(1, tau_c c^2))
-// (the divide form, l2 weights).  Bound on the card: memory — the corpus
-// is read once, C*B*S*8 bytes plus C*8 for tau and the output; the compare
-// work is C*B*S^2, small beside it.  Design: each block holds the query's
-// ids, values and inclusion probabilities in shared memory and gives one
-// corpus row to each warp; a lane takes buckets, loads the row's S slots
-// once and compares each with the S query slots, and the warp sums its
-// lanes with shuffles.
+// (the divide form, l2 weights).  Bound on the card: memory.  Read whole,
+// the corpus is C*B*S*8 bytes (the full stream); but only the buckets
+// where the query holds an id can match (~40% of them at m = 256 in 512
+// buckets), and only matched slots need their value, so the bytes the
+// work needs are the id sectors of the query's buckets and the value
+// sectors of the matches.  Design:
+// - Each block stages the query once, as a compact list of its occupied
+//   buckets (bucket number and the S ids, values and inclusion
+//   probabilities), in ascending bucket order: a ballot and a scan of the
+//   warps' counts, no extra launch, no host sync.  A block has 16 warps,
+//   so the staging is paid once for 16 rows (or once for a row's 16
+//   warps, below).
+// - A warp takes a corpus row; lane l takes list entries l, l + 32, ...
+//   (entry chunks of 32), four chunks at a time, so a lane has four
+//   independent streaming loads (ld.global.cs) in flight.  At S = 4 a
+//   bucket's ids are one 16-byte load and its values, loaded only where
+//   an id matches, another; any other S loads slot by slot.
+// - When the rows are too few to fill the card (C <= the SM count: the
+//   join-size panel's 2-3 rows), a block takes one row and its 16 warps
+//   split the row's chunks (warp w: chunks w, w + 16, ...).
+// Order of summation, the same in both layouts: lane l folds the terms of
+// its entries chunk by chunk in ascending chunk order (each entry's
+// matched terms summed first), then the 32 lanes are added in a fixed
+// shuffle tree.  A row's bits thus depend only on the row and the query,
+// not on C, the layout or the other rows; no float atomics.
 //
 // allpairs_compact and allpairs_join replace
 //   src/repro/kernels/intersect_estimate/intersect_estimate.py::allpairs_estimate_pallas
@@ -61,56 +79,332 @@
 namespace {
 
 constexpr int INVALID = 0x7FFFFFFF;
+constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------- query
-constexpr int Q_ROWS = 4;                 // corpus rows (warps) per block
-constexpr int Q_THREADS = 32 * Q_ROWS;
+constexpr int Q_WARPS = 16;               // warps a block
+constexpr int Q_THREADS = 32 * Q_WARPS;
+constexpr int Q_UNROLL = 4;               // chunks (loads) in flight a lane
 
-__global__ void __launch_bounds__(Q_THREADS)
-intersect_estimate_kernel(const int* __restrict__ q_idx,
-                          const float* __restrict__ q_val,
-                          const float* __restrict__ q_tau,
-                          const int* __restrict__ c_idx,
-                          const float* __restrict__ c_val,
-                          const float* __restrict__ c_tau,
-                          float* __restrict__ out, int64_t C, int B, int S) {
-  extern __shared__ unsigned char smem[];
-  const int BS = B * S;
-  int* sq_idx = reinterpret_cast<int*>(smem);
-  float* sq_val = reinterpret_cast<float*>(sq_idx + BS);
-  float* sq_p = sq_val + BS;
+// Dynamic shared memory of the query kernels: the list (ids, values and
+// probabilities, S a bucket, then the bucket numbers) and, for the split
+// layout, one term a lane a chunk.
+__host__ __device__ constexpr size_t query_smem(int B, int S) {
+  return (size_t)B * S * 12 + (size_t)B * 4 + (size_t)((B + 31) / 32) * 128;
+}
+
+struct QueryList {
+  const int* id;     // (L, S)
+  const float* v;    // (L, S)
+  const float* p;    // (L, S)
+  const int* b;      // (L,)
+  int n;             // L
+};
+
+// The query's occupied buckets, in ascending bucket order, into shared
+// memory; every thread of the block calls it.
+template <bool VEC>
+__device__ QueryList stage_query(const int* __restrict__ q_idx,
+                                 const float* __restrict__ q_val,
+                                 const float* __restrict__ q_tau, int B,
+                                 int S, unsigned char* smem) {
+  __shared__ int wcount[Q_WARPS];
+  int* lid = reinterpret_cast<int*>(smem);
+  float* lv = reinterpret_cast<float*>(lid + (size_t)B * S);
+  float* lp = lv + (size_t)B * S;
+  int* lb = reinterpret_cast<int*>(lp + (size_t)B * S);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float qt = q_tau[0];
-  for (int i = threadIdx.x; i < BS; i += blockDim.x) {
-    const float v = q_val[i];
-    sq_idx[i] = q_idx[i];
-    sq_val[i] = v;
-    sq_p[i] = fminf(1.0f, __fmul_rn(qt, __fmul_rn(v, v)));
+  int base = 0;
+  for (int b0 = 0; b0 < B; b0 += Q_THREADS) {
+    const int b = b0 + threadIdx.x;
+    bool occ = false;
+    int4 id4 = make_int4(INVALID, INVALID, INVALID, INVALID);
+    if (b < B) {
+      if (VEC) {
+        id4 = __ldg(reinterpret_cast<const int4*>(q_idx) + b);
+        occ = id4.x != INVALID || id4.y != INVALID || id4.z != INVALID ||
+              id4.w != INVALID;
+      } else {
+        for (int s = 0; s < S; ++s)
+          occ |= __ldg(q_idx + (size_t)b * S + s) != INVALID;
+      }
+    }
+    const unsigned bal = __ballot_sync(FULL, occ);
+    if (lane == 0) wcount[warp] = __popc(bal);
+    __syncthreads();
+    int pos = base + __popc(bal & ((1u << lane) - 1u)), total = base;
+#pragma unroll
+    for (int w = 0; w < Q_WARPS; ++w) {
+      const int c = wcount[w];
+      pos += w < warp ? c : 0;
+      total += c;
+    }
+    if (occ) {
+      lb[pos] = b;
+      if (VEC) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(q_val) + b);
+        reinterpret_cast<int4*>(lid)[pos] = id4;
+        reinterpret_cast<float4*>(lv)[pos] = v;
+        reinterpret_cast<float4*>(lp)[pos] = make_float4(
+            fminf(1.0f, __fmul_rn(qt, __fmul_rn(v.x, v.x))),
+            fminf(1.0f, __fmul_rn(qt, __fmul_rn(v.y, v.y))),
+            fminf(1.0f, __fmul_rn(qt, __fmul_rn(v.z, v.z))),
+            fminf(1.0f, __fmul_rn(qt, __fmul_rn(v.w, v.w))));
+      } else {
+        for (int s = 0; s < S; ++s) {
+          const size_t o = (size_t)b * S + s, d = (size_t)pos * S + s;
+          const float v = __ldg(q_val + o);
+          lid[d] = __ldg(q_idx + o);
+          lv[d] = v;
+          lp[d] = fminf(1.0f, __fmul_rn(qt, __fmul_rn(v, v)));
+        }
+      }
+    }
+    base = total;
+    __syncthreads();                        // wcount is reused; list ready
   }
-  __syncthreads();
+  return QueryList{lid, lv, lp, lb, base};
+}
+
+__device__ __forceinline__ int comp(const int4& a, int k) {
+  return k == 0 ? a.x : k == 1 ? a.y : k == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ float comp(const float4& a, int k) {
+  return k == 0 ? a.x : k == 1 ? a.y : k == 2 ? a.z : a.w;
+}
+
+// The terms of Q_UNROLL chunks of one corpus row: chunks k0 + u*step,
+// u < Q_UNROLL (none from K on).  x[u] is the sum of the matched terms of
+// this lane's entry in that chunk (0 where it has none), corpus slot by
+// corpus slot, query slot by query slot.  All the id loads are issued
+// before any is used, then the value loads of the matched buckets.
+template <bool VEC>
+__device__ __forceinline__ void chunk_terms(float (&x)[Q_UNROLL], int k0,
+                                            int step, int K,
+                                            const QueryList& q,
+                                            const int* __restrict__ ci,
+                                            const float* __restrict__ cv,
+                                            float ct, int S) {
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * Q_ROWS + (threadIdx.x >> 5);
-  if (row >= C) return;
-  const int* ci_row = c_idx + row * BS;
-  const float* cv_row = c_val + row * BS;
-  const float ct = c_tau[row];
-  float acc = 0.0f;
-  for (int b = lane; b < B; b += 32) {
-    for (int sc = 0; sc < S; ++sc) {
-      const int ci = ci_row[b * S + sc];
-      if (ci == INVALID) continue;
-      const float cv = cv_row[b * S + sc];
-      const float pc = fminf(1.0f, __fmul_rn(ct, __fmul_rn(cv, cv)));
-      for (int sq = 0; sq < S; ++sq) {
-        if (sq_idx[b * S + sq] == ci) {
-          const float p = fminf(sq_p[b * S + sq], pc);
-          acc = __fadd_rn(acc, __fdiv_rn(__fmul_rn(sq_val[b * S + sq], cv), p));
+  int e[Q_UNROLL];                          // list entry, -1 for none
+#pragma unroll
+  for (int u = 0; u < Q_UNROLL; ++u) {
+    const int i = (k0 + u * step) * 32 + lane;
+    e[u] = k0 + u * step < K && i < q.n ? i : -1;
+    x[u] = 0.0f;
+  }
+  if (VEC) {
+    const int4* ci4 = reinterpret_cast<const int4*>(ci);
+    const float4* cv4 = reinterpret_cast<const float4*>(cv);
+    const int4 none = make_int4(INVALID, INVALID, INVALID, INVALID);
+    int4 c[Q_UNROLL];
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u)
+      c[u] = e[u] >= 0 ? __ldcs(ci4 + q.b[e[u]]) : none;
+    int4 qi[Q_UNROLL];
+    bool hit[Q_UNROLL];
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u) {
+      qi[u] = e[u] >= 0 ? reinterpret_cast<const int4*>(q.id)[e[u]] : none;
+      bool h = false;
+#pragma unroll
+      for (int sc = 0; sc < 4; ++sc) {
+        const int id = comp(c[u], sc);
+        h |= id != INVALID && (id == qi[u].x || id == qi[u].y ||
+                               id == qi[u].z || id == qi[u].w);
+      }
+      hit[u] = h;
+    }
+    float4 val[Q_UNROLL];
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u)
+      val[u] = hit[u] ? __ldcs(cv4 + q.b[e[u]]) : make_float4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u) {
+      if (!hit[u]) continue;
+      const float4 qv = reinterpret_cast<const float4*>(q.v)[e[u]];
+      const float4 qp = reinterpret_cast<const float4*>(q.p)[e[u]];
+#pragma unroll
+      for (int sc = 0; sc < 4; ++sc) {
+        const int id = comp(c[u], sc);
+        if (id == INVALID) continue;
+        const float v = comp(val[u], sc);
+        const float pc = fminf(1.0f, __fmul_rn(ct, __fmul_rn(v, v)));
+#pragma unroll
+        for (int sq = 0; sq < 4; ++sq)
+          if (comp(qi[u], sq) == id)
+            x[u] = __fadd_rn(x[u], __fdiv_rn(__fmul_rn(comp(qv, sq), v),
+                                             fminf(comp(qp, sq), pc)));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u) {
+      if (e[u] < 0) continue;
+      const size_t o = (size_t)q.b[e[u]] * S, qo = (size_t)e[u] * S;
+      for (int sc = 0; sc < S; ++sc) {
+        const int id = __ldcs(ci + o + sc);
+        if (id == INVALID) continue;
+        float v = 0.0f, pc = 0.0f;
+        bool loaded = false;
+        for (int sq = 0; sq < S; ++sq) {
+          if (q.id[qo + sq] != id) continue;
+          if (!loaded) {
+            v = __ldcs(cv + o + sc);
+            pc = fminf(1.0f, __fmul_rn(ct, __fmul_rn(v, v)));
+            loaded = true;
+          }
+          x[u] = __fadd_rn(x[u], __fdiv_rn(__fmul_rn(q.v[qo + sq], v),
+                                           fminf(q.p[qo + sq], pc)));
         }
       }
     }
   }
+}
+
+__device__ __forceinline__ float lane_tree_sum(float acc) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+    acc = __fadd_rn(acc, __shfl_down_sync(FULL, acc, off));
+  return acc;                               // lane 0 holds the row's sum
+}
+
+// Many rows: a warp a row (rows warp, warp + all warps, ...); its lanes
+// fold their chunks in ascending order.  Grid: at most the blocks the
+// card holds at once.
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+intersect_rows_kernel(const int* __restrict__ q_idx,
+                      const float* __restrict__ q_val,
+                      const float* __restrict__ q_tau,
+                      const int* __restrict__ c_idx,
+                      const float* __restrict__ c_val,
+                      const float* __restrict__ c_tau,
+                      float* __restrict__ out, int64_t C, int B, int S) {
+  extern __shared__ __align__(16) unsigned char q_smem[];
+  const QueryList q = stage_query<VEC>(q_idx, q_val, q_tau, B, S, q_smem);
+  const int K = (q.n + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t BS = (int64_t)B * S;
+  for (int64_t row = (int64_t)blockIdx.x * Q_WARPS + (threadIdx.x >> 5);
+       row < C; row += (int64_t)gridDim.x * Q_WARPS) {
+    const float ct = c_tau[row];
+    float acc = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += Q_UNROLL) {
+      float x[Q_UNROLL];
+      chunk_terms<VEC>(x, k0, 1, K, q, c_idx + row * BS, c_val + row * BS,
+                       ct, S);
+#pragma unroll
+      for (int u = 0; u < Q_UNROLL; ++u)
+        if (k0 + u < K) acc = __fadd_rn(acc, x[u]);
+    }
+    acc = lane_tree_sum(acc);
+    if (lane == 0) out[row] = acc;
+  }
+}
+
+// Few rows: a block a row; warp w takes chunks w, w + 16, ... and leaves
+// each lane's term of each chunk in shared memory; warp 0 folds them in
+// ascending chunk order, as a lane of intersect_rows_kernel does.
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+intersect_split_kernel(const int* __restrict__ q_idx,
+                       const float* __restrict__ q_val,
+                       const float* __restrict__ q_tau,
+                       const int* __restrict__ c_idx,
+                       const float* __restrict__ c_val,
+                       const float* __restrict__ c_tau,
+                       float* __restrict__ out, int B, int S) {
+  extern __shared__ __align__(16) unsigned char q_smem[];
+  const QueryList q = stage_query<VEC>(q_idx, q_val, q_tau, B, S, q_smem);
+  float* xs = reinterpret_cast<float*>(q_smem + (size_t)B * S * 12 +
+                                       (size_t)B * 4);
+  const int K = (q.n + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x;
+  const int64_t BS = (int64_t)B * S;
+  const float ct = c_tau[row];
+  for (int k0 = warp; k0 < K; k0 += Q_UNROLL * Q_WARPS) {
+    float x[Q_UNROLL];
+    chunk_terms<VEC>(x, k0, Q_WARPS, K, q, c_idx + row * BS,
+                     c_val + row * BS, ct, S);
+#pragma unroll
+    for (int u = 0; u < Q_UNROLL; ++u)
+      if (k0 + u * Q_WARPS < K) xs[(k0 + u * Q_WARPS) * 32 + lane] = x[u];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  float acc = 0.0f;
+  for (int k = 0; k < K; ++k) acc = __fadd_rn(acc, xs[k * 32 + lane]);
+  acc = lane_tree_sum(acc);
   if (lane == 0) out[row] = acc;
+}
+
+constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_MAX = 232448;          // 227 KiB a block
+constexpr int Q_STATIC_SMEM = Q_WARPS * 4;  // stage_query's warp counts
+
+// Per device, once: the SM count, and both kernels allowed the largest
+// shared memory.  Then the blocks an SM holds at this shared memory (kept
+// for the last size asked, the shape a caller repeats).
+template <bool VEC>
+int query_launch_shape(size_t smem, int* sms, int* per_sm) {
+  static int known_sms[MAX_DEVICES];
+  static int last_dev = -1, last_per_sm = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || !known_sms[dev]) {
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(intersect_rows_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_MAX - Q_STATIC_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(intersect_split_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_MAX - Q_STATIC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) known_sms[dev] = n;
+    *sms = n;
+  } else {
+    *sms = known_sms[dev];
+  }
+  if (dev != last_dev || smem != last_smem) {
+    int n = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, intersect_rows_kernel<VEC>, Q_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    last_dev = dev;
+    last_smem = smem;
+    last_per_sm = n > 0 ? n : 1;
+  }
+  *per_sm = last_per_sm;
+  return 0;
+}
+
+template <bool VEC>
+int launch_query(const int* q_idx, const float* q_val, const float* q_tau,
+                 const int* c_idx, const float* c_val, const float* c_tau,
+                 float* out, int64_t C, int B, int S, cudaStream_t s) {
+  const size_t smem = query_smem(B, S);
+  int sms = 0, per_sm = 0;
+  const int err = query_launch_shape<VEC>(smem, &sms, &per_sm);
+  if (err) return err;
+  if (C <= sms) {
+    intersect_split_kernel<VEC><<<(unsigned)C, Q_THREADS, smem, s>>>(
+        q_idx, q_val, q_tau, c_idx, c_val, c_tau, out, B, S);
+    return (int)cudaGetLastError();
+  }
+  const int64_t need = (C + Q_WARPS - 1) / Q_WARPS;
+  const int64_t fit = (int64_t)per_sm * sms;
+  intersect_rows_kernel<VEC><<<(unsigned)(need < fit ? need : fit),
+                               Q_THREADS, smem, s>>>(
+      q_idx, q_val, q_tau, c_idx, c_val, c_tau, out, C, B, S);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ all pairs
@@ -120,7 +414,6 @@ constexpr int AP_THREADS = 32 * AP_WARPS;
 constexpr int SB = 64;                    // B entries staged a bucket
 constexpr int UNR = 4;                    // B entries compared per vote
 constexpr int MAX_S = 16;
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -430,24 +723,25 @@ int launch_join(const int4* ea, const int* ca, const int4* eb, const int* cb,
 extern "C" {
 
 // q (B, S) int32/f32 + q_tau (1,) f32; corpus (C, B, S) int32/f32 + (C,)
-// f32 tau -> out (C,) f32.
+// f32 tau -> out (C,) f32.  vec != 0 (only at S = 4, with the four id and
+// value arrays 16-byte aligned) takes 16-byte loads.  The query's list
+// needs query_smem(B, S) bytes of shared memory, which with the kernels'
+// 64 static bytes must fit in 227 KiB.
 int repro_intersect_estimate(const int* q_idx, const float* q_val,
                              const float* q_tau, const int* c_idx,
                              const float* c_val, const float* c_tau,
-                             float* out, int64_t C, int B, int S, void* stream) {
+                             float* out, int64_t C, int B, int S, int vec,
+                             void* stream) {
   if (C <= 0) return 0;
-  if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)B * S * 12;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        intersect_estimate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned grid = (unsigned)((C + Q_ROWS - 1) / Q_ROWS);
-  intersect_estimate_kernel<<<grid, Q_THREADS, smem, (cudaStream_t)stream>>>(
-      q_idx, q_val, q_tau, c_idx, c_val, c_tau, out, C, B, S);
-  return (int)cudaGetLastError();
+  if (B <= 0 || S <= 0 || (vec && S != 4) ||
+      query_smem(B, S) > (size_t)(SMEM_MAX - Q_STATIC_SMEM))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    return launch_query<true>(q_idx, q_val, q_tau, c_idx, c_val, c_tau, out,
+                              C, B, S, s);
+  return launch_query<false>(q_idx, q_val, q_tau, c_idx, c_val, c_tau, out,
+                             C, B, S, s);
 }
 
 // Compact one corpus (D, B, S) idx/val/p for the join: entries (T, B,

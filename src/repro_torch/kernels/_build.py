@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sketch_build", "radix_select", "intersect_estimate",
@@ -26,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
+_BOUND: set = set()        # (source, C entry) whose argtypes are set
 BUILD_SECONDS: dict = {}   # source -> wall seconds of its nvcc run
 
 
@@ -97,9 +100,21 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        if (name, fn) not in _BOUND:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            _BOUND.add((name, fn))
     return lib
+
+
+def launch_on(dev, launch):
+    """``launch(stream)`` with PyTorch's current stream of CUDA device
+    ``dev``; the current device is switched only when ``dev`` is not it
+    already.  Returns what ``launch`` returns (a ``cudaError_t``)."""
+    if dev.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
 def check(err: int, what: str) -> None:

@@ -43,11 +43,9 @@ def hash_rank_batched(values: torch.Tensor, seed, *, variant: str = "l2"):
     h = torch.empty((n,), dtype=torch.float32, device=dev)
     rank = torch.empty((D, n), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_hash_rank_batched(
-            values.data_ptr(), h.data_ptr(), rank.data_ptr(), D, n,
-            int(seed) & 0xFFFFFFFF, code, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_hash_rank_batched(
+        values.data_ptr(), h.data_ptr(), rank.data_ptr(), D, n,
+        int(seed) & 0xFFFFFFFF, code, stream))
     _build.check(err, "hash_rank_batched")
     hash_rank_batched.launches += 1
     return h, rank
@@ -66,11 +64,9 @@ def hash_rank(values: torch.Tensor, seed, *, variant: str = "l2"):
     h = torch.empty((n,), dtype=torch.float32, device=dev)
     rank = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_hash_rank(values.data_ptr(), h.data_ptr(),
-                                  rank.data_ptr(), n, int(seed) & 0xFFFFFFFF,
-                                  code, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_hash_rank(
+        values.data_ptr(), h.data_ptr(), rank.data_ptr(), n,
+        int(seed) & 0xFFFFFFFF, code, stream))
     _build.check(err, "hash_rank")
     hash_rank.launches += 1
     return h, rank

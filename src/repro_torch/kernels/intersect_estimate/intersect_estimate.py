@@ -1,7 +1,10 @@
 """Wrappers of the CUDA estimators (``csrc/intersect_estimate.cu``).
 
 - :func:`intersect_estimate` (replaces ``intersect_estimate_pallas``): one
-  bucketized query against a corpus -> (C,) estimates.
+  bucketized query against a corpus -> (C,) estimates.  Each block stages
+  the query's occupied buckets as a list and reads only those buckets of
+  its rows (16-byte loads at four slots a bucket); a row's bits do not
+  depend on the other rows.
 - :func:`allpairs_estimate` (replaces ``allpairs_estimate_pallas``): two
   bucketized corpora -> the (D1, D2) estimate matrix, or the (D1, D2, 6)
   co-moment channels with ``moments=True``.  On the card it compacts each
@@ -25,7 +28,7 @@ from .ref import (COMPACT_TILE, MOMENT_CHANNELS, allpairs_compact_ref,
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "repro_intersect_estimate": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
-                                 _INT, _P],
+                                 _INT, _INT, _P],
     "repro_allpairs_compact": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _P],
     "repro_allpairs_join": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                             _P],
@@ -33,9 +36,15 @@ _SIGNATURES = {
 # the all-pairs kernels hold a bucket's entries of 64 rows, at most 64 x 16
 # a side, in shared memory
 MAX_SLOTS = 16
-# the query kernel holds the query's B*S ids, values and probabilities
-# (12 bytes a slot) in one block's shared memory (227 KiB on Hopper)
-MAX_QUERY_SLOTS = 232448 // 12
+# shared memory a block may take on Hopper (227 KiB)
+MAX_SHARED = 232448
+
+
+def query_shared_bytes(B: int, S: int) -> int:
+    """Shared memory of the query kernel (``query_smem`` in the .cu, and
+    its 64 static bytes): the query's list (12 bytes a slot and a bucket
+    number each) and one term a lane a chunk of 32 entries."""
+    return B * S * 12 + B * 4 + -(-B // 32) * 128 + 64
 
 
 def _lib():
@@ -60,9 +69,9 @@ def intersect_estimate(q_idx, q_val, q_tau, c_idx, c_val, c_tau
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     C, B, S = c_idx.shape
-    if B * S > MAX_QUERY_SLOTS:
-        raise ValueError(f"B*S = {B * S} query slots exceed one block's "
-                         f"shared memory ({MAX_QUERY_SLOTS})")
+    if query_shared_bytes(B, S) > MAX_SHARED:
+        raise ValueError(f"a query of {B} buckets x {S} slots needs more "
+                         f"than one block's shared memory ({MAX_SHARED} B)")
     q_tau = torch.as_tensor(q_tau, dtype=torch.float32, device=dev).reshape(1)
     _check(q_idx, "q_idx", torch.int32, (B, S), dev)
     _check(q_val, "q_val", torch.float32, (B, S), dev)
@@ -70,13 +79,13 @@ def intersect_estimate(q_idx, q_val, q_tau, c_idx, c_val, c_tau
     _check(c_val, "c_val", torch.float32, (C, B, S), dev)
     _check(c_tau, "c_tau", torch.float32, (C,), dev)
     out = torch.empty((C,), dtype=torch.float32, device=dev)
+    ptrs = (q_idx.data_ptr(), q_val.data_ptr(), c_idx.data_ptr(),
+            c_val.data_ptr())
+    vec = int(S == 4 and not any(p % 16 for p in ptrs))
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_intersect_estimate(
-            q_idx.data_ptr(), q_val.data_ptr(), q_tau.data_ptr(),
-            c_idx.data_ptr(), c_val.data_ptr(), c_tau.data_ptr(),
-            out.data_ptr(), C, B, S, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_intersect_estimate(
+        ptrs[0], ptrs[1], q_tau.data_ptr(), ptrs[2], ptrs[3],
+        c_tau.data_ptr(), out.data_ptr(), C, B, S, vec, stream))
     _build.check(err, "intersect_estimate")
     intersect_estimate.launches += 1
     return out
@@ -106,11 +115,9 @@ def allpairs_compact(idx, val, p):
                           device=dev)
     counts = torch.empty((T, B), dtype=torch.int32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_allpairs_compact(
-            idx.data_ptr(), val.data_ptr(), p.data_ptr(), entries.data_ptr(),
-            counts.data_ptr(), D, B, S, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_allpairs_compact(
+        idx.data_ptr(), val.data_ptr(), p.data_ptr(), entries.data_ptr(),
+        counts.data_ptr(), D, B, S, stream))
     _build.check(err, "allpairs_compact")
     allpairs_compact.launches += 1
     return entries, counts
@@ -145,12 +152,9 @@ def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
     shape = (D1, D2, len(MOMENT_CHANNELS)) if moments else (D1, D2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_allpairs_join(
-            a[0].data_ptr(), a[1].data_ptr(), b[0].data_ptr(),
-            b[1].data_ptr(), out.data_ptr(), D1, D2, B, S, int(moments),
-            stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_allpairs_join(
+        a[0].data_ptr(), a[1].data_ptr(), b[0].data_ptr(), b[1].data_ptr(),
+        out.data_ptr(), D1, D2, B, S, int(moments), stream))
     _build.check(err, "allpairs_estimate")
     allpairs_estimate.launches += 1
     return out

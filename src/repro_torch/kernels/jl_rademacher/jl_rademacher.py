@@ -56,10 +56,8 @@ def jl_rademacher(values: torch.Tensor, row_seeds: torch.Tensor) -> torch.Tensor
     if m == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_jl_rademacher(values.data_ptr(), seeds.data_ptr(), n,
-                                      m, out.data_ptr(), stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_jl_rademacher(
+        values.data_ptr(), seeds.data_ptr(), n, m, out.data_ptr(), stream))
     _build.check(err, "jl_rademacher")
     jl_rademacher.launches += 1
     return out

@@ -82,12 +82,10 @@ def matrix_products(a_idx, a_rows, a_p, b_idx, b_rows, b_p) -> torch.Tensor:
         _check(t, what, dt, shape, dev)
     out = torch.empty((P, da, db), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_matrix_products(
-            a_idx.data_ptr(), a_rows.data_ptr(), a_p.data_ptr(),
-            b_idx.data_ptr(), b_rows.data_ptr(), b_p.data_ptr(),
-            out.data_ptr(), P, int(Pa == P), B, S, da, db, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_matrix_products(
+        a_idx.data_ptr(), a_rows.data_ptr(), a_p.data_ptr(), b_idx.data_ptr(),
+        b_rows.data_ptr(), b_p.data_ptr(), out.data_ptr(), P, int(Pa == P), B,
+        S, da, db, stream))
     _build.check(err, "matrix_products")
     matrix_products.launches += 1
     return out

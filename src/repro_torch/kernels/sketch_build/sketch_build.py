@@ -50,11 +50,9 @@ def hash_rank_hist(values: torch.Tensor, seed, *, variant: str = "l2"):
     rank = torch.empty((D, n), dtype=torch.float32, device=dev)
     hist = torch.zeros((D, NBINS), dtype=torch.int32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_hash_rank_hist(
-            values.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(),
-            D, n, int(seed) & 0xFFFFFFFF, code, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_hash_rank_hist(
+        values.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(), D,
+        n, int(seed) & 0xFFFFFFFF, code, stream))
     _build.check(err, "hash_rank_hist")
     hash_rank_hist.launches += 1
     return h, rank, hist
@@ -93,11 +91,9 @@ def radix_select(keys: torch.Tensor, k, *,
         kvec, kptr, kscalar = None, None, int(k)
     out = torch.empty((D,), dtype=torch.float32, device=dev)
     lib = _select_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_radix_select(
-            keys.data_ptr(), None if hist0 is None else hist0.data_ptr(),
-            kptr, kscalar, out.data_ptr(), D, n, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_radix_select(
+        keys.data_ptr(), None if hist0 is None else hist0.data_ptr(), kptr,
+        kscalar, out.data_ptr(), D, n, stream))
     _build.check(err, "radix_select")
     radix_select.launches += 1
     return out

@@ -68,13 +68,10 @@ def merge_bucketized(a_idx, a_val, b_idx, b_val, tau, seed, *,
     out_val = torch.empty((D, B, S), dtype=torch.float32, device=dev)
     dropped = torch.zeros((D,), dtype=torch.int32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_merge_bucketized(
-            a_idx.data_ptr(), a_val.data_ptr(), b_idx.data_ptr(),
-            b_val.data_ptr(), tau.data_ptr(), out_idx.data_ptr(),
-            out_val.data_ptr(), dropped.data_ptr(), D, B, S,
-            int(seed) & 0xFFFFFFFF, code, stream)
+    err = _build.launch_on(dev, lambda stream: lib.repro_merge_bucketized(
+        a_idx.data_ptr(), a_val.data_ptr(), b_idx.data_ptr(), b_val.data_ptr(),
+        tau.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
+        dropped.data_ptr(), D, B, S, int(seed) & 0xFFFFFFFF, code, stream))
     _build.check(err, "merge_bucketized")
     merge_bucketized.launches += 1
     return out_idx, out_val, dropped

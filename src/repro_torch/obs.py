@@ -12,19 +12,28 @@ uses, so the port never imports the JAX package:
   rejection counts);
 - :func:`gauge` — a named value that ``set`` overwrites (the serving
   index's ``repro_biasaware_head_fraction`` and
-  ``repro_dp_epsilon_spent``).
+  ``repro_dp_epsilon_spent``);
+- :func:`quality_monitor` — the ingest half of ``repro.obs.quality``'s
+  ``QualityMonitor``: ``SketchIndex.add`` / ``add_many`` fold each
+  batch's taus and bucket-overflow drops into ``repro_quality_tau_last``,
+  ``repro_quality_tau_ewma``, ``repro_quality_ingest_rows_total``,
+  ``repro_quality_overflow_entries_total`` and
+  ``repro_quality_overflow_rows_total``.
 
 While disabled every accessor returns a shared no-op object, so an
 instrumented call site costs one bool test.  The metric registry is a
 flat dict of ``(name, label) -> number``; :func:`snapshot` copies it and
 :func:`spans` lists the recorded spans.  The Prometheus exporter and the
-estimator-quality monitor of ``repro.obs`` are not ported yet.
+rest of ``repro.obs.quality`` (canaries, coverage, recovery) are not
+ported yet.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+
+import numpy as np
 
 _ENABLED = False
 _LOCK = threading.Lock()
@@ -48,10 +57,12 @@ def enabled() -> bool:
 
 
 def reset() -> None:
-    """Drop every recorded metric and span."""
+    """Drop every recorded metric and span, and the quality monitor."""
+    global _QUALITY
     with _LOCK:
         _METRICS.clear()
         _SPANS.clear()
+        _QUALITY = None
 
 
 def _add(name: str, label: str, n: float) -> None:
@@ -165,6 +176,55 @@ def gauge(name: str, help: str = ""):
     if not _ENABLED:
         return NOOP_GAUGE
     return _Gauge(name)
+
+
+EWMA_ALPHA = 0.1
+
+
+class QualityMonitor:
+    """Ingest health, as ``repro.obs.quality.QualityMonitor``: the last
+    tau, an EWMA (alpha ``EWMA_ALPHA``) of each batch's mean finite tau
+    (a drifting tau means the corpus weight profile is moving), the rows
+    ingested, and the entries and rows lost to bucket overflow."""
+
+    def __init__(self):
+        self._tau_ewma = None
+
+    def observe_ingest(self, tau, dropped=None) -> None:
+        """Fold one ingest batch's taus (array-like) and overflow drops
+        into the registry (float64, as the reference)."""
+        tau = np.atleast_1d(np.asarray(tau, np.float64))
+        if tau.size:
+            finite = tau[np.isfinite(tau)]
+            with _LOCK:
+                _METRICS[("repro_quality_tau_last", "")] = float(tau[-1])
+                if finite.size:
+                    mean = float(finite.mean())
+                    self._tau_ewma = mean if self._tau_ewma is None else \
+                        (1 - EWMA_ALPHA) * self._tau_ewma + EWMA_ALPHA * mean
+                    _METRICS[("repro_quality_tau_ewma", "")] = self._tau_ewma
+            _add("repro_quality_ingest_rows_total", "", tau.size)
+        if dropped is not None:
+            dropped = np.atleast_1d(np.asarray(dropped, np.int64))
+            total = int(dropped.sum())
+            if total:
+                _add("repro_quality_overflow_entries_total", "", total)
+                _add("repro_quality_overflow_rows_total", "",
+                     int((dropped > 0).sum()))
+
+
+_QUALITY = None
+
+
+def quality_monitor() -> QualityMonitor:
+    """The process's :class:`QualityMonitor` (made at first use, dropped
+    by :func:`reset`).  It records whatever the switch says: callers test
+    :func:`enabled` first."""
+    global _QUALITY
+    with _LOCK:
+        if _QUALITY is None:
+            _QUALITY = QualityMonitor()
+        return _QUALITY
 
 
 if os.environ.get("REPRO_OBS", "").strip().lower() in ("1", "true", "on"):

@@ -294,6 +294,9 @@ class SketchIndex:
             self._refresh_row_stats(d, d + 1)
             self._device_corpus = None
             self._private_release = None  # the next release pays anew
+            if obs.enabled():
+                obs.quality_monitor().observe_ingest(self._tau[d],
+                                                     self._dropped[d])
 
     def add_many(self, names: Sequence, matrix: np.ndarray) -> None:
         """Batch-ingest a (D, n) block: one linear-time build of all D
@@ -333,6 +336,9 @@ class SketchIndex:
             self._refresh_row_stats(d0, d0 + D)
             self._device_corpus = None
             self._private_release = None
+            if obs.enabled():
+                obs.quality_monitor().observe_ingest(
+                    self._tau[d0:d0 + D], self._dropped[d0:d0 + D])
 
     def _rollback_last(self, k: int) -> None:
         """Undo the last ``k`` appended rows, restoring padding state

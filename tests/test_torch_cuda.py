@@ -157,8 +157,10 @@ def _card_corpus(device, D, m=64, n_buckets=128, slots=4, seed=0):
     return tk.bucketize_corpus(sk, n_buckets=n_buckets, slots=slots)
 
 
-@pytest.mark.parametrize("slots", [4, 3])
+@pytest.mark.parametrize("slots", [4, 3, 1, 8, 16])
 def test_intersect_estimate_kernel_matches_plain(cuda_device, slots):
+    """Any S: four slots take the 16-byte loads, the others slot by slot
+    (one slot drops most of the sketch, sixteen leave buckets empty)."""
     c = _card_corpus(cuda_device, 37, slots=slots)
     q = tk.BucketizedSketch(*(x[4] for x in c))
     before = tk.intersect_estimate.launches
@@ -166,6 +168,90 @@ def test_intersect_estimate_kernel_matches_plain(cuda_device, slots):
     assert tk.intersect_estimate.launches == before + 1
     assert_close(got, intersect_estimate_ref(q.idx, q.val, q.tau, c.idx,
                                              c.val, c.tau))
+    assert_bits(tk.intersect_estimate(q.idx, q.val, q.tau, c.idx, c.val,
+                                      c.tau), got)
+
+
+def _device_corpus(device, D, n, nnz, m, n_buckets, slots=4, seed=0):
+    """A bucketized corpus built on the card from rows of about ``nnz``
+    U(-1, 1) nonzeros of ``n`` (made on the card: no host copy of the
+    dense block)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.rand((D, n), generator=g, device=device) * 2 - 1
+    keep = torch.rand((D, n), generator=g, device=device) < nnz / n
+    A = torch.where(keep, v, torch.zeros((), device=device))
+    sk = tk.build_priority_corpus(A, m, 11, device=device)
+    return tk.bucketize_corpus(sk, n_buckets=n_buckets, slots=slots)
+
+
+@pytest.mark.parametrize("C,n_buckets,m", [(4096, 512, 256), (2, 1024, 400),
+                                           (37, 128, 64), (4099, 128, 64)])
+def test_intersect_estimate_path_shapes(cuda_device, C, n_buckets, m):
+    """The served widths (4096 rows of 512 x 4), the join-size panel's
+    index (2 rows of 1024 x 4 at m = 400: a block a row) and ragged C on
+    either side of the card's SM count; the query is a row of the corpus
+    (all its ids match) and the call makes no host synchronisation; a
+    second launch gives the same bits."""
+    c = _device_corpus(cuda_device, C, 16384, 500, m, n_buckets, seed=C)
+    q = tk.BucketizedSketch(*(x[1] for x in c))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tk.intersect_estimate(q.idx, q.val, q.tau, c.idx, c.val, c.tau)
+        again = tk.intersect_estimate(q.idx, q.val, q.tau, c.idx, c.val,
+                                      c.tau)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert_close(got, intersect_estimate_ref(q.idx, q.val, q.tau, c.idx,
+                                             c.val, c.tau))
+    assert_bits(again, got)
+
+
+def test_intersect_estimate_rows_do_not_depend_on_the_corpus(cuda_device):
+    """A row's bits depend on the row and the query alone: the first k
+    rows of a 4099-row corpus (a warp a row) give the same bits as a
+    corpus of those k rows (a block a row up to the SM count), and so
+    does a copy whose arrays are not 16-byte aligned (slot-by-slot
+    loads)."""
+    c = _card_corpus(cuda_device, 4099, slots=4, seed=3)
+    q = tk.BucketizedSketch(*(x[7] for x in c))
+    full = tk.intersect_estimate(q.idx, q.val, q.tau, c.idx, c.val, c.tau)
+    for k in (1, 2, 3, 37, 132, 133, 1000):
+        assert_bits(tk.intersect_estimate(q.idx, q.val, q.tau, c.idx[:k],
+                                          c.val[:k], c.tau[:k]), full[:k])
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for k in (3, 4099):
+        ci, cv = unaligned(c.idx[:k]), unaligned(c.val[:k])
+        assert ci.data_ptr() % 16
+        assert_bits(tk.intersect_estimate(unaligned(q.idx), unaligned(q.val),
+                                          q.tau, ci, cv, c.tau[:k]), full[:k])
+
+
+@pytest.mark.parametrize("C", [3, 4099])
+def test_intersect_estimate_edge_rows(cuda_device, C):
+    """An all-INVALID query gives 0 for every row; a corpus row with
+    tau = +inf (everything kept, p = 1) is estimated as the plain
+    version does."""
+    c = _card_corpus(cuda_device, C, slots=4, seed=4)
+    q = tk.BucketizedSketch(*(x[0] for x in c))
+    tau = c.tau.clone()
+    tau[1] = float("inf")
+    got = tk.intersect_estimate(q.idx, q.val, q.tau, c.idx, c.val, tau)
+    assert_close(got, intersect_estimate_ref(q.idx, q.val, q.tau, c.idx,
+                                             c.val, tau))
+    empty_idx = torch.full_like(q.idx, 0x7FFFFFFF)
+    empty_val = torch.zeros_like(q.val)
+    got = tk.intersect_estimate(empty_idx, empty_val, q.tau, c.idx, c.val,
+                                tau)
+    assert bool((got == 0).all())
+    assert_bits(got, intersect_estimate_ref(empty_idx, empty_val, q.tau,
+                                            c.idx, c.val, tau))
 
 
 @pytest.mark.parametrize("moments", [False, True])
@@ -514,28 +600,78 @@ def _cs_exact(t, m, seed_b, seed_s):
 
 
 @pytest.mark.parametrize("n", [30000, 100000, 65536])
-@pytest.mark.parametrize("m", [128, 400, 600])
+@pytest.mark.parametrize("m", [128, 400, 600, 3417, 3418, 8192])
 def test_countsketch_kernel_matches_plain(cuda_device, n, m):
-    """Both bucket branches (m = 128 masks, 400 and 600 take the modulo),
-    ragged n; two launches give the same bits.  Integer counts sum
-    exactly in any order, so kernel and plain version are equal there; on
-    U(-1, 1) values each is within float32 summation error of the float64
-    table (two summation orders over buckets of hundreds of terms may
-    differ by more than a fixed 1e-5)."""
+    """Both bucket branches (m = 128 and 8192 mask, the others take the
+    modulo), ragged n, both paths (one launch up to m = 3417, two passes
+    beyond); two launches give the same bits, and no call synchronises
+    with the host.  Integer counts sum exactly in any order, so kernel and
+    plain version are equal there; on U(-1, 1) values each is within
+    float32 summation error of the float64 table (two summation orders
+    over buckets of hundreds of terms may differ by more than a fixed
+    1e-5)."""
+    from repro_torch.kernels.countsketch.countsketch import one_pass_max_m
+    assert one_pass_max_m() == 3417
     rng = np.random.default_rng(n + m)
     for v in (rng.uniform(-1, 1, n).astype(np.float32),
               _zipf_counts(rng, n, 5 * n)):
         t = torch.as_tensor(v, device=cuda_device)
         before = tk.countsketch_scatter.launches
-        got = tk.countsketch_scatter(t, m, 0x9E3779B9, 12345)
-        assert tk.countsketch_scatter.launches == before + 1
-        assert_bits(tk.countsketch_scatter(t, m, 0x9E3779B9, 12345), got)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tk.countsketch_scatter(t, m, 0x9E3779B9, 12345)
+            again = tk.countsketch_scatter(t, m, 0x9E3779B9, 12345)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tk.countsketch_scatter.launches == before + 2
+        assert_bits(again, got)
         ref = countsketch_ref(t, 0x9E3779B9, 12345, m)
         exact, bound = _cs_exact(t, m, 0x9E3779B9, 12345)
         for table in (got, ref):
             assert np.all(np.abs(table.cpu().numpy() - exact) <= bound)
         if np.all(v == np.round(v)):
             assert_bits(got, ref)
+
+
+def _kernel_launches(fn) -> int:
+    """Kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+    graph that captures the call, counted through the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    fn()                                  # build and first-use set-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0)                 # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+@pytest.mark.parametrize("m,kernels", [(128, 1), (400, 1), (600, 1),
+                                       (3417, 1), (3418, 2), (8192, 2)])
+def test_countsketch_launches_per_call(cuda_device, m, kernels):
+    """At its callers' sizes (m <= 600) and up to the one-launch limit a
+    call is one kernel launch; past it, two (the per-chunk pass and the
+    sum)."""
+    t = torch.as_tensor(_zipf_counts(np.random.default_rng(m), 30000,
+                                     150000), device=cuda_device)
+    assert _kernel_launches(lambda: tk.countsketch_scatter(t, m, 1, 2)) \
+        == kernels
 
 
 @pytest.mark.parametrize("n", [30000, 65536])
