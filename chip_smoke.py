@@ -13,7 +13,11 @@ exits nonzero with no result line):
 2. ``build``     one ``nvcc`` per source, started together;
 3. ``parity``    each kernel against its plain PyTorch version on the card,
                  at the main path's shapes (build and merge kernels bit for
-                 bit, estimators within float32 summation tolerance);
+                 bit, estimators within float32 summation tolerance); the
+                 hash/rank kernel's spread route, which single vectors
+                 take, at n = 256, 30000 and 100000, on Fig. 10's vector,
+                 an all-zero row and an unaligned row, against the batched
+                 route on one row, and over a garbage histogram;
 4. ``main_path`` ``SketchIndex`` at its published widths (m=256,
                  n_buckets=512, slots=4, seed=11): 4032 vectors over
                  n=65536 with 2000 nonzeros each through ``add_many`` in
@@ -62,8 +66,11 @@ exits nonzero with no result line):
                  CUDA graph) beside their wrappers' times; B4 at both of
                  its shapes (4096 x 512 x 4, and the join panel's 2 x
                  1024 x 4) against its two bounds (the full stream, and the
-                 bytes the query's work needs), B1 at the join path's
-                 (1, 30000);
+                 bytes the query's work needs), B1 (l2 and uniform) and
+                 B3 at the join path's (1, 30000), B3 at n = 100000, both
+                 at n = 256 (the one-block floor), B1's two routes on one
+                 row on each side of its boundary (n = 2^17, 2^18), B7 at
+                 the store query's shape;
 10. ``kernels``  one line per the port's kernel table.
 
 Each path (4-8) zeroes every kernel's launch counter before it runs and
@@ -351,6 +358,7 @@ def main() -> None:
                                     threshold_matrix_sketch)
     from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                                hash_rank_ref)
+    from repro_torch.kernels.hash_rank.hash_rank import spread_route
     from repro_torch.kernels.intersect_estimate import (
         allpairs_compact_ref, allpairs_estimate_ref, intersect_estimate_ref)
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
@@ -425,6 +433,59 @@ def main() -> None:
                               hash_rank_ref(vec, SEED, variant=variant),
                               ("h", "rank")):
             assert_bits(g, r, f"hash_rank {variant} n=100000 {what}")
+    # the spread route (csrc/sketch_build.cu), which every single vector
+    # takes: B1 as one cluster launch that writes its histogram, B3 spread
+    # over the SMs; each shape and variant bit-equal to the plain version,
+    # with the traps, an all-zero row (every rank +inf), an unaligned row
+    # (one row of an odd-width block), and one row of a block that takes
+    # the batched route against the same row launched alone
+    spread_cases = []
+    odd = with_traps(rand_block(5, JOIN_KEYS + 1))
+    wide = with_traps(rand_block(64, JOIN_KEYS))
+    one_rows = [("n=256", vec[:256]), ("n=30000", vec[:JOIN_KEYS]),
+                ("n=100000", vec), ("zeros n=30000", torch.zeros(
+                    JOIN_KEYS, device=dev)), ("unaligned n=30001", odd[3]),
+                ("row 5 of (64, 30000)", wide[5])]
+    check(not spread_route(dev, *wide.shape),
+          "the (64, 30000) block should take the batched route")
+    for what, row in one_rows:
+        n1 = int(row.shape[0])
+        check(spread_route(dev, 1, n1) and spread_route(dev, 1, n1, hist=True),
+              f"{what} should take the spread route")
+        spread_cases.append([what, n1])
+        for variant in ("l2", "l1", "uniform"):
+            for g, r, out in zip(
+                    tk.hash_rank_hist(row[None], SEED, variant=variant),
+                    hash_rank_hist_ref(row[None], SEED, variant=variant),
+                    ("h", "rank", "hist")):
+                assert_bits(g, r, f"hash_rank_hist D=1 {what} {variant} {out}")
+            for g, r, out in zip(tk.hash_rank(row, SEED, variant=variant),
+                                 hash_rank_ref(row, SEED, variant=variant),
+                                 ("h", "rank")):
+                assert_bits(g, r, f"hash_rank {what} {variant} {out}")
+    for variant in ("l2", "uniform"):
+        _, r_wide, hist_wide = tk.hash_rank_hist(wide, SEED, variant=variant)
+        _, r_one, hist_one = tk.hash_rank_hist(wide[5][None], SEED,
+                                               variant=variant)
+        assert_bits(r_one[0], r_wide[5], f"B1 routes {variant} rank")
+        assert_bits(hist_one[0], hist_wide[5], f"B1 routes {variant} hist")
+        assert_bits(tk.hash_rank(wide[5], SEED, variant=variant)[1],
+                    tk.hash_rank_batched(wide, SEED, variant=variant)[1][5],
+                    f"B3 routes {variant} rank")
+    # a raw launch of the spread route into a histogram full of garbage:
+    # the kernel writes every bin
+    sb_lib = importlib.import_module(
+        "repro_torch.kernels.sketch_build.sketch_build")._lib()
+    g_h, g_r = torch.empty(JOIN_KEYS, device=dev), torch.empty(
+        (1, JOIN_KEYS), device=dev)
+    g_hist = torch.full((1, 256), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    _build.check(sb_lib.repro_hash_rank_hist(
+        vec.data_ptr(), g_h.data_ptr(), g_r.data_ptr(), g_hist.data_ptr(), 1,
+        JOIN_KEYS, SEED, 0, 1, torch.cuda.current_stream().cuda_stream),
+        "repro_hash_rank_hist")
+    assert_bits(g_hist, hash_rank_hist_ref(vec[None, :JOIN_KEYS], SEED)[2],
+                "hash_rank_hist spread route over a garbage histogram")
+    del odd, wide, r_wide, hist_wide, r_one, hist_one
     err["hash_rank"] = 0.0
     # B2 (radix_select) at the shapes the paths give it, each against
     # torch.kthvalue and the plain four-level descent, bit for bit: the
@@ -622,6 +683,17 @@ def main() -> None:
     assert_bits(tk.intersect_estimate(jq.idx, jq.val, jq.tau, jc.idx, jc.val,
                                       jc.tau), got,
                 "intersect_estimate join shape, run to run")
+    for variant in ("l2", "uniform"):
+        for g, r, out in zip(
+                tk.hash_rank_hist(fa0_t[None], 42, variant=variant),
+                hash_rank_hist_ref(fa0_t[None], 42, variant=variant),
+                ("h", "rank", "hist")):
+            assert_bits(g, r, f"hash_rank_hist Fig. 10 vector {variant} {out}")
+        for g, r, out in zip(tk.hash_rank(fa0_t, 42, variant=variant),
+                             hash_rank_ref(fa0_t, 42, variant=variant),
+                             ("h", "rank")):
+            assert_bits(g, r, f"hash_rank Fig. 10 vector {variant} {out}")
+    spread_cases.append(["Fig. 10 vector", JOIN_KEYS])
     tail_t = torch.as_tensor(head_split(fa0, JOIN_HEAD)[2], device=dev)
     qs_t = torch.as_tensor(quickstart.make_vectors()[0], device=dev)
     b8_cases = (("fig10", fa0_t, JOIN_M),
@@ -655,6 +727,7 @@ def main() -> None:
     err["jl_rademacher"] = b9_err
     emit({"phase": "parity", "max_abs_err": err,
           "build_kernels": "bit-equal", "merge_kernel": "bit-equal",
+          "hash_rank_spread_route_cases": spread_cases,
           "radix_select_cases": [[w, list(kk.shape),
                                   k if isinstance(k, int) else "per-row",
                                   h0 is not None]
@@ -1436,13 +1509,35 @@ def main() -> None:
 
     ie_join_ms = cuda_ms(lambda: tk.intersect_estimate(
         jq.idx, jq.val, jq.tau, jc2.idx, jc2.val, jc2.tau))
-    # B1 at the join path's shape: one (1, 30000) vector, the uniform
-    # variant (the PS/TS-uniform sketches)
+    # B1 and B3 on one vector, the spread route as the wrappers take it: at
+    # the join path's (1, 30000) (B1 for the PS sketches, l2 and uniform;
+    # B3 for the TS sketches), the quickstart's n = 100000 (B3), and
+    # n = 256, one block of one coordinate a thread: the floor a one-block
+    # launch sets on this card
     b1_v = fa0_t[None].contiguous()
     b1_h, b1_r = torch.empty(JOIN_KEYS, device=dev), torch.empty(
         (1, JOIN_KEYS), device=dev)
-    b1_hist = torch.zeros((1, 256), dtype=torch.int32, device=dev)
-    b1_join_bytes = (2 * JOIN_KEYS + JOIN_KEYS + 256) * 4
+    b1_hist = torch.empty((1, 256), dtype=torch.int32, device=dev)
+    floor_v = qa[:256].contiguous()
+    round_v = qa[None, :16384].contiguous()
+
+    def b1_raw(v, variant):
+        n1 = int(v.shape[1])
+        return raw("sketch_build.sketch_build", "_lib", "repro_hash_rank_hist",
+                   v.data_ptr(), b1_h.data_ptr(), b1_r.data_ptr(),
+                   b1_hist.data_ptr(), 1, n1, 42, variant,
+                   int(spread_route(dev, 1, n1, hist=True)))
+
+    def b3_raw(v):
+        n1 = int(v.shape[0])
+        return raw("hash_rank.hash_rank", "_lib", "repro_hash_rank",
+                   v.data_ptr(), h_o.data_ptr(), r_o.data_ptr(), n1, 42, 0,
+                   int(spread_route(dev, 1, n1)))
+
+    def one_vector_bound_ms(n1: int, hist: bool) -> float:
+        """The vector read once, h and the ranks written once, and the
+        histogram when there is one, over the memory rate."""
+        return (3 * n1 + (256 if hist else 0)) * 4 / HBM_BYTES_PER_S * 1e3
     jl_seeds32 = jl_seeds.to(torch.int32).contiguous()
     sel_o = torch.empty(1, device=dev)
     qs_keys = tk.hash_rank(qa, 42)[1][None].contiguous()
@@ -1456,10 +1551,11 @@ def main() -> None:
         hash_unit(SEED, torch.arange(MAT_N, dtype=torch.int32,
                                      device=dev))[None]).contiguous()
     small = {
-        f"hash_rank n={qn}": (
-            raw("hash_rank.hash_rank", "_lib", "repro_hash_rank",
-                qa.data_ptr(), h_o.data_ptr(), r_o.data_ptr(), qn, 42, 0),
-            t["hash_rank"][0]),
+        f"hash_rank n={qn}": (b3_raw(qa), t["hash_rank"][0]),
+        f"hash_rank n={JOIN_KEYS} (join)": (
+            b3_raw(fa0_t), cuda_ms(lambda: tk.hash_rank(fa0_t, 42))),
+        "hash_rank n=256 (one block)": (
+            b3_raw(floor_v), cuda_ms(lambda: tk.hash_rank(floor_v, 42))),
         f"countsketch_scatter n={JOIN_KEYS} m={JOIN_M}": (
             raw("countsketch.countsketch", "_lib", "repro_countsketch",
                 fa0_t.data_ptr(), JOIN_KEYS, JOIN_M, sb & 0xFFFFFFFF,
@@ -1470,10 +1566,18 @@ def main() -> None:
         f"intersect_estimate C=2 B={JOIN_BUCKETS} S={SLOTS} (join)": (
             ie_raw("join"), ie_join_ms),
         f"hash_rank_hist D=1 n={JOIN_KEYS} uniform (join)": (
-            raw("sketch_build.sketch_build", "_lib", "repro_hash_rank_hist",
-                b1_v.data_ptr(), b1_h.data_ptr(), b1_r.data_ptr(),
-                b1_hist.data_ptr(), 1, JOIN_KEYS, 42, 2),
+            b1_raw(b1_v, 2),
             cuda_ms(lambda: tk.hash_rank_hist(b1_v, 42, variant="uniform"))),
+        f"hash_rank_hist D=1 n={JOIN_KEYS} l2 (join)": (
+            b1_raw(b1_v, 0), cuda_ms(lambda: tk.hash_rank_hist(b1_v, 42))),
+        "hash_rank_hist D=1 n=256 l2 (one block)": (
+            b1_raw(floor_v[None], 0),
+            cuda_ms(lambda: tk.hash_rank_hist(floor_v[None], 42))),
+        # a coordinate a thread of a whole 16-block cluster: the floor of
+        # the cluster launch, its barrier and its exchange
+        "hash_rank_hist D=1 n=16384 l2 (one cluster round)": (
+            b1_raw(round_v, 0),
+            cuda_ms(lambda: tk.hash_rank_hist(round_v, 42))),
         f"jl_rademacher n={JOIN_KEYS} m={JOIN_M}": (
             raw("jl_rademacher.jl_rademacher", "_lib", "repro_jl_rademacher",
                 fa0_t.data_ptr(), jl_seeds32.data_ptr(), JOIN_KEYS, JOIN_M,
@@ -1516,8 +1620,34 @@ def main() -> None:
             "device_share_of_needed": need_ms / dev_ms,
             "wrapper_share_of_full_stream": full_ms / wrap_ms,
             "wrapper_share_of_needed": need_ms / wrap_ms}
+    # B1's route boundary for one row (hash_rank.HIST_SPREAD_MAX_N = 2^17):
+    # both routes device-only on each side of it, the batched one with the
+    # fill of its histogram that the wrapper launches first
+    b1_routes = {}
+    for n1 in (1 << 17, 1 << 18):
+        v1 = rand_block(1, n1)
+        h1, r1 = torch.empty(n1, device=dev), torch.empty((1, n1), device=dev)
+        hist1 = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+        b1_routes[n1] = {"takes_spread_route": spread_route(dev, 1, n1,
+                                                            hist=True)}
+        for spread in (1, 0):
+            b1_routes[n1]["spread_ms" if spread else "batched_ms"] = graph_ms(
+                raw("sketch_build.sketch_build", "_lib",
+                    "repro_hash_rank_hist", v1.data_ptr(), h1.data_ptr(),
+                    r1.data_ptr(), hist1.data_ptr(), 1, n1, 42, 0, spread))
+        b1_routes[n1]["batched_fill_ms"] = graph_ms(hist1.zero_)
+        del v1, h1, r1, hist1
+    # each one-vector time beside its bound and the one-block floor
+    for what, rec in device_only.items():
+        if what.startswith(("hash_rank n=", "hash_rank_hist D=1")):
+            n1 = int(what.split("n=")[1].split()[0])
+            rec["bound_ms"] = one_vector_bound_ms(
+                n1, what.startswith("hash_rank_hist"))
+            rec["one_block_floor_ms"] = device_only[
+                "hash_rank_hist D=1 n=256 l2 (one block)"
+                if what.startswith("hash_rank_hist")
+                else "hash_rank n=256 (one block)"]["device_ms"]
     b1_join = device_only[f"hash_rank_hist D=1 n={JOIN_KEYS} uniform (join)"]
-    b1_join["bound_ms"] = b1_join_bytes / HBM_BYTES_PER_S * 1e3
     bounds = {}
     for kname, (ms, plain, lib, nbytes, _) in t.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1647,6 +1777,23 @@ def main() -> None:
         cuda_ms(lambda: tk.matrix_products(*b7_args)),
         cuda_ms(lambda: matrix_products_ref(*b7_args), iters=3),
         None, b7_bytes, "bytes")
+    # B7 device-only: raw launches at the store query's shape, the query
+    # side broadcast (batch stride 0) against the library's pairs
+    b7_o = torch.empty((n_lib, MAT_D, MAT_D), device=dev)
+    b7_launch = raw("matrix_sketch.matrix_sketch", "_lib",
+                    "repro_matrix_products", qb.idx.data_ptr(),
+                    qb.rows.data_ptr(), qp.data_ptr(), lib_bc.idx.data_ptr(),
+                    lib_bc.rows.data_ptr(), lib_p.data_ptr(), b7_o.data_ptr(),
+                    n_lib, 0, lib_buckets, lib_slots, MAT_D, MAT_D)
+    b7_launch()
+    torch.cuda.synchronize()
+    assert_bits(b7_o, tk.matrix_products(*b7_args),
+                "matrix_products raw launch vs the wrapper")
+    b7_device = {"shape": [n_lib, lib_buckets, lib_slots, MAT_D],
+                 "device_ms": graph_ms(b7_launch),
+                 "wrapper_ms": t["matrix_products"][0]}
+    device_only[f"matrix_products P={n_lib} B={lib_buckets} S={lib_slots} "
+                f"d={MAT_D} (store query)"] = b7_device
     bytes_ms = b7_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * b7_matches * MAT_D * MAT_D / FP32_OPS_PER_S * 1e3
     bounds["matrix_products"] = (max(bytes_ms, ops_ms),
@@ -1670,6 +1817,7 @@ def main() -> None:
           "allpairs_join_ms": join_ms,
           "allpairs_occupied_slots": occupied,
           "device_only_ms": device_only,
+          "hash_rank_hist_routes": b1_routes,
           "threshold_path_block_ms": tp["block_ms"],
           "threshold_build_ms_per_block": threshold_ms,
           "threshold_build_plain_ms_per_block": threshold_plain_ms,
@@ -1772,7 +1920,18 @@ def main() -> None:
             "join_shape": b4_bounds["join"]},
         "countsketch_scatter": {"device_ms": device_only[
             f"countsketch_scatter n={JOIN_KEYS} m={JOIN_M}"]["device_ms"]},
-        "hash_rank_hist": {"join_shape": b1_join}}
+        "hash_rank_hist": {
+            "join_shape": b1_join,
+            "join_shape_l2": device_only[
+                f"hash_rank_hist D=1 n={JOIN_KEYS} l2 (join)"],
+            "one_block": device_only[
+                "hash_rank_hist D=1 n=256 l2 (one block)"]},
+        "hash_rank": {
+            "device_ms": device_only[f"hash_rank n={qn}"]["device_ms"],
+            "join_shape": device_only[f"hash_rank n={JOIN_KEYS} (join)"],
+            "one_block": device_only["hash_rank n=256 (one block)"]},
+        "matrix_products": {"device_ms": b7_device["device_ms"],
+                            "device_only": b7_device}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

@@ -2,7 +2,10 @@
 
 - :func:`hash_rank_hist` (replaces ``hash_rank_hist_pallas``;
   ``csrc/sketch_build.cu``): fused hash, weight and rank of a (D, n) block
-  plus the level-0 histogram of the rank bit patterns.
+  plus the level-0 histogram of the rank bit patterns; on a block as
+  small as one vector, one cluster launch that writes the histogram
+  (``hash_rank.spread_route``), else the batched grid, which adds into a
+  zeroed one.
 - :func:`radix_select` (replaces ``rank_hist_pallas`` and the four-level
   descent over it; ``csrc/radix_select.cu``): the exact per-row k-th
   smallest key in one launch, every 8-bit level on chip.
@@ -18,12 +21,14 @@ import torch
 
 from .. import _build
 from .._args import check_block, variant_code
+from ..hash_rank.hash_rank import spread_route
 from .ref import NBINS, hash_rank_hist_ref, kth_smallest_ranks_ref
 
 _P, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_int)
 _SIGNATURES = {
-    "repro_hash_rank_hist": [_P, _P, _P, _P, _I64, _I64, _U32, _INT, _P],
+    "repro_hash_rank_hist": [_P, _P, _P, _P, _I64, _I64, _U32, _INT, _INT,
+                             _P],
 }
 _SELECT_SIGNATURES = {
     "repro_radix_select": [_P, _P, _P, _I64, _P, _I64, _I64, _P],
@@ -48,11 +53,14 @@ def hash_rank_hist(values: torch.Tensor, seed, *, variant: str = "l2"):
     dev = values.device
     h = torch.empty((n,), dtype=torch.float32, device=dev)
     rank = torch.empty((D, n), dtype=torch.float32, device=dev)
-    hist = torch.zeros((D, NBINS), dtype=torch.int32, device=dev)
+    spread = spread_route(dev, D, n, hist=True)
+    # the spread route writes every bin; the batched one adds into zeros
+    hist = (torch.empty if spread else torch.zeros)(
+        (D, NBINS), dtype=torch.int32, device=dev)
     lib = _lib()
     err = _build.launch_on(dev, lambda stream: lib.repro_hash_rank_hist(
         values.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(), D,
-        n, int(seed) & 0xFFFFFFFF, code, stream))
+        n, int(seed) & 0xFFFFFFFF, code, int(spread), stream))
     _build.check(err, "hash_rank_hist")
     hash_rank_hist.launches += 1
     return h, rank, hist

@@ -19,6 +19,7 @@ from repro_torch.kernels.intersect_estimate import (allpairs_compact_ref,
                                                     intersect_estimate_ref)
 from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                            hash_rank_ref)
+from repro_torch.kernels.hash_rank.hash_rank import spread_route
 from repro_torch.kernels.sketch_build import (build_priority_corpus_ref,
                                               hash_rank_hist_ref,
                                               kth_smallest_ranks_ref)
@@ -363,6 +364,107 @@ def test_hash_rank_kernels_match_plain(cuda_device, variant):
         assert_bits(g, r)
     assert (tk.hash_rank_batched.launches, tk.hash_rank.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+_ONE_VECTOR_N = [1, 255, 256, 257, 4097, 30000, 65613, 100000,
+                 (1 << 17) + 1]
+
+
+def _check_one_vector(row, seed, variant):
+    """B1 on ``row[None]`` and B3 on ``row``, one launch each, bit-equal
+    to their plain versions."""
+    before = (tk.hash_rank_hist.launches, tk.hash_rank.launches)
+    for g, r in zip(tk.hash_rank_hist(row[None], seed, variant=variant),
+                    hash_rank_hist_ref(row[None], seed, variant=variant)):
+        assert_bits(g, r)
+    for g, r in zip(tk.hash_rank(row, seed, variant=variant),
+                    hash_rank_ref(row, seed, variant=variant)):
+        assert_bits(g, r)
+    assert (tk.hash_rank_hist.launches, tk.hash_rank.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n", _ONE_VECTOR_N)
+@pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
+def test_one_vector_spread_route_matches_plain(cuda_device, variant, n):
+    """B1 and B3 on one vector take the spread route (B1 a cluster launch
+    that writes its histogram, up to 2^17 coordinates), bit-equal to the
+    plain versions with the flush-to-zero traps among the values."""
+    assert spread_route(cuda_device, 1, n)
+    assert spread_route(cuda_device, 1, n, hist=True) == (n <= 1 << 17)
+    rng = np.random.default_rng(n)
+    row = torch.as_tensor(edge_values(rng, 1, n)[0], device=cuda_device)
+    _check_one_vector(row, 11, variant)
+
+
+@pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
+def test_one_vector_zero_and_unaligned_rows(cuda_device, variant):
+    """An all-zero row (every rank +inf, the whole histogram in one bin)
+    and a row that is not 16-byte aligned (row 3 of an odd-width block),
+    for both kernels."""
+    _check_one_vector(torch.zeros(30000, device=cuda_device), 5, variant)
+    rng = np.random.default_rng(3)
+    A = torch.as_tensor(edge_values(rng, 5, 30001), device=cuda_device)
+    assert A[3].data_ptr() % 16
+    _check_one_vector(A[3], 5, variant)
+
+
+@pytest.mark.parametrize("variant", ["l2", "uniform"])
+def test_spread_and_batched_routes_agree(cuda_device, variant):
+    """A row launched alone (the spread route) gives the bits of the same
+    row in a block whose grid takes the batched route; and blocks just on
+    either side of the boundary match their plain versions."""
+    rng = np.random.default_rng(8)
+    A = torch.as_tensor(edge_values(rng, 64, 30000), device=cuda_device)
+    assert not spread_route(cuda_device, 64, 30000)
+    _, r_all, hist_all = tk.hash_rank_hist(A, 7, variant=variant)
+    _, r_one, hist_one = tk.hash_rank_hist(A[5][None], 7, variant=variant)
+    assert_bits(r_one[0], r_all[5])
+    assert_bits(hist_one[0], hist_all[5])
+    assert_bits(tk.hash_rank(A[5], 7, variant=variant)[1],
+                tk.hash_rank_batched(A, 7, variant=variant)[1][5])
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for D in (2 * sms - 1, 2 * sms):
+        B = torch.as_tensor(edge_values(rng, D, 4096), device=cuda_device)
+        assert spread_route(cuda_device, D, 4096) == (D < 2 * sms)
+        assert spread_route(cuda_device, D, 4096, hist=True) == (D < 2 * sms)
+        for g, r in zip(tk.hash_rank_hist(B, 7, variant=variant),
+                        hash_rank_hist_ref(B, 7, variant=variant)):
+            assert_bits(g, r)
+        for g, r in zip(tk.hash_rank_batched(B, 7, variant=variant),
+                        hash_rank_batched_ref(B, 7, variant=variant)):
+            assert_bits(g, r)
+
+
+def test_one_vector_hash_rank_hist_is_one_launch(cuda_device):
+    """A D = 1 call is one kernel (no fill kernel before it); a block on
+    the batched route is the fill and the kernel."""
+    rng = np.random.default_rng(9)
+    row = torch.as_tensor(edge_values(rng, 1, 30000), device=cuda_device)
+    block = torch.as_tensor(edge_values(rng, 64, 30000), device=cuda_device)
+    assert _kernel_launches(lambda: tk.hash_rank_hist(row, 3)) == 1
+    assert _kernel_launches(lambda: tk.hash_rank(row[0], 3)) == 1
+    assert _kernel_launches(lambda: tk.hash_rank_hist(block, 3)) == 2
+
+
+@pytest.mark.parametrize("n", [256, 30000, 100000])
+def test_spread_route_writes_every_bin(cuda_device, n):
+    """A raw launch of the spread route into a histogram full of garbage
+    leaves the plain version's counts in every bin."""
+    from repro_torch.kernels.sketch_build.sketch_build import _lib
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(edge_values(rng, 1, n), device=cuda_device)
+    h = torch.empty(n, device=cuda_device)
+    rank = torch.empty((1, n), device=cuda_device)
+    hist = torch.full((1, 256), 0x5A5A5A5A, dtype=torch.int32,
+                      device=cuda_device)
+    err = _lib().repro_hash_rank_hist(
+        A.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(), 1, n,
+        11, 0, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = hash_rank_hist_ref(A, 11)
+    assert_bits(hist, want[2])
+    assert_bits(rank, want[1])
 
 
 @pytest.mark.parametrize("cap", [None, 40])

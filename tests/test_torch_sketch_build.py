@@ -21,6 +21,7 @@ from repro.kernels.sketch_build import pack_kept as j_pack_kept
 from repro.kernels.sketch_build import hash_rank_hist_pallas, rank_hist_pallas
 from repro_torch.core import priority_sketch
 from repro_torch.engine import build_payload_corpus
+from repro_torch.kernels.hash_rank.hash_rank import takes_spread_route
 from repro_torch.kernels.sketch_build import (build_priority_corpus,
                                               build_priority_corpus_ref,
                                               hash_rank_hist,
@@ -48,17 +49,40 @@ def _pallas_front(A: np.ndarray, seed: int, variant: str):
             np.asarray(rank).reshape(D, -1)[:, :n], hist)
 
 
+ONE_VECTOR_N = 30000   # Fig. 10's key space: the join path's single vectors
+
+
 @pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
-@pytest.mark.parametrize("n", [2048, 3000 + 77])
+@pytest.mark.parametrize("n", [2048, 3000 + 77, ONE_VECTOR_N])
 def test_hash_rank_hist_plain_matches_pallas(variant, n):
+    """A (3, n) block, and at the join path's n one vector (D = 1, the
+    shape that takes the kernel's spread route on the card), with zeros
+    and the flush-to-zero traps among the values."""
     rng = np.random.default_rng(n)
-    A = edge_values(rng, 3, n)
+    A = edge_values(rng, 1 if n == ONE_VECTOR_N else 3, n)
     h_j, r_j, hist_j = _pallas_front(A, 0xB0C4, variant)
     h_t, r_t, hist_t = hash_rank_hist(torch.as_tensor(A), 0xB0C4,
                                       variant=variant)
     assert_bits(h_t, h_j)
     assert_bits(r_t, r_j)
     assert_bits(hist_t, hist_j)
+
+
+@pytest.mark.parametrize("D,n,hist,spread", [
+    (1, 1, True, True), (1, 30000, True, True), (1, 100000, True, True),
+    (7, 65613, True, True), (3, 30001, False, True), (16, 30000, True, True),
+    (263, 4096, True, True), (264, 4096, True, False),
+    (264, 4096, False, False), (64, 30000, False, False),
+    (512, 65536, True, False), (1, 1 << 17, True, True),
+    (1, (1 << 17) + 1, True, False), (1, (1 << 17) + 1, False, True),
+    (1, 2_000_000, False, False), (1, 0, True, False)])
+def test_spread_route_boundary(D, n, hist, spread):
+    """The one boundary between the hash/rank kernel's routes, on a card
+    of 132 SMs: the spread route while the batched grid (a block per 4096
+    coordinates of a row) would hold fewer than two blocks an SM, which
+    takes every single vector the paths sketch (n <= 1e5); with the
+    histogram (one cluster a row) only up to 2^17 coordinates a row."""
+    assert takes_spread_route(D, n, 132, hist=hist) is spread
 
 
 @pytest.mark.parametrize("shift", [24, 16, 8, 0])

@@ -69,14 +69,19 @@ def _corpus(rng, D=6, n=3000, density=0.3):
 # ------------------------------------------------------ B3, plain version
 
 
+ONE_VECTOR_N = 30000   # Fig. 10's key space: the join path's single vectors
+
+
 @pytest.mark.parametrize("variant", ["l2", "l1", "uniform"])
-@pytest.mark.parametrize("n", [2048, 3000 + 77])
+@pytest.mark.parametrize("n", [2048, 3000 + 77, ONE_VECTOR_N])
 def test_hash_rank_plain_matches_pallas(variant, n):
-    """Both forms against the Pallas kernels in interpret mode, with the
-    flush-to-zero traps among the values; the wrappers take the plain
-    version for CPU tensors."""
+    """Both forms against the Pallas kernels in interpret mode, with zeros
+    and the flush-to-zero traps among the values; the wrappers take the
+    plain version for CPU tensors.  At the join path's n the block is one
+    vector (D = 1, the kernel's spread route on the card)."""
     rng = np.random.default_rng(n)
-    A = edge_values(rng, 3, n)
+    D = 1 if n == ONE_VECTOR_N else 3
+    A = edge_values(rng, D, n)
     h_j, r_j = j_hash_rank_batched(jnp.asarray(A), 0xB0C4, variant=variant,
                                    use_pallas=True)
     h_t, r_t = hash_rank_batched_ref(torch.as_tensor(A), 0xB0C4,
@@ -87,11 +92,12 @@ def test_hash_rank_plain_matches_pallas(variant, n):
                                   variant=variant),):
         assert_bits(got[0], h_j)
         assert_bits(got[1], r_j)
-    h1_j, r1_j = j_hash_rank(jnp.asarray(A[1]), 7, variant=variant,
+    row = A[D // 2]
+    h1_j, r1_j = j_hash_rank(jnp.asarray(row), 7, variant=variant,
                              use_pallas=True)
-    for h1_t, r1_t in (hash_rank_ref(torch.as_tensor(A[1]), 7,
+    for h1_t, r1_t in (hash_rank_ref(torch.as_tensor(row), 7,
                                      variant=variant),
-                       hash_rank(torch.as_tensor(A[1]), 7, variant=variant)):
+                       hash_rank(torch.as_tensor(row), 7, variant=variant)):
         assert_bits(h1_t, h1_j)
         assert_bits(r1_t, r1_j)
 
