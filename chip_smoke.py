@@ -17,7 +17,11 @@ exits nonzero with no result line):
                  hash/rank kernel's spread route, which single vectors
                  take, at n = 256, 30000 and 100000, on Fig. 10's vector,
                  an all-zero row and an unaligned row, against the batched
-                 route on one row, and over a garbage histogram;
+                 route on one row, and over a garbage histogram; B9's
+                 first k rows of an m-row call against a k-row call and
+                 its exact sums of small integers against the plain
+                 version, bit for bit; B7's first k of 256 pairs against a
+                 k-pair call, batched and broadcast, bit for bit;
 4. ``main_path`` ``SketchIndex`` at its published widths (m=256,
                  n_buckets=512, slots=4, seed=11): 4032 vectors over
                  n=65536 with 2000 nonzeros each through ``add_many`` in
@@ -70,7 +74,11 @@ exits nonzero with no result line):
                  B3 at the join path's (1, 30000), B3 at n = 100000, both
                  at n = 256 (the one-block floor), B1's two routes on one
                  row on each side of its boundary (n = 2^17, 2^18), B7 at
-                 the store query's shape;
+                 the store query's shape and at the products call's (256
+                 batched pairs), B9 at (30000, 400) and (65536, 256) with
+                 its column loop's instructions a term read from
+                 ``cuobjdump -sass``, torch.kthvalue at B2's one-vector
+                 shapes beside B2;
 10. ``kernels``  one line per the port's kernel table.
 
 Each path (4-8) zeroes every kernel's launch counter before it runs and
@@ -80,12 +88,14 @@ line gives its wall time (``seconds``).
 The last lines are ``nvidia-smi``'s name and power limit and then
 ``{"ok": true, "device": {...}}``.
 """
+import collections
 import contextlib
 import importlib
 import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +132,8 @@ INT32_OPS_PER_S = 33.5e12
 JL_INT_OPS = 10   # a term's index add, mix32's 8 operations, the sign bit
 CS_TOL = 1e-5     # B8: rtol = atol (the reference's kernel test)
 JL_TOL = 1e-4     # B9: rtol, and atol times max(1, max |out|)
+# calls a wrapper time of B7 and B9 averages (host-bound, so it spreads)
+WRAPPER_ITERS = 300
 
 
 def emit(obj) -> None:
@@ -316,6 +328,36 @@ def graph_ms(launch, reps: int = 50, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * reps)
+
+
+def sass_loop(lib_path, nvcc: str) -> dict:
+    """The opcodes of the JL kernel's column loop, read from ``cuobjdump
+    -sass`` of the built library: the backward branch whose body holds the
+    most FADDs (one FADD a term), with its instructions a term."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", sass)]
+
+    def opcode(text):
+        return re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split()[0].split(".")[0]
+
+    best = None
+    for addr, text in ins:
+        hit = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+        if not hit or int(hit[1], 16) >= addr:
+            continue
+        ops = [opcode(t) for a, t in ins if int(hit[1], 16) <= a <= addr]
+        if best is None or ops.count("FADD") > best.count("FADD"):
+            best = ops
+    check(best is not None and best.count("FADD") > 0,
+          "no column loop found in the JL kernel's SASS")
+    terms = best.count("FADD")
+    return {"loop_instructions": len(best), "terms_a_trip": terms,
+            "instructions_a_term": len(best) / terms,
+            "by_opcode": dict(collections.Counter(best).most_common())}
 
 
 def quiet(fn, *args, **kw):
@@ -645,6 +687,17 @@ def main() -> None:
             b7_err = max(b7_err, assert_close(
                 got_q, matrix_products_ref(*q, *b[:3]),
                 "matrix_products broadcast query"))
+            # a pair's bits depend on its two sketches alone: the first k
+            # pairs of the P-pair call against a k-pair call, batched and
+            # with the query side broadcast
+            for k in (1, 7, P - 1):
+                assert_bits(tk.matrix_products(*(x[:k] for x in a[:3]),
+                                               *(x[:k] for x in b[:3])),
+                            got[:k], f"matrix_products first {k} of {P} "
+                            f"pairs vs a {k}-pair call")
+                assert_bits(tk.matrix_products(*q, *(x[:k] for x in b[:3])),
+                            got_q[:k], f"matrix_products broadcast, first "
+                            f"{k} of {P} pairs vs a {k}-pair call")
     check(b7_drops > 0, "the 16-bucket matrix layout dropped nothing")
     err["matrix_products"] = b7_err
     del a, b, got
@@ -724,6 +777,19 @@ def main() -> None:
             scale = max(1.0, float(ref.abs().max()))
             b9_err = max(b9_err, assert_tol(got, ref, JL_TOL,
                                             JL_TOL * scale, what))
+            # a row's bits do not depend on m: the first k rows of the
+            # m-row call against a k-row call
+            for k in (1, 7, m - 1):
+                assert_bits(tk.jl_rademacher(v, seeds[:k]), got[:k],
+                            f"{what}: first {k} rows vs a {k}-row call")
+    # small integers sum exactly in any order: the kernel equals its plain
+    # version bit for bit, so every sign is the reference's
+    int_v = torch.randint(-8, 9, (JOIN_KEYS + 1,), generator=gen,
+                          device=dev).float()
+    int_seeds = jl_row_seeds(SEED, torch.arange(JOIN_M, device=dev))
+    assert_bits(tk.jl_rademacher(int_v, int_seeds),
+                jl_rows_ref(int_v, int_seeds),
+                f"jl_rademacher on small integers n={JOIN_KEYS + 1} vs plain")
     err["jl_rademacher"] = b9_err
     emit({"phase": "parity", "max_abs_err": err,
           "build_kernels": "bit-equal", "merge_kernel": "bit-equal",
@@ -744,6 +810,12 @@ def main() -> None:
                                   for c, v, m in b9_cases],
           "jl_rademacher_tolerance":
               f"rtol={JL_TOL}, atol={JL_TOL} x max(1, max |out|)",
+          "jl_rademacher_rows": "first k of m rows bit-equal to a k-row "
+                                "call (k = 1, 7, m - 1); small integers "
+                                "bit-equal to plain",
+          "matrix_products_pairs": "first k of 256 pairs bit-equal to a "
+                                   "k-pair call (k = 1, 7, 255), batched "
+                                   "and broadcast",
           "repeat_launches": "bit-equal"})
 
     # ------------------------------------------------------------- main path
@@ -1446,7 +1518,8 @@ def main() -> None:
     jl_seeds = jl_row_seeds(SEED, jl_rows)
     jl_S = jl_signs_ref(SEED, jl_rows, JOIN_KEYS)
     t["jl_rademacher"] = (
-        cuda_ms(lambda: tk.jl_rademacher(fa0_t, jl_seeds)),
+        cuda_ms(lambda: tk.jl_rademacher(fa0_t, jl_seeds),
+                iters=WRAPPER_ITERS),
         cuda_ms(lambda: jl_rows_ref(fa0_t, jl_seeds), iters=3),
         cuda_ms(lambda: torch.mv(jl_S, fa0_t)),
         (JOIN_KEYS + 2 * JOIN_M) * 4, "ops")
@@ -1470,7 +1543,8 @@ def main() -> None:
     for c, v, m in b9_cases:
         seeds = jl_row_seeds(SEED, torch.arange(m, device=dev))
         b9_shapes[f"{c} n={int(v.shape[0])} m={m}"] = (
-            cuda_ms(lambda v=v, seeds=seeds: tk.jl_rademacher(v, seeds)),
+            cuda_ms(lambda v=v, seeds=seeds: tk.jl_rademacher(v, seeds),
+                    iters=WRAPPER_ITERS),
             jl_bound_ms(int(v.shape[0]), m))
     # device-only times of the kernels whose wrappers' host time hides
     # them (B3 single-vector, B8, B9, B2 on one vector): raw launches of
@@ -1539,6 +1613,11 @@ def main() -> None:
         histogram when there is one, over the memory rate."""
         return (3 * n1 + (256 if hist else 0)) * 4 / HBM_BYTES_PER_S * 1e3
     jl_seeds32 = jl_seeds.to(torch.int32).contiguous()
+    # B9 at the parity shape (a 65536-wide row, m = 256)
+    jl_main_v = b9_cases[1][1]
+    jl_main_seeds = jl_row_seeds(SEED, torch.arange(M, device=dev)).to(
+        torch.int32).contiguous()
+    jl_main_o = torch.empty(M, device=dev)
     sel_o = torch.empty(1, device=dev)
     qs_keys = tk.hash_rank(qa, 42)[1][None].contiguous()
     _, fig_keys, fig_h0 = tk.hash_rank_hist(fa0_t[None].contiguous(), 42,
@@ -1583,6 +1662,11 @@ def main() -> None:
                 fa0_t.data_ptr(), jl_seeds32.data_ptr(), JOIN_KEYS, JOIN_M,
                 jl_o.data_ptr()),
             t["jl_rademacher"][0]),
+        f"jl_rademacher n={N} m={M} (parity)": (
+            raw("jl_rademacher.jl_rademacher", "_lib", "repro_jl_rademacher",
+                jl_main_v.data_ptr(), jl_main_seeds.data_ptr(), N, M,
+                jl_main_o.data_ptr()),
+            b9_shapes[f"main n={N} m={M}"][0]),
         f"radix_select D=1 n={qn} k={M + 1}": (
             raw("sketch_build.sketch_build", "_select_lib",
                 "repro_radix_select", qs_keys.data_ptr(), None, None, M + 1,
@@ -1601,6 +1685,27 @@ def main() -> None:
     }
     device_only = {what: {"device_ms": graph_ms(launch), "wrapper_ms": wrapper}
                    for what, (launch, wrapper) in small.items()}
+    for what, (n9, m9) in ((f"jl_rademacher n={JOIN_KEYS} m={JOIN_M}",
+                            (JOIN_KEYS, JOIN_M)),
+                           (f"jl_rademacher n={N} m={M} (parity)", (N, M))):
+        device_only[what]["bound_ms"] = jl_bound_ms(n9, m9)
+    jl_sass = sass_loop(_build.lib_path("jl_rademacher"), _build.nvcc_path())
+    # torch.kthvalue at B2's one-vector shapes, device-only as B2's own
+    # times are (calls captured in a CUDA graph), beside B2's
+    kth_d1 = {}
+    for what, keys, k in (
+            (f"radix_select D=1 n={MAT_N} k={MAT_M + 1} (store add)",
+             store_keys, MAT_M + 1),
+            (f"radix_select D=1 n={qn} k={M + 1}", qs_keys, M + 1),
+            (f"radix_select D=1 n={JOIN_KEYS} k={fig_k} hist0", fig_keys,
+             fig_k)):
+        lib_ms = graph_ms(lambda keys=keys, k=k: torch.kthvalue(keys, k,
+                                                                 dim=1))
+        kth_d1[what] = {"kthvalue_ms": lib_ms,
+                        "radix_select_device_ms":
+                            device_only[what]["device_ms"],
+                        "radix_select_over_kthvalue":
+                            device_only[what]["device_ms"] / lib_ms}
     # B4 against both bounds at both shapes, device-only and through the
     # wrapper: each bound's time over the kernel's (a share)
     b4_keys = {"served": f"intersect_estimate C={C} B={B} S={S}",
@@ -1774,7 +1879,7 @@ def main() -> None:
                 + b7_matches * (4 + 4 * MAT_D) + b7_out)
     b7_full_bytes = (n_slots + n_lib * n_slots) * (8 + 4 * MAT_D) + b7_out
     t["matrix_products"] = (
-        cuda_ms(lambda: tk.matrix_products(*b7_args)),
+        cuda_ms(lambda: tk.matrix_products(*b7_args), iters=WRAPPER_ITERS),
         cuda_ms(lambda: matrix_products_ref(*b7_args), iters=3),
         None, b7_bytes, "bytes")
     # B7 device-only: raw launches at the store query's shape, the query
@@ -1794,6 +1899,38 @@ def main() -> None:
                  "wrapper_ms": t["matrix_products"][0]}
     device_only[f"matrix_products P={n_lib} B={lib_buckets} S={lib_slots} "
                 f"d={MAT_D} (store query)"] = b7_device
+    # B7 at the products call's shape: 256 pairs of stored matrices, both
+    # sides batched; its bound: both sides' ids, the matched slots'
+    # probabilities and rows on both sides, the output
+    b7p_args = tuple(x[torch.as_tensor(ix, device=dev)].contiguous()
+                     for ix in (pair_ix[:, 0], pair_ix[:, 1])
+                     for x in (lib_bc.idx, lib_bc.rows, lib_p))
+    err["matrix_products"] = max(err["matrix_products"], assert_close(
+        tk.matrix_products(*b7p_args), matrix_products_ref(*b7p_args),
+        f"matrix_products products call P={MAT_PAIRS}"))
+    b7p_o = torch.empty((MAT_PAIRS, MAT_D, MAT_D), device=dev)
+    b7p_launch = raw("matrix_sketch.matrix_sketch", "_lib",
+                     "repro_matrix_products",
+                     *(x.data_ptr() for x in b7p_args), b7p_o.data_ptr(),
+                     MAT_PAIRS, 1, lib_buckets, lib_slots, MAT_D, MAT_D)
+    b7p_launch()
+    torch.cuda.synchronize()
+    assert_bits(b7p_o, tk.matrix_products(*b7p_args),
+                "matrix_products products call: raw launch vs the wrapper")
+    b7p_matches = int(((b7p_args[0][:, :, :, None]
+                        == b7p_args[3][:, :, None, :])
+                       & (b7p_args[0] != INVALID_IDX)[..., None]).sum())
+    b7p_bytes = (2 * MAT_PAIRS * n_slots * 4
+                 + b7p_matches * 2 * (4 + 4 * MAT_D)
+                 + MAT_PAIRS * MAT_D * MAT_D * 4)
+    device_only[f"matrix_products P={MAT_PAIRS} B={lib_buckets} "
+                f"S={lib_slots} d={MAT_D} batched (products call)"] = {
+        "device_ms": graph_ms(b7p_launch),
+        "wrapper_ms": cuda_ms(lambda: tk.matrix_products(*b7p_args),
+                              iters=WRAPPER_ITERS),
+        "bound_ms": b7p_bytes / HBM_BYTES_PER_S * 1e3,
+        "matches": b7p_matches}
+    b7_device["bound_ms"] = b7_bytes / HBM_BYTES_PER_S * 1e3
     bytes_ms = b7_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * b7_matches * MAT_D * MAT_D / FP32_OPS_PER_S * 1e3
     bounds["matrix_products"] = (max(bytes_ms, ops_ms),
@@ -1849,6 +1986,9 @@ def main() -> None:
           "countsketch_ms_and_bound_by_shape": b8_shapes,
           "intersect_estimate_bounds": b4_bounds,
           "jl_rademacher_ms_and_bound_by_shape": b9_shapes,
+          "jl_rademacher_sass_loop": {**jl_sass,
+                                      "int_ops_bound_a_term": JL_INT_OPS},
+          "kthvalue_at_one_vector": kth_d1,
           "int32_ops_per_s": INT32_OPS_PER_S,
           "path_seconds": {"main_path": mp["seconds"],
                            "threshold_path": tp["seconds"],
@@ -1930,8 +2070,18 @@ def main() -> None:
             "device_ms": device_only[f"hash_rank n={qn}"]["device_ms"],
             "join_shape": device_only[f"hash_rank n={JOIN_KEYS} (join)"],
             "one_block": device_only["hash_rank n=256 (one block)"]},
-        "matrix_products": {"device_ms": b7_device["device_ms"],
-                            "device_only": b7_device}}
+        "matrix_products": {
+            "device_ms": b7_device["device_ms"], "device_only": b7_device,
+            "products_call": device_only[
+                f"matrix_products P={MAT_PAIRS} B={lib_buckets} "
+                f"S={lib_slots} d={MAT_D} batched (products call)"]},
+        "jl_rademacher": {
+            "device_ms": device_only[
+                f"jl_rademacher n={JOIN_KEYS} m={JOIN_M}"]["device_ms"],
+            "parity_shape": device_only[f"jl_rademacher n={N} m={M} "
+                                        "(parity)"],
+            "sass_loop": jl_sass},
+        "radix_select": {"library_ms_at_one_vector": kth_d1}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

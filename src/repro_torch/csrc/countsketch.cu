@@ -72,19 +72,11 @@ constexpr int CS_MAX_CLUSTER = 16;        // a non-portable size on Hopper
 constexpr int CS_BLOCK_INPUTS = 1024;     // inputs a block, at least
 constexpr size_t SMEM_MAX = 232448;       // 227 KiB
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_DEVICES = 64;
 
 // the warps' tables (warp 0's becomes the block's) and the cluster's
 // receive buffer, ceil(m / nb) entries from each of up to 16 blocks
 __host__ __device__ constexpr size_t one_pass_smem(int64_t m) {
   return ((size_t)(CS_WARPS + 1) * m + CS_MAX_CLUSTER) * 4;
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // grid = one cluster of nb blocks (or one block); per = inputs a warp.
@@ -93,7 +85,7 @@ countsketch_one_pass_kernel(const float* __restrict__ v, int64_t n,
                             unsigned m, unsigned seed_b, unsigned seed_s,
                             int64_t per, int nb, float* __restrict__ out) {
   extern __shared__ __align__(16) float cs_smem[];
-  if (nb > 1) cluster_arrive_relaxed();            // this block has started
+  if (nb > 1) sketch::cluster_arrive_relaxed();    // this block has started
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* tbl = cs_smem + (size_t)warp * m;         // this warp's table
   float* recv = cs_smem + (size_t)CS_WARPS * m;    // [rank][m / nb]
@@ -161,7 +153,7 @@ countsketch_one_pass_kernel(const float* __restrict__ v, int64_t n,
   const cg::cluster_group cl = cg::this_cluster();
   const unsigned r = cl.block_rank();
   const unsigned len = (m + nb - 1) / nb;
-  cluster_wait();
+  sketch::cluster_wait();
   for (unsigned b = threadIdx.x; b < m; b += CS_THREADS)
     cl.map_shared_rank(recv, b % nb)[r * len + b / nb] = cs_smem[b];
   cl.sync();
@@ -180,40 +172,32 @@ countsketch_one_pass_kernel(const float* __restrict__ v, int64_t n,
 
 // Blocks a cluster may hold on this device at the largest table (up to
 // CS_MAX_CLUSTER), once a device; the kernel's attributes set with it.
-int max_cluster(int dev, int* nb) {
-  static int known[MAX_DEVICES];
-  if (dev < MAX_DEVICES && known[dev]) {
-    *nb = known[dev];
-    return 0;
-  }
-  cudaError_t e = cudaFuncSetAttribute(
-      countsketch_one_pass_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(countsketch_one_pass_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS_MAX_CLUSTER);
-  cfg.blockDim = dim3(CS_THREADS);
-  cfg.dynamicSmemBytes = SMEM_MAX;
-  int size = 0;
-  e = cudaOccupancyMaxPotentialClusterSize(&size, countsketch_one_pass_kernel,
-                                           &cfg);
-  if (e != cudaSuccess) return (int)e;
-  size = size > CS_MAX_CLUSTER ? CS_MAX_CLUSTER : size < 1 ? 1 : size;
-  if (dev < MAX_DEVICES) known[dev] = size;
-  *nb = size;
-  return 0;
+int max_cluster(int* nb) {
+  return sketch::once_per_device(nb, [](int, int* size) {
+    cudaError_t e = cudaFuncSetAttribute(
+        countsketch_one_pass_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(countsketch_one_pass_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CS_MAX_CLUSTER);
+    cfg.blockDim = dim3(CS_THREADS);
+    cfg.dynamicSmemBytes = SMEM_MAX;
+    e = cudaOccupancyMaxPotentialClusterSize(size, countsketch_one_pass_kernel,
+                                             &cfg);
+    if (e != cudaSuccess) return e;
+    *size = *size > CS_MAX_CLUSTER ? CS_MAX_CLUSTER : *size < 1 ? 1 : *size;
+    return cudaSuccess;
+  });
 }
 
 int launch_one_pass(const float* v, int64_t n, int64_t m, unsigned seed_b,
                     unsigned seed_s, float* out, cudaStream_t s) {
-  int dev = 0, cap = 1;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const int err = max_cluster(dev, &cap);
+  int cap = 1;
+  const int err = max_cluster(&cap);
   if (err) return err;
   int nb = (int)((n + CS_BLOCK_INPUTS - 1) / CS_BLOCK_INPUTS);
   nb = nb < 1 ? 1 : nb > cap ? cap : nb;
@@ -231,8 +215,9 @@ int launch_one_pass(const float* v, int64_t n, int64_t m, unsigned seed_b,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = nb > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, countsketch_one_pass_kernel, v, n,
-                         (unsigned)m, seed_b, seed_s, per, nb, out);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, countsketch_one_pass_kernel, v, n, (unsigned)m, seed_b, seed_s,
+      per, nb, out);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

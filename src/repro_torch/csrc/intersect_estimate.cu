@@ -76,6 +76,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sketch_common.cuh"
+
 namespace {
 
 constexpr int INVALID = 0x7FFFFFFF;
@@ -341,7 +343,6 @@ intersect_split_kernel(const int* __restrict__ q_idx,
   if (lane == 0) out[row] = acc;
 }
 
-constexpr int MAX_DEVICES = 64;
 constexpr int SMEM_MAX = 232448;          // 227 KiB a block
 constexpr int Q_STATIC_SMEM = Q_WARPS * 4;  // stage_query's warp counts
 
@@ -350,15 +351,11 @@ constexpr int Q_STATIC_SMEM = Q_WARPS * 4;  // stage_query's warp counts
 // for the last size asked, the shape a caller repeats).
 template <bool VEC>
 int query_launch_shape(size_t smem, int* sms, int* per_sm) {
-  static int known_sms[MAX_DEVICES];
   static int last_dev = -1, last_per_sm = 0;
   static size_t last_smem = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES || !known_sms[dev]) {
-    int n = 0;
-    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  const int err = sketch::once_per_device(sms, [](int dev, int* n) {
+    cudaError_t e =
+        cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(intersect_rows_kernel<VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -367,12 +364,12 @@ int query_launch_shape(size_t smem, int* sms, int* per_sm) {
       e = cudaFuncSetAttribute(intersect_split_kernel<VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_MAX - Q_STATIC_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < MAX_DEVICES) known_sms[dev] = n;
-    *sms = n;
-  } else {
-    *sms = known_sms[dev];
-  }
+    return e;
+  });
+  if (err) return err;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
   if (dev != last_dev || smem != last_smem) {
     int n = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -414,17 +411,6 @@ constexpr int AP_THREADS = 32 * AP_WARPS;
 constexpr int SB = 64;                    // B entries staged a bucket
 constexpr int UNR = 4;                    // B entries compared per vote
 constexpr int MAX_S = 16;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // entries (T, B, TILE*S) int4, counts (T, B): grid (ceil(B / 8), T);
 // dynamic shared memory TILE*S entries a warp.  A warp gathers one
@@ -632,9 +618,9 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
     if (b < B) {
       const int4* src = gb + (int64_t)b * cap;
       for (int i = lane; i < min(nb, SB); i += 32)
-        cp_async16(ring + slot * SB + i, src + i);
+        sketch::cp_async16(ring + slot * SB + i, src + i);
     }
-    cp_async_commit();
+    sketch::cp_async_commit();
   };
   // A list's first 64 entries of bucket b, two a lane (cap >= 64, so the
   // loads stay inside the bucket; entries past the count are not used)
@@ -657,7 +643,7 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
     stage(b + W, (it & 1) ^ 1, nxt.nb2);
     load_a(b + W, nxt);
     load_counts(b + 2 * W, cur);
-    cp_async_wait_one();                    // this bucket's B list landed
+    sketch::cp_async_wait_one();            // this bucket's B list landed
     __syncwarp();
     const int na = cur.na, nb = cur.nb;
     const int4* sbk = ring + (it & 1) * SB;

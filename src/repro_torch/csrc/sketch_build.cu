@@ -136,14 +136,6 @@ constexpr int SPREAD_THREADS = 256;       // a block without the histogram
 constexpr int CLUSTER_THREADS = 1024;     // a block of a histogram cluster
 constexpr int MAX_CLUSTER = 16;           // a non-portable size on Hopper
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_DEVICES = 64;
-
-__device__ __forceinline__ void cluster_arrive() {      // release
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {        // acquire
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
 
 // Without the histogram: grid (ceil(n / SPREAD_THREADS), D), a
 // coordinate a thread.
@@ -175,7 +167,7 @@ cluster_hist_kernel(const float* __restrict__ vals, float* __restrict__ h_out,
   for (int i = threadIdx.x; i < NBINS; i += blockDim.x) sh[i] = 0;
   __syncthreads();
   // rank 0's zeros are released before any block adds into them
-  if (nb > 1) cluster_arrive();
+  if (nb > 1) sketch::cluster_arrive();
   const int64_t d = blockIdx.y;
   const float* row = vals + d * n;
   float* rrow = rank + d * n;
@@ -203,7 +195,7 @@ cluster_hist_kernel(const float* __restrict__ vals, float* __restrict__ h_out,
   }
   const cg::cluster_group cl = cg::this_cluster();
   const bool root = cl.block_rank() == 0;
-  cluster_wait();
+  sketch::cluster_wait();
   if (!root) {
     int* dst = cl.map_shared_rank(sh, 0);
     for (int i = threadIdx.x; i < NBINS; i += blockDim.x)
@@ -218,37 +210,29 @@ cluster_hist_kernel(const float* __restrict__ vals, float* __restrict__ h_out,
 // asked once a device; the kernel's non-portable cluster size allowed
 // with it.
 template <int VARIANT>
-int cluster_cap(int dev, int* cap) {
-  static int known[MAX_DEVICES];
-  if (dev < MAX_DEVICES && known[dev]) {
-    *cap = known[dev];
-    return 0;
-  }
-  cudaError_t e = cudaFuncSetAttribute(
-      cluster_hist_kernel<VARIANT>,
-      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(MAX_CLUSTER);
-  cfg.blockDim = dim3(CLUSTER_THREADS);
-  int size = 0;
-  e = cudaOccupancyMaxPotentialClusterSize(&size, cluster_hist_kernel<VARIANT>,
-                                           &cfg);
-  if (e != cudaSuccess) return (int)e;
-  size = size > MAX_CLUSTER ? MAX_CLUSTER : size < 1 ? 1 : size;
-  if (dev < MAX_DEVICES) known[dev] = size;
-  *cap = size;
-  return 0;
+int cluster_cap(int* cap) {
+  return sketch::once_per_device(cap, [](int, int* size) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cluster_hist_kernel<VARIANT>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(MAX_CLUSTER);
+    cfg.blockDim = dim3(CLUSTER_THREADS);
+    e = cudaOccupancyMaxPotentialClusterSize(
+        size, cluster_hist_kernel<VARIANT>, &cfg);
+    if (e != cudaSuccess) return e;
+    *size = *size > MAX_CLUSTER ? MAX_CLUSTER : *size < 1 ? 1 : *size;
+    return cudaSuccess;
+  });
 }
 
 template <int VARIANT>
 int launch_cluster_hist(const float* vals, float* h_out, float* rank,
                         int* hist, int64_t D, int64_t n, uint32_t seed,
                         cudaStream_t s) {
-  int dev = 0, cap = 1;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const int err = cluster_cap<VARIANT>(dev, &cap);
+  int cap = 1;
+  const int err = cluster_cap<VARIANT>(&cap);
   if (err) return err;
   // a row shorter than a block takes one block of just enough warps
   const int threads = n >= CLUSTER_THREADS ? CLUSTER_THREADS
@@ -266,8 +250,9 @@ int launch_cluster_hist(const float* vals, float* h_out, float* rank,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = nb > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, cluster_hist_kernel<VARIANT>, vals, h_out,
-                         rank, hist, n, seed, (int)nb);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cluster_hist_kernel<VARIANT>, vals, h_out, rank, hist, n, seed,
+      (int)nb);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

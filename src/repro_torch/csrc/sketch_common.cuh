@@ -13,6 +13,10 @@
 // to 0 explicitly.  The products and the division are the correctly
 // rounded __fmul_rn / __fadd_rn / __fdiv_rn; nothing is built with
 // fast-math or -ftz.
+//
+// Below them, the device and host helpers that several kernels share:
+// the cluster barrier's halves, cp.async copies into shared memory, and a
+// device attribute asked once a device.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +40,19 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// The low bit of mix32(x), in bit 31 (the other bits are not defined).
+// mix32 ends with y = x * M2; y ^= y >> 15, so its low bit is bit 0 xor
+// bit 15 of y.  y * (2^31 + 2^16) holds exactly that xor in bit 31 (the
+// low 31 bits of y << 31 are zero, so no carry reaches it), and y * (2^31
+// + 2^16) = x * (M2 * (2^31 + 2^16)): one multiply in place of mix32's
+// last multiply, shift and xor.  For the JL sign (jl_rademacher.cu).
+__device__ __forceinline__ uint32_t mix32_sign_bit(uint32_t x) {
+  x ^= x >> 16;
+  x *= M1;
+  x ^= x >> 15;
+  return x * (M2 * 0x80010000u);
+}
+
 __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < FLT_MIN ? 0.0f : x;
 }
@@ -57,6 +74,64 @@ __device__ __forceinline__ float weight(float v, int variant) {
 __device__ __forceinline__ float rank_of(float hu, float w) {
   const float r = w > 0.0f ? __fdiv_rn(hu, w) : INFINITY;
   return r < FLT_MIN ? 0.0f : r;
+}
+
+// ------------------------------------------------- shared helpers
+
+// The two halves of a thread-block cluster's barrier.  arrive (release)
+// makes this block's earlier writes visible to the blocks that wait;
+// arrive_relaxed only says that this block has started (so its shared
+// memory may be written by the others after their wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {        // acquire
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// cp.async of 4 (through L1) or 16 bytes (L2 only) into shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the last
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// *value = what ask(dev, value) sets for the current device, asked once a
+// device and kept.  Each call site (each lambda type) has its own cache.
+template <typename Ask>
+int once_per_device(int* value, Ask&& ask) {
+  constexpr int MAX_DEVICES = 64;
+  static int known[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES && known[dev]) {
+    *value = known[dev];
+    return 0;
+  }
+  e = ask(dev, value);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES) known[dev] = *value;
+  return 0;
 }
 
 }  // namespace sketch

@@ -5,7 +5,10 @@ and (m,) 32-bit row seeds -> the (m,) sums ``sum_j sign(r, j) * v_j``,
 the +-1 matrix hashed where it is used and never stored.  The row seeds
 are an input so that ``kernels.jl_project`` and ``core.baselines.
 jl_sketch``, which derive them by different rules, share the kernel.
-Bound: operations (m * n hashes and adds).
+Bound: operations (m * n hashes and adds).  One launch: blocks of a few
+rows by a chunk of the columns, the chunks of a row tile summed in a
+fixed order inside a thread-block cluster; the chunks depend on n alone,
+so a row's bits depend only on its seed and the vector.
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  The wrapper counts its launches in ``.launches``.

@@ -3,9 +3,12 @@
 
 :func:`matrix_products` (replaces ``matrix_products_pallas``): P pairs of
 bucketized matrix sketches -> the (P, d_a, d_b) estimates of every
-``A_p^T B_p`` in one launch.  The A side may have a leading dim of 1: one
-query sketch against all P B-sides, read in place (batch stride 0), with
-no copies.
+``A_p^T B_p`` in one launch, a block per pair: each thread compares a
+run of buckets, one block scan lists the matches in (bucket, sa, sb)
+order, and their rows are staged in shared memory.  The A side may have a
+leading dim of 1: one query sketch against all P B-sides, read in place
+(batch stride 0), with no copies; a pair's bits do not depend on P or on
+the A side's layout.
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  The wrapper counts its launches in ``.launches``.
@@ -24,12 +27,15 @@ _SIGNATURES = {
     "repro_matrix_products": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64,
                               _INT, _INT, _INT, _P],
 }
-# one block holds both sides' B*S ids and a match list of up to B*S
-# entries (4 + 4 + 12 bytes a slot) in shared memory, beside the staged
-# rows; Hopper gives a block 227 KiB, 64 bytes of it static here
+# a block stages up to STAGE_ROWS matched slot pairs at a time in shared
+# memory: their rows (4*(d_a + d_b) bytes) beside MAX_SLOT_BYTES of slots
+# and coefficient each, fewer a round when d is large; Hopper gives a
+# block 227 KiB, 64 bytes of it kept for static shared memory.  A launch
+# takes at most MAX_SLOTS slots a side.
 SMEM_BYTES = 232448 - 64
-MAX_SLOT_BYTES = 20
-STAGE_ROWS = 32   # matched rows staged per round (kept in step with the .cu)
+MAX_SLOT_BYTES = 12
+STAGE_ROWS = 64   # matches staged a round, at most (kept in step with the .cu)
+MAX_SLOTS = 1 << 20
 
 
 def _lib():
@@ -45,8 +51,9 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
 
 
 def smem_bytes(B: int, S: int, da: int, db: int) -> int:
-    """Dynamic shared memory of one block (the layout of the .cu)."""
-    return B * S * MAX_SLOT_BYTES + STAGE_ROWS * (da + db) * 4
+    """The least dynamic shared memory of one block (the layout of the
+    .cu): one staged match.  It does not grow with B or S."""
+    return MAX_SLOT_BYTES + 4 * (da + db)
 
 
 def matrix_products(a_idx, a_rows, a_p, b_idx, b_rows, b_p) -> torch.Tensor:
@@ -70,8 +77,11 @@ def matrix_products(a_idx, a_rows, a_p, b_idx, b_rows, b_p) -> torch.Tensor:
         raise ValueError("rows must be (P, B, S, d)")
     da, db = a_rows.shape[-1], b_rows.shape[-1]
     if smem_bytes(B, S, da, db) > SMEM_BYTES:
-        raise ValueError(f"B*S = {B * S} slots with d = {da}, {db} exceed "
-                         "one block's shared memory")
+        raise ValueError(f"rows of d = {da}, {db} exceed one block's "
+                         "shared memory")
+    if B * S > MAX_SLOTS:
+        raise ValueError(f"B*S = {B * S} slots a side: beyond one launch "
+                         f"({MAX_SLOTS})")
     for t, what, dt, shape in (
             (a_idx, "a_idx", torch.int32, (Pa, B, S)),
             (a_rows, "a_rows", torch.float32, (Pa, B, S, da)),

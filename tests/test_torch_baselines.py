@@ -9,6 +9,9 @@ takes logs, which may differ by an ulp between PyTorch and XLA: its
 samples are equal except on near ties (the reference's two smallest
 ``log_aq`` within 4 ulp), which are counted and reported.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ from _torch_common import assert_bits, to_np
 
 import repro.core as rc
 from repro.core.hashing import fold_seed as j_fold_seed
+from repro.core.hashing import mix32 as j_mix32
 from repro.core.hashing import hash_unit as j_hash_unit
 from repro.kernels import countsketch_kernel, countsketch_ref, jl_project, jl_ref
 from repro.kernels.jl_rademacher import jl_signs_ref
@@ -86,6 +90,30 @@ def test_jl_signs_bit_equal(seed):
     rows = np.array([0, 1, 2, 255, 256, 1000, 2**31 + 7], np.int64)
     assert_bits(t_signs_ref(seed, torch.as_tensor(rows), 3001),
                 jl_signs_ref(seed, jnp.asarray(rows.astype(np.uint32)), 3001))
+
+
+def test_jl_sign_bit_shortcut_matches_mix32():
+    """The JL kernel takes its sign from ``sketch::mix32_sign_bit``: mix32's
+    first steps, then one multiply by M2 * (2^31 + 2^16), whose bit 31 is
+    the low bit of mix32.  With the header's own constants, on random and
+    edge words, that bit equals the reference's ``mix32(x) & 1``."""
+    header = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+              "csrc" / "sketch_common.cuh").read_text()
+    m1, m2 = (int(re.search(rf"{name} = (0x[0-9A-Fa-f]+)u;", header)[1], 16)
+              for name in ("M1", "M2"))
+    assert "return x * (M2 * 0x80010000u);" in header
+    rng = np.random.default_rng(9)
+    x = np.concatenate([rng.integers(0, 2**32, 200000, dtype=np.uint64),
+                        np.array([0, 1, 2**15, 2**16, 2**31, 2**32 - 1],
+                                 np.uint64)])
+    mask = np.uint64(0xFFFFFFFF)
+    y = x ^ (x >> np.uint64(16))
+    y = (y * np.uint64(m1)) & mask
+    y ^= y >> np.uint64(15)
+    y = (y * np.uint64((m2 * 0x80010000) & 0xFFFFFFFF)) & mask
+    want = np.asarray(j_mix32(jnp.asarray(x.astype(np.uint32)))) & 1
+    np.testing.assert_array_equal((y >> np.uint64(31)).astype(np.uint32),
+                                  want)
 
 
 def test_kernel_wrappers_on_cpu_use_plain_versions():

@@ -599,12 +599,13 @@ def _matrix_layouts(device, P, n, da, db, *, m=64, n_buckets=128, slots=4,
 
 @pytest.mark.parametrize("da,db,slots,n_buckets", [
     (16, 16, 4, 512), (8, 3, 4, 128), (6, 6, 2, 128), (5, 7, 3, 128),
-    (24, 24, 4, 128), (4, 4, 4, 16)])
+    (24, 24, 4, 128), (4, 4, 4, 16), (8, 8, 4, 2048)])
 def test_matrix_products_kernel_matches_plain(cuda_device, da, db, slots,
                                               n_buckets):
     """Unequal widths, S = 2, 3, 4, outputs beyond one block's 256
-    threads (24 x 24), a 16-bucket layout that drops rows, a padding pair
-    and a keep-everything (tau = inf) pair."""
+    threads (24 x 24), a 16-bucket layout that drops rows, 2048 buckets
+    (more than four a thread), a padding pair and a keep-everything (tau =
+    inf) pair."""
     a, b = _matrix_layouts(cuda_device, 7, 900, da, db, slots=slots,
                            n_buckets=n_buckets, special=True)
     if n_buckets == 16:
@@ -673,11 +674,79 @@ def test_matrix_products_rejects_bad_inputs(cuda_device):
         tk.matrix_products(a[0], a[1].double(), a[2], *b[:3])
     with pytest.raises(ValueError, match="contiguous"):
         tk.matrix_products(a[0], a[1].transpose(1, 2), a[2], *b[:3])
-    big = torch.zeros((1, 16384, 4), dtype=torch.int32, device=cuda_device)
-    rows = torch.zeros((1, 16384, 4, 4), device=cuda_device)
-    p = torch.ones((1, 16384, 4), device=cuda_device)
+    # a block stages whole matched rows: rows this wide do not fit once
+    ids = torch.zeros((1, 2, 4), dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros((1, 2, 4, 30000), device=cuda_device)
+    p = torch.ones((1, 2, 4), device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
+        tk.matrix_products(ids, wide, p, ids, wide, p)
+    # more slots a side than one launch takes
+    big = torch.zeros((1, (1 << 18) + 1, 4), dtype=torch.int32,
+                      device=cuda_device)
+    rows = torch.zeros((1, (1 << 18) + 1, 4, 1), device=cuda_device)
+    p = torch.ones((1, (1 << 18) + 1, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="one launch"):
         tk.matrix_products(big, rows, p, big, rows, p)
+
+
+def _b7_sides(a, b, broadcast, k=None, reps=1):
+    """The kernel's arguments: the A side broadcast (one query) or batched,
+    the first k pairs, each pair repeated reps times."""
+    def pick(x):
+        x = x if k is None else x[:k]
+        return x.repeat(reps, *([1] * (x.ndim - 1))).contiguous()
+    aa = [x[:1].contiguous() for x in a[:3]] if broadcast else \
+        [pick(x) for x in a[:3]]
+    return (*aa, *(pick(x) for x in b[:3]))
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_matrix_products_pairs_do_not_depend_on_p(cuda_device, broadcast):
+    """The first k pairs of a P-pair call are bit-equal to a k-pair call,
+    and 700 repeated pairs (4-warp blocks) to the 7-pair call (8-warp
+    blocks): a pair's bits depend on its two sketches alone."""
+    a, b = _matrix_layouts(cuda_device, 7, 900, 16, 16, n_buckets=512)
+    got = tk.matrix_products(*_b7_sides(a, b, broadcast))
+    for k in (1, 3, 6):
+        assert_bits(tk.matrix_products(*_b7_sides(a, b, broadcast, k=k)),
+                    got[:k])
+    assert_bits(tk.matrix_products(*_b7_sides(a, b, broadcast, reps=100)),
+                got.repeat(100, 1, 1))
+
+
+@pytest.mark.parametrize("reps", [1, 100])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_matrix_products_is_one_launch(cuda_device, broadcast, reps):
+    """A call is one kernel node in a captured graph, on both routes and
+    both block sizes."""
+    a, b = _matrix_layouts(cuda_device, 7, 900, 16, 16, n_buckets=512)
+    args = _b7_sides(a, b, broadcast, reps=reps)
+    assert _kernel_launches(lambda: tk.matrix_products(*args)) == 1
+
+
+@pytest.mark.parametrize("slots,d", [(4, 16), (3, 16), (4, 480)])
+def test_matrix_products_many_matches_a_pair(cuda_device, slots, d):
+    """Every slot of both sides full and matched (the same ids, in another
+    order in each bucket): 64 x slots matches a pair, listed 64 at a time
+    (60 at d = 480, where fewer rows fit), against the plain version,
+    launch to launch, and one pair alone."""
+    rng = np.random.default_rng(5)
+    P, B = 3, 64
+    ids = rng.permutation(P * B * slots).reshape(P, B, slots)
+    order = np.argsort(rng.random((P, B, slots)), axis=-1)
+
+    def side(x):
+        return (torch.as_tensor(x.astype(np.int32), device=cuda_device),
+                torch.as_tensor(rng.standard_normal((P, B, slots, d))
+                                .astype(np.float32), device=cuda_device),
+                torch.as_tensor(rng.uniform(0.05, 1.0, (P, B, slots))
+                                .astype(np.float32), device=cuda_device))
+    a, b = side(ids), side(np.take_along_axis(ids, order, axis=-1))
+    got = tk.matrix_products(*a, *b)
+    assert_close(got, matrix_products_ref(*a, *b))
+    assert_bits(tk.matrix_products(*a, *b), got)
+    assert_bits(tk.matrix_products(*(x[1:2] for x in a),
+                                   *(x[1:2] for x in b)), got[1:2])
 
 
 def _zipf_counts(rng, n_keys, rows, z=2.0):
@@ -796,6 +865,61 @@ def test_jl_rademacher_kernel_matches_plain(cuda_device, n, m, rule):
     np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
                                atol=1e-4 * max(1.0, np.abs(ref).max()))
 
+
+
+def _jl_seeds(rule, m, device):
+    rows = torch.arange(m, dtype=torch.int64, device=device)
+    return (jl_row_seeds(11, rows) if rule == "jl_project"
+            else (int(fold_seed(11, 0)) + rows) & 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("n", [1, 255, 30001, 65536])
+@pytest.mark.parametrize("m", [1, 400, 600])
+@pytest.mark.parametrize("rule", ["jl_project", "jl_sketch"])
+def test_jl_rademacher_one_launch_any_shape(cuda_device, n, m, rule):
+    """n = 1, n off the tile, the join and parity widths, m = 1: one kernel
+    node in a captured graph, the same bits from launch to launch, within
+    the stated tolerance of the plain version."""
+    rng = np.random.default_rng(n * 7 + m)
+    t = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=cuda_device)
+    seeds = _jl_seeds(rule, m, cuda_device)
+    # int32 seeds: the wrapper then launches no cast before the kernel
+    seeds32 = seeds.to(torch.int32)
+    assert _kernel_launches(lambda: tk.jl_rademacher(t, seeds32)) == 1
+    assert_bits(tk.jl_rademacher(t, seeds32), tk.jl_rademacher(t, seeds))
+    got = tk.jl_rademacher(t, seeds)
+    assert_bits(tk.jl_rademacher(t, seeds), got)
+    ref = jl_rows_ref(t, seeds).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                               atol=1e-4 * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("n", [255, 30000, 65536])
+@pytest.mark.parametrize("m", [400, 600])
+def test_jl_rademacher_rows_do_not_depend_on_m(cuda_device, n, m):
+    """The first k rows of an m-row call are bit-equal to a k-row call
+    (k = 1, 7, m - 1), and a row keeps its bits at another place in the
+    row tiles: a row's bits depend on its seed and the vector alone."""
+    rng = np.random.default_rng(n + 3 * m)
+    t = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=cuda_device)
+    seeds = _jl_seeds("jl_project", m, cuda_device)
+    got = tk.jl_rademacher(t, seeds)
+    for k in (1, 7, m - 1):
+        assert_bits(tk.jl_rademacher(t, seeds[:k]), got[:k])
+    assert_bits(tk.jl_rademacher(t, seeds.roll(3)), got.roll(3))
+
+
+@pytest.mark.parametrize("rule", ["jl_project", "jl_sketch"])
+def test_jl_rademacher_exact_on_small_integers(cuda_device, rule):
+    """Small integers sum exactly in any order, so the kernel equals the
+    plain version bit for bit: every sign is the reference's."""
+    rng = np.random.default_rng(5)
+    t = torch.as_tensor(rng.integers(-8, 9, 30001).astype(np.float32),
+                        device=cuda_device)
+    seeds = _jl_seeds(rule, 400, cuda_device)
+    assert_bits(tk.jl_rademacher(t, seeds), jl_rows_ref(t, seeds))
 
 def test_baselines_on_card_match_cpu(cuda_device):
     rng = np.random.default_rng(44)

@@ -1,5 +1,9 @@
 """Port parity: hashing, weights and sampling ranks are bit-equal to
 ``repro.core`` (coordination across packages is bit-level)."""
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -113,3 +117,26 @@ def test_port_imports_no_jax_and_no_reference():
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
     assert "BAD []" in run_with_devices(code, n_devices=1, timeout=300)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU exit")
+def test_kernel_ab_script_needs_a_card():
+    """``kernels/kernel_ab.py`` (the B7/B9 timing script for comparing
+    checkouts) exits nonzero and prints no result without a card, and
+    loads no jax while it does."""
+    root = Path(__file__).resolve().parents[1]
+    script = root / "src" / "repro_torch" / "kernels" / "kernel_ab.py"
+    probe = ("import runpy, sys\n"
+             f"sys.argv = [{str(script)!r}]\n"
+             f"sys.path.insert(0, {str(script.parent)!r})\n"
+             "try:\n"
+             f"    runpy.run_path({str(script)!r}, run_name='__main__')\n"
+             "finally:\n"
+             "    print('JAX', any(m == 'jax' or m.startswith('jax.') "
+             "for m in sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "needs a CUDA card" in r.stderr
+    assert "JAX False" in r.stdout
+    assert "{" not in r.stdout

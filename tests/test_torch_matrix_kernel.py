@@ -185,3 +185,14 @@ def test_bucketized_products_layouts_and_d1():
                               tk.matrix_slot_probs(tk.BucketizedMatrixSketch(
                                   *one)))
     assert_bits(out, ref)
+
+
+def test_shared_memory_layout_follows_d_only():
+    """A block stages whole matched rows, one at least: the wrapper's limit
+    grows with d_a + d_b and not with the buckets or slots."""
+    from repro_torch.kernels.matrix_sketch import matrix_sketch as ms
+    assert ms.smem_bytes(512, 4, 16, 16) == ms.MAX_SLOT_BYTES + 128
+    assert ms.smem_bytes(16384, 4, 4, 4) == ms.smem_bytes(1, 1, 4, 4)
+    widest = (ms.SMEM_BYTES - ms.MAX_SLOT_BYTES) // 8
+    assert ms.smem_bytes(1, 1, widest, widest) <= ms.SMEM_BYTES
+    assert ms.smem_bytes(1, 1, widest + 1, widest + 1) > ms.SMEM_BYTES
