@@ -21,14 +21,22 @@ exits nonzero with no result line):
                  first k rows of an m-row call against a k-row call and
                  its exact sums of small integers against the plain
                  version, bit for bit; B7's first k of 256 pairs against a
-                 k-pair call, batched and broadcast, bit for bit;
+                 k-pair call, batched and broadcast, bit for bit; B2 on
+                 the combined build's union positions at (512, 2^18)
+                 (integer-valued keys, almost all equal) against
+                 torch.kthvalue and the plain descent, bit for bit; B5's
+                 moments mode at (64, 1024, 4) x (4096, 1024, 4) within
+                 tolerance and bit-equal launch to launch;
 4. ``main_path`` ``SketchIndex`` at its published widths (m=256,
                  n_buckets=512, slots=4, seed=11): 4032 vectors over
                  n=65536 with 2000 nonzeros each through ``add_many`` in
                  512-row blocks, 64 sparse ``add`` calls (D=4096), 256
                  planted near-duplicate queries (top-1 must be the
                  source), the quickstart's asserts, one ``all_pairs``
-                 checked against ``query`` rows and exact squared norms;
+                 checked against ``query`` rows and exact squared norms,
+                 four (128, 128) ``estimate_tile_rows`` tiles bit-equal to
+                 their blocks of it, ``estimate_all_pairs`` on 64 rows
+                 (kernel against the per-pair join);
 5. ``threshold_path`` the same 4096 x 65536 corpus through
                  ``sketch_corpus(method="threshold", backend="kernel")`` in
                  512-row blocks, each bit-equal to the build on the
@@ -62,7 +70,30 @@ exits nonzero with no result line):
                  truth, the ledger (4.0 a release epoch, a cached release
                  free) and the release bit-equal to one made from CPU
                  copies with the same rng;
-9. ``timing``    end-to-end and per-kernel CUDA-event times with each
+9. ``join_corr_path`` join correlation: ``benchmarks/fig6_join_corr.py``
+                 at its full widths (60 correlated pairs, n=100000, 20000
+                 nonzeros, overlap 0.1, a budget of 400 doubles: JL and CS
+                 through the three-part linear estimator, PS/TS uniform
+                 through ``empirical_correlation``, PS/TS weighted through
+                 ``combined_sketch_corpus(backend="kernel")``, the legacy
+                 builders' errors beside; each build bit-equal to its
+                 plain version; gates ``weighted_best`` and
+                 ``beats_linear``); a discovery corpus of 4096 columns
+                 (``examples/join_correlation_discovery.py``'s generator,
+                 64 groups of a query and 63 columns at planted rhos, over
+                 2^18 keys, m=512) sketched in 512-row blocks (each
+                 bit-equal to its plain build), its 4096 x 4096
+                 ``correlation_matrix`` on B5's moments mode (1024
+                 buckets x 4 slots; on the query rows the moments
+                 within rtol 2e-5 of each pair's own scale of the
+                 per-pair join on drop-free pairs, the correlation within
+                 1e-4 where it is
+                 conditioned; planted-pair error below 0.08; the top column at |rho| 0.75 for 60 of 64
+                 queries); ``SketchedTableStore`` on one group against the
+                 same store on CPU copies, and on the example's six
+                 columns; the combined merge of two coordinate halves
+                 against the CPU's merge;
+10. ``timing``   end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, the per-step split of ``add_many``,
                  ``query``, ``all_pairs``, ``merge_from`` and the store's
                  ``query``, B5's compaction and join apart, and the
@@ -78,10 +109,15 @@ exits nonzero with no result line):
                  batched pairs), B9 at (30000, 400) and (65536, 256) with
                  its column loop's instructions a term read from
                  ``cuobjdump -sass``, torch.kthvalue at B2's one-vector
-                 shapes beside B2;
-10. ``kernels``  one line per the port's kernel table.
+                 shapes beside B2; the combined builds a 512-row block
+                 (kernel, plain and legacy routes, threshold),
+                 ``correlation_matrix`` at D = 4096 step by step, B5's
+                 moments mode device-only against its bound, B2 at the
+                 union positions' shape, the table store's ``add_column``
+                 and ``top_correlated``;
+11. ``kernels``  one line per the port's kernel table.
 
-Each path (4-8) zeroes every kernel's launch counter before it runs and
+Each path (4-9) zeroes every kernel's launch counter before it runs and
 reads them after; each of its kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
 
@@ -134,6 +170,23 @@ CS_TOL = 1e-5     # B8: rtol = atol (the reference's kernel test)
 JL_TOL = 1e-4     # B9: rtol, and atol times max(1, max |out|)
 # calls a wrapper time of B7 and B9 averages (host-bound, so it spreads)
 WRAPPER_ITERS = 300
+# the join-correlation path: benchmarks/fig6_join_corr.py's full run (its
+# rng seed 3 draws the same pairs), and examples/join_correlation_
+# discovery.py's generator (rng seed 1, the same first six columns) grown
+# to 64 groups of 64 columns over its universe, m and store seed
+CORR_N, CORR_NNZ, CORR_OVERLAP = 100_000, 20_000, 0.1
+CORR_PAIRS, CORR_M = 60, 400
+DISC_GROUPS, DISC_GROUP, DISC_KEYS = 64, 64, 200_000
+DISC_UNIVERSE, DISC_M, DISC_SEED = 1 << 18, 512, 7
+DISC_BUCKETS, DISC_SLOTS = 1024, 4
+DISC_RHOS = (0.75, -0.55, 0.05, -0.2, 0.4)
+EXAMPLE_NAMES = ("taxi_trips", "temperature", "precipitation", "pressure",
+                 "wind", "humidity")
+CORR_GATE_RTOL = 1e-4      # kernel matrix vs the per-pair join
+CORR_COND = 1e-2           # ... where both centered second moments are at
+                           # least this share of the raw ones
+PLANTED_ERR_GATE = 0.08    # mean |estimate - exact| on the planted pairs
+TOP1_GATE = 60             # of 64 queries: the top column has |rho| 0.75
 
 
 def emit(obj) -> None:
@@ -180,6 +233,37 @@ def assert_close(got, ref, what: str) -> float:
     return err
 
 
+def moment_scales(e: dict) -> dict:
+    """Each pair's own scale for the six Eq. (9) channels, from the
+    reference's moments in float64: a channel's sum of |terms|, or its
+    Cauchy-Schwarz bound (sum |x|/p <= sqrt(n sum_x2), sum |x y|/p <=
+    sqrt(sum_x2 sum_y2)).  A float32 sum in another order moves a
+    channel by a share of it."""
+    d = {k: v.double().abs() for k, v in e.items()}
+    return {"n": d["n"], "sum_x2": d["sum_x2"], "sum_y2": d["sum_y2"],
+            "sum_x": (d["n"] * d["sum_x2"]).sqrt(),
+            "sum_y": (d["n"] * d["sum_y2"]).sqrt(),
+            "xy": (d["sum_x2"] * d["sum_y2"]).sqrt()}
+
+
+def assert_moments(got: dict, ref: dict, mask, what: str) -> float:
+    """The six moment channels on the pairs of ``mask``, each pair held
+    to ``RTOL`` times its own scale (:func:`moment_scales`): a pair with
+    few matches is held as tightly as one with many.  -> the largest
+    error as a share of its pair's scale."""
+    scales = moment_scales(ref)
+    worst = 0.0
+    for k in ref:
+        diff = (got[k].double() - ref[k].double()).abs()[mask]
+        sc = scales[k][mask]
+        check(bool((diff <= RTOL * sc).all()),
+              f"{what}: moment {k} beyond rtol={RTOL} of its pair's scale "
+              f"(max abs err {float(diff.max())})")
+        rel = diff / torch.where(sc > 0, sc, torch.ones_like(sc))
+        worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+    return worst
+
+
 def assert_tol(got, ref, rtol: float, atol: float, what: str) -> float:
     """``|got - ref| <= atol + rtol |ref|`` everywhere; the max abs error."""
     err = max_abs_err(got, ref)
@@ -201,6 +285,16 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def step_ms(fn):
+    """Host clock around one step, the device synchronised before and
+    after: (its output, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def make_data(rng):
@@ -237,23 +331,73 @@ def matrix_pair(c: int, dev):
     return out
 
 
-def zipf_frequency_tables(rng, n_keys=30_000, rows_a=200_000,
-                          rows_b=200_000, overlap=0.2, z=2.0):
-    """TPC-H/Twitter-style join-size tables: key-frequency vectors with
-    Zipf skew and partial key overlap (``repro.data.synthetic``'s
-    generator, copied: the same draws from the same rng)."""
-    keys = rng.permutation(n_keys)
-    ka = keys[: n_keys // 2]
-    n_shared = int(len(ka) * overlap)
-    kb = np.concatenate([ka[:n_shared], keys[n_keys // 2:
-                                             n_keys - n_shared]])
-    fa = np.zeros(n_keys, np.float32)
-    fb = np.zeros(n_keys, np.float32)
-    draws_a = ka[np.minimum(rng.zipf(z, rows_a) - 1, len(ka) - 1)]
-    draws_b = kb[np.minimum(rng.zipf(z, rows_b) - 1, len(kb) - 1)]
-    np.add.at(fa, draws_a, 1.0)
-    np.add.at(fb, draws_b, 1.0)
-    return fa, fb
+def discovery_columns():
+    """The discovery corpus as (keys, values) columns and each column's
+    planted rho (NaN for a query): ``examples/join_correlation_
+    discovery.py``'s generator, DISC_GROUPS groups of DISC_GROUP columns.
+    Column 0 of a group is a query (5000 keys of [0, 200000), values
+    N(100, 25)); columns 1..63 share 3000 of its keys, add 2000 of their
+    own and carry the example's values at its rhos in turn.  The first
+    six columns are the example's."""
+    rng = np.random.default_rng(1)
+    cols, rho = [], []
+    for _ in range(DISC_GROUPS):
+        q_keys = rng.choice(DISC_KEYS, 5000, replace=False)
+        q_vals = rng.normal(100, 25, len(q_keys))
+        cols.append((q_keys, q_vals))
+        rho.append(np.nan)
+        order = np.argsort(q_keys)
+        for c in range(1, DISC_GROUP):
+            r = DISC_RHOS[(c - 1) % len(DISC_RHOS)]
+            shared = rng.choice(q_keys, 3000, replace=False)
+            own = rng.choice(DISC_KEYS, 2000, replace=False)
+            keys = np.concatenate([shared, own])
+            base = q_vals[order][np.searchsorted(q_keys[order], shared)]
+            z = rng.standard_normal(len(keys))
+            vals = np.concatenate([r * (base - 100) / 25, np.zeros(2000)]) \
+                + np.sqrt(max(1 - r ** 2, 0)) * z
+            cols.append((keys, vals))
+            rho.append(r)
+    return cols, np.array(rho)
+
+
+def planted_exact(A: torch.Tensor) -> torch.Tensor:
+    """Exact post-join Pearson correlation, in float64, of each group's
+    query row with its 63 columns in a (groups x 64, n) block of column
+    vectors -> (groups, 63)."""
+    G = A.shape[0] // DISC_GROUP
+    X = A.reshape(G, DISC_GROUP, -1).double()
+    x, y = X[:, :1], X[:, 1:]
+    mask = (x != 0) & (y != 0)
+    w = mask.double()
+    cnt = w.sum(dim=2)
+    mx = (w * x).sum(dim=2) / cnt
+    my = (w * y).sum(dim=2) / cnt
+    dx, dy = (x - mx[..., None]) * w, (y - my[..., None]) * w
+    return (dx * dy).sum(dim=2) / torch.sqrt(
+        (dx * dx).sum(dim=2) * (dy * dy).sum(dim=2))
+
+
+def linear_corr(sketch, est, a, b, m: int, seed) -> float:
+    """Fig. 6's linear-sketch correlation: the budget split over sketches
+    of a, a^2 and 1[a != 0] (m // 3 each), the six inner products, Eq. 9
+    (``benchmarks/fig6_join_corr.py::_linear_corr``)."""
+    third = max(m // 3, 8)
+    parts = {tag: (sketch(va, third, seed), sketch(vb, third, seed))
+             for tag, (va, vb) in {
+                 "v": (a, b), "sq": (a * a, b * b),
+                 "one": ((a != 0).float(), (b != 0).float())}.items()}
+
+    def ip(ta, tb):
+        return float(est(parts[ta][0], parts[tb][1]))
+
+    n_est, sx, sy, xy = ip("one", "one"), ip("v", "one"), ip("one", "v"), \
+        ip("v", "v")
+    sx2, sy2 = ip("sq", "one"), ip("one", "sq")
+    num = n_est * xy - sx * sy
+    vx = max(n_est * sx2 - sx ** 2, 1e-9)
+    vy = max(n_est * sy2 - sy ** 2, 1e-9)
+    return float(np.clip(num / np.sqrt(vx * vy), -1, 1))
 
 
 def samples_for_budget(m_doubles: int) -> int:
@@ -376,14 +520,27 @@ def main() -> None:
     from repro_torch import quickstart
     from repro_torch.kernels import _build
     import repro_torch.kernels as tk
-    from repro_torch.core import (INVALID_IDX, Sketch, countsketch,
+    from repro_torch.core import (INVALID_IDX, CombinedSketch, Sketch,
+                                  combined_priority_sketch,
+                                  combined_sketch_corpus,
+                                  combined_estimates_matrix,
+                                  combined_threshold_sketch,
+                                  correlation_from_estimates,
+                                  correlation_matrix, countsketch,
                                   countsketch_estimate,
                                   dp_chebyshev_halfwidth,
-                                  estimate_inner_product, fold_seed,
+                                  empirical_correlation, estimate_all_pairs,
+                                  estimate_inner_product,
+                                  estimate_join_correlation, fold_seed,
                                   hash_bucket, hash_sign, hash_unit,
                                   jl_estimate, jl_sketch,
-                                  priority_sketch, sampling_ranks,
-                                  sketch_corpus, threshold_sketch, weight)
+                                  merge_combined_sketches, priority_sketch,
+                                  sampling_ranks, sketch_corpus,
+                                  threshold_sketch, weight)
+    from repro_torch.core.join_correlation import (
+        _bucketized_moment_inputs, _family_ranks)
+    from repro_torch.data import (SketchedTableStore, column_to_vector,
+                                  correlated_pair, zipf_frequency_tables)
     from repro_torch.kernels.countsketch import countsketch_ref
     from repro_torch.kernels.jl_rademacher import (jl_row_seeds, jl_rows_ref,
                                                    jl_signs_ref)
@@ -402,9 +559,11 @@ def main() -> None:
                                                hash_rank_ref)
     from repro_torch.kernels.hash_rank.hash_rank import spread_route
     from repro_torch.kernels.intersect_estimate import (
-        allpairs_compact_ref, allpairs_estimate_ref, intersect_estimate_ref)
+        MOMENT_CHANNELS, allpairs_compact_ref, allpairs_estimate_ref,
+        intersect_estimate_ref)
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
-                                                  kth_smallest_ranks_ref)
+                                                  kth_smallest_ranks_ref,
+                                                  union_positions)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
     from repro_torch.serve import MatrixSketchStore, SketchIndex
     from repro_torch.serve.validation import check_finite, check_vector
@@ -430,6 +589,18 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln] for k, v in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.BUILD_SECONDS, "ptxas": ptxas})
+
+    # the discovery corpus's columns (host numpy; the join-correlation
+    # path sketches them, the parity phase takes B2's union-position keys
+    # from its first block)
+    disc_cols, disc_rho = discovery_columns()
+    DISC_D = len(disc_cols)
+
+    def disc_block(lo):
+        """Columns lo .. lo + 511 as dense vectors on the card."""
+        return torch.as_tensor(np.stack([
+            column_to_vector(k, v, DISC_UNIVERSE)
+            for k, v in disc_cols[lo:lo + BLOCK_ROWS]]), device=dev)
 
     # ---------------------------------------------------------------- parity
     err = {}
@@ -566,6 +737,21 @@ def main() -> None:
         assert_bits(got, want, f"radix_select {what} vs torch.kthvalue")
         assert_bits(got, kth_smallest_ranks_ref(keys, k, hist0=h0),
                     f"radix_select {what} vs the plain descent")
+    # B2 on the combined build's union positions q at (512, 2^18) (the
+    # discovery corpus's first block): integer-valued floats in [0, m+1],
+    # almost all m+1, so the k-th key's top-byte bin holds nearly every
+    # key of a row (far over the on-chip candidate buffer)
+    _, _, q_ranks = _family_ranks(disc_block(0), DISC_SEED)
+    q_keys, _ = union_positions(q_ranks, DISC_M)
+    del q_ranks
+    q_head = int((q_keys < DISC_M + 1).sum(dim=1).max())
+    for k in (DISC_M + 1, 1, q_keys.shape[1]):
+        got = tk.radix_select(q_keys, k)
+        assert_bits(got, torch.kthvalue(q_keys, k, dim=1).values,
+                    f"radix_select union positions k={k} vs torch.kthvalue")
+        assert_bits(got, kth_smallest_ranks_ref(q_keys, k),
+                    f"radix_select union positions k={k} vs the plain "
+                    "descent")
     err["radix_select"] = 0.0
     del rank_l2, hist0_l2, W_l2, mat_ranks, merge_keys
 
@@ -614,6 +800,25 @@ def main() -> None:
     assert_bits(got_c[0][used], ref_c[0][used], "allpairs_compact entries")
     err["allpairs_compact"] = 0.0
     del corpus_blocks, pc, sub, got_m, ref_m, got_c, ref_c, used, p_c4096
+    # B5's moments mode at the correlation matrix's layout, (64, 1024, 4)
+    # x (4096, 1024, 4): the combined sketches (m = 512) of 4096 random
+    # rows, their inclusion probabilities as payloads
+    cs = [tk.build_combined_priority_corpus(rand_block(BLOCK_ROWS, N),
+                                            DISC_M, DISC_SEED, device=dev)
+          for _ in range(8)]
+    mom = _bucketized_moment_inputs(CombinedSketch(*(
+        torch.cat(f) for f in zip(*cs))), DISC_BUCKETS, DISC_SLOTS)[:3]
+    mom_q = tuple(x[:64].contiguous() for x in mom)
+    got_m = tk.allpairs_moments(*mom_q, *mom)
+    ref_m = allpairs_estimate_ref(*mom_q, *mom, moments=True, ct=64)
+    e_mom = max(assert_close(got_m[..., c], ref_m[..., c],
+                             f"allpairs moments 64x4096 B=1024 channel {c}")
+                for c in range(6))
+    assert_bits(tk.allpairs_moments(*mom_q, *mom), got_m,
+                "allpairs moments 64x4096 B=1024, run to run")
+    err["allpairs_estimate"] = max(err["allpairs_estimate"], e_mom)
+    b5_moments_err = e_mom
+    del cs, mom, mom_q, got_m, ref_m
 
     # B6 on two half-partition corpora of one block, and with 16 buckets,
     # where the merge itself overflows (m = 64 there, as the reference's
@@ -816,6 +1021,14 @@ def main() -> None:
           "matrix_products_pairs": "first k of 256 pairs bit-equal to a "
                                    "k-pair call (k = 1, 7, 255), batched "
                                    "and broadcast",
+          "radix_select_union_positions": {
+              "shape": list(q_keys.shape), "k": [DISC_M + 1, 1,
+                                                 q_keys.shape[1]],
+              "max_keys_below_m_plus_1_a_row": q_head,
+              "vs": "torch.kthvalue and the plain descent, bit-equal"},
+          "allpairs_moments_b1024": {
+              "shape": [64, DISC_D, DISC_BUCKETS, DISC_SLOTS],
+              "max_abs_err": b5_moments_err, "run_to_run": "bit-equal"},
           "repeat_launches": "bit-equal"})
 
     # ------------------------------------------------------------- main path
@@ -881,10 +1094,35 @@ def main() -> None:
         diag_scaled = float(((diag - sq_norms).abs() / sq_norms).max())
         check(diag_scaled < 8.0 / math.sqrt(M),
               f"all_pairs diagonal scaled error {diag_scaled}")
+
+        # the discovery engine's tile launch: four (128, 128) tiles of
+        # random rows, each bit-equal to its block of all_pairs' matrix
+        # (a cell's bits depend on its two rows only)
+        c = index._corpus()
+        arrs = (c.idx, c.val, tk.slot_inclusion_probs(c))
+        trng = np.random.default_rng(5)
+        for t in range(4):
+            ra, rb = (trng.choice(D, 128, replace=False) for _ in range(2))
+            assert_bits(tk.estimate_tile_rows(*arrs, *arrs, ra, rb).cpu(),
+                        torch.as_tensor(ap[np.ix_(ra, rb)]),
+                        f"estimate_tile_rows tile {t} vs all_pairs")
+        # the batched estimator on 64 rows: the bucketized kernel against
+        # the per-pair join, on the pairs neither row lost an entry of
+        S64 = sketch_corpus(dense_rows(vidx, vval, range(64)), M, SEED,
+                            backend="kernel", device=dev)
+        kept = tk.bucketize_corpus(S64, n_buckets=N_BUCKETS,
+                                   slots=SLOTS).dropped == 0
+        clean = kept[:, None] & kept[None, :]
+        ea_err = assert_close(
+            estimate_all_pairs(S64, S64, backend="kernel",
+                               n_buckets=N_BUCKETS, slots=SLOTS)[clean],
+            estimate_all_pairs(S64, S64, backend="reference")[clean],
+            "estimate_all_pairs kernel vs reference, 64 rows")
         return dict(index=index, ap=ap, block_ms=block_ms,
                     ingest_s=ingest_s, query_ms=query_ms, hits=hits, qs=qs,
                     all_pairs_ms=all_pairs_ms, row_err=row_err,
-                    diag_scaled=diag_scaled)
+                    diag_scaled=diag_scaled, ea_err=ea_err,
+                    ea_pairs=int(clean.sum()))
 
     mp, launches["main_path"] = run_path(kernels, main_path)
     index, ap = mp["index"], mp["ap"]
@@ -901,6 +1139,11 @@ def main() -> None:
           "all_pairs_vs_query_max_abs_err": mp["row_err"],
           "diag_max_scaled_error": mp["diag_scaled"],
           "diag_bound": 8.0 / math.sqrt(M),
+          "tiles_vs_all_pairs": "4 tiles of 128 x 128 random rows, "
+                                "bit-equal",
+          "estimate_all_pairs_kernel_vs_reference_max_abs_err":
+              mp["ea_err"],
+          "estimate_all_pairs_pairs_compared": mp["ea_pairs"],
           "seconds": mp["seconds"],
           "launches": launches["main_path"]})
 
@@ -1354,6 +1597,300 @@ def main() -> None:
           "launches": launches["join_size_path"]})
     check(all(gates.values()), f"Fig. 10 gates failed: {gates}")
 
+    # ------------------------------------------------- join-correlation path
+    def rows_of(S, ix):
+        return type(S)(*(f[ix] for f in S))
+
+    def fig6_panel():
+        """benchmarks/fig6_join_corr.py at its full widths: 60 correlated
+        pairs, a budget of 400 doubles; each method's mean |estimate -
+        exact post-join correlation| and ms a pair (host clock)."""
+        rng6 = np.random.default_rng(3)
+        pairs = []
+        for rho in np.linspace(-0.9, 0.9, CORR_PAIRS):
+            a, b = correlated_pair(rng6, CORR_N, CORR_NNZ, CORR_OVERLAP, rho)
+            mask = (a != 0) & (b != 0)
+            pairs.append((torch.as_tensor(a, device=dev),
+                          torch.as_tensor(b, device=dev),
+                          float(np.corrcoef(a[mask], b[mask])[0, 1])))
+        msamp = samples_for_budget(CORR_M)
+
+        def uniform(build):
+            return lambda a, b, s: float(empirical_correlation(
+                build(a, msamp, s, variant="uniform", backend="kernel"),
+                build(b, msamp, s, variant="uniform", backend="kernel")))
+
+        def weighted(method):
+            def fn(a, b, s):
+                S = combined_sketch_corpus(torch.stack([a, b]), msamp, s,
+                                           method=method, backend="kernel",
+                                           device=dev)
+                return float(estimate_join_correlation(rows_of(S, 0),
+                                                       rows_of(S, 1)))
+            return fn
+
+        def legacy(build):
+            return lambda a, b, s: float(estimate_join_correlation(
+                build(a, msamp, s), build(b, msamp, s)))
+
+        methods = {
+            "JL": lambda a, b, s: linear_corr(jl_sketch, jl_estimate, a, b,
+                                              CORR_M, s),
+            "CS": lambda a, b, s: linear_corr(countsketch,
+                                              countsketch_estimate, a, b,
+                                              CORR_M, s),
+            "PS-uniform": uniform(priority_sketch),
+            "TS-uniform": uniform(threshold_sketch),
+            "TS-weighted": weighted("threshold"),
+            "PS-weighted": weighted("priority"),
+            "TS-weighted legacy": legacy(combined_threshold_sketch),
+            "PS-weighted legacy": legacy(combined_priority_sketch)}
+        errs, ms = {}, {}
+        for name, fn in methods.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            errs[name] = float(np.mean([abs(fn(a, b, i) - true) for i, (
+                a, b, true) in enumerate(pairs)]))
+            ms[name] = (time.perf_counter() - t0) / CORR_PAIRS * 1e3
+        # each pair's kernel-route builds bit-equal to the same builds on
+        # the kernels' plain versions
+        for i, (a, b, _) in enumerate(pairs):
+            ab = torch.stack([a, b])
+            for build in (tk.build_combined_priority_corpus,
+                          tk.build_combined_threshold_corpus):
+                for g, r, f in zip(
+                        build(ab, msamp, i, device=dev),
+                        build(ab, msamp, i, device=dev, use_kernel=False),
+                        CombinedSketch._fields):
+                    assert_bits(g, r, f"fig6 pair {i} {build.__name__} {f}")
+        route = {k: v for k, v in errs.items() if "legacy" not in k}
+        best = min(route, key=route.get)
+        gates = {"weighted_best": best in ("PS-weighted", "TS-weighted"),
+                 "beats_linear": errs["PS-weighted"] < errs["JL"]
+                 and errs["PS-weighted"] < errs["CS"]}
+        return dict(errs=errs, ms=ms, best=best, gates=gates, samples=msamp)
+
+    def planted_err(S, exact, lo=0):
+        """Mean |estimate - exact| over the planted pairs of the groups in
+        rows lo .. lo + len(S) of the corpus, one batched estimate."""
+        G = S.idx.shape[0] // DISC_GROUP
+        qs = torch.arange(G, device=dev) * DISC_GROUP
+        cols = qs[:, None] + torch.arange(1, DISC_GROUP, device=dev)
+        est = estimate_join_correlation(
+            rows_of(S, qs.repeat_interleave(DISC_GROUP - 1)),
+            rows_of(S, cols.flatten())).reshape(G, DISC_GROUP - 1)
+        return float((est.double() - exact).abs().mean())
+
+    def discovery():
+        """The D = 4096 corpus: combined sketches in 512-row blocks (each
+        bit-equal to its build on the plain versions), the 4096 x 4096
+        correlation matrix on B5's moments mode, its 64 query rows
+        against the per-pair join, the planted-pair error and the top
+        columns."""
+        blocks, exact, build_ms = [], [], []
+        for lo in range(0, DISC_D, BLOCK_ROWS):
+            A = disc_block(lo)
+            S, ms = step_ms(lambda: combined_sketch_corpus(
+                A, DISC_M, DISC_SEED, backend="kernel", device=dev))
+            build_ms.append(ms)
+            plain = tk.build_combined_priority_corpus(
+                A, DISC_M, DISC_SEED, device=dev, use_kernel=False)
+            for g, r, f in zip(S, plain, CombinedSketch._fields):
+                assert_bits(g, r, f"combined priority block {lo} {f}")
+            if lo == 0:
+                for g, r, f in zip(*(tk.build_combined_threshold_corpus(
+                        A, DISC_M, DISC_SEED, device=dev, use_kernel=uk)
+                        for uk in (True, False)), CombinedSketch._fields):
+                    assert_bits(g, r, f"combined threshold block 0 {f}")
+                block0 = A
+            exact.append(planted_exact(A))
+            blocks.append(S)
+        S = CombinedSketch(*(torch.cat(f) for f in zip(*blocks)))
+        exact = torch.cat(exact)
+        C, corr_ms = step_ms(lambda: correlation_matrix(
+            S, backend="kernel", n_buckets=DISC_BUCKETS, slots=DISC_SLOTS))
+        qrows = torch.arange(0, DISC_D, DISC_GROUP, device=dev)
+        SQ = rows_of(S, qrows)
+        mom_k = combined_estimates_matrix(SQ, S, backend="kernel",
+                                          n_buckets=DISC_BUCKETS,
+                                          slots=DISC_SLOTS)
+        mom_r = combined_estimates_matrix(SQ, S, backend="reference")
+        ref = correlation_from_estimates(mom_r)
+        drops = _bucketized_moment_inputs(S, DISC_BUCKETS, DISC_SLOTS)[3]
+        clean = (drops[qrows] == 0)[:, None] & (drops == 0)[None, :]
+        Cq = C[qrows]
+        # a cell's bits depend on its two rows only: the square matrix's
+        # query rows are those of a (64, D) launch
+        assert_bits(correlation_from_estimates(mom_k), Cq,
+                    "correlation_matrix query rows vs a (64, D) launch")
+        mom_err = assert_moments(mom_k, mom_r, clean, "kernel vs the "
+                                 "per-pair join on the query rows")
+        # the correlation where it is conditioned: with few matches
+        # n sum_x2 - sum_x^2 cancels (it is 0 in exact arithmetic for one
+        # match), and each backend's float32 rounding picks its sign
+        e64 = {k: v.double() for k, v in mom_r.items()}
+        well = clean
+        for m1, m2 in (("sum_x", "sum_x2"), ("sum_y", "sum_y2")):
+            raw2 = e64["n"] * e64[m2]
+            well = well & (raw2 - e64[m1] * e64[m1] >= CORR_COND * raw2)
+        err_q = assert_tol(Cq[well], ref[well], CORR_GATE_RTOL,
+                           CORR_GATE_RTOL, "correlation_matrix kernel vs "
+                           "reference on the query rows")
+        cols = qrows[:, None] + torch.arange(1, DISC_GROUP, device=dev)
+        planted_well = int(torch.gather(well, 1, cols).sum())
+        planted_clean = int(torch.gather(clean, 1, cols).sum())
+        del mom_k, mom_r, e64
+        est = torch.gather(Cq, 1, cols)
+        mean_err = float((est.double() - exact).abs().mean())
+        top = torch.gather(cols, 1, est.abs().argmax(dim=1, keepdim=True))
+        top_rho = np.abs(disc_rho[top.flatten().cpu().numpy()])
+        hits = int((top_rho == 0.75).sum())
+        # the per-pair estimator on ten planted pairs against the
+        # reference backend's entries
+        pair_err = 0.0
+        for i in range(min(10, len(qrows))):
+            q, c = int(qrows[i]), int(qrows[i]) + 1 + i
+            e = estimate_join_correlation(rows_of(S, q), rows_of(S, c))
+            pair_err = max(pair_err, abs(float(e) - float(ref[i, c])))
+        check(pair_err <= 1e-5, f"estimate_join_correlation vs the "
+              f"reference matrix: {pair_err}")
+        del C
+        return dict(S=S, exact=exact, block0=block0, build_ms=build_ms,
+                    corr_ms=corr_ms, err_q=err_q, mom_err=mom_err,
+                    pairs_compared=int(clean.sum()),
+                    pairs_conditioned=int(well.sum()),
+                    planted_conditioned=planted_well,
+                    planted_drop_free=planted_clean,
+                    drops=drops,
+                    mean_err=mean_err,
+                    hits=hits, pair_err=pair_err,
+                    max_err=float((est.double() - exact).abs().max()))
+
+    def table_store():
+        """SketchedTableStore on the card: the first group's 64 columns
+        through add_column, top_correlated against the same store on
+        CPU copies; then examples/join_correlation_discovery.py's six
+        columns."""
+        names = [f"g0c{c:02d}" for c in range(DISC_GROUP)]
+        stores = [SketchedTableStore(universe=DISC_UNIVERSE, m=DISC_M,
+                                     seed=DISC_SEED, device=d)
+                  for d in (dev, "cpu")]
+        add_ms, top_ms = [], []
+        for name, (k, v) in zip(names, disc_cols):
+            _, ms = step_ms(lambda: stores[0].add_column(name, k, v))
+            add_ms.append(ms)
+            stores[1].add_column(name, k, v)
+        for _ in range(20):
+            top, ms = step_ms(lambda: stores[0].top_correlated(names[0],
+                                                               k=5))
+            top_ms.append(ms)
+        cpu_top = stores[1].top_correlated(names[0], k=5)
+        check([n for n, _ in top] == [n for n, _ in cpu_top],
+              f"store top_correlated {top} vs CPU copies {cpu_top}")
+        store_err = max(abs(a - b) for (_, a), (_, b) in zip(top, cpu_top))
+        check(store_err <= 1e-5, f"store scores vs CPU copies {store_err}")
+        ex = SketchedTableStore(universe=DISC_UNIVERSE, m=DISC_M,
+                                seed=DISC_SEED, device=dev)
+        for name, (k, v) in zip(EXAMPLE_NAMES, disc_cols):
+            ex.add_column(name, k, v)
+        truth = dict(zip(EXAMPLE_NAMES[1:], DISC_RHOS))
+        lines = [f"{n:15s} rho_est = {s:+.3f}   (true {truth[n]:+.2f})"
+                 for n, s in ex.top_correlated(EXAMPLE_NAMES[0], k=5)]
+        return dict(top=top, store_err=store_err, add_ms=add_ms,
+                    top_ms=top_ms, example=lines, example_join_size=ex.
+                    join_size(EXAMPLE_NAMES[0], EXAMPLE_NAMES[1]))
+
+    def combined_merge(disc):
+        """Block 0 split by coordinate at 2^17, both halves built and
+        merged on the card, against the merge of the same parts on the
+        CPU; the merged correlations' planted-pair error beside the
+        one-shot build's."""
+        A = disc["block0"]
+        half = DISC_UNIVERSE // 2
+        lo, hi = A.clone(), A.clone()
+        lo[:, half:] = 0.0
+        hi[:, :half] = 0.0
+        parts = [tk.build_combined_priority_corpus(x, DISC_M, DISC_SEED,
+                                                   device=dev)
+                 for x in (lo, hi)]
+        merged = merge_combined_sketches(*parts, DISC_SEED, m=DISC_M)
+        on_cpu = merge_combined_sketches(
+            *(CombinedSketch(*(f.cpu() for f in p)) for p in parts),
+            DISC_SEED, m=DISC_M)
+        assert_bits(merged.idx.cpu(), on_cpu.idx, "combined merge idx")
+        assert_bits(merged.val.cpu(), on_cpu.val, "combined merge val")
+        ulps = 0
+        for f in ("tau_ones", "tau_val", "tau_sq", "scale"):
+            g, r = getattr(merged, f).cpu(), getattr(on_cpu, f)
+            fin = torch.isfinite(r)
+            check(torch.equal(torch.isfinite(g), fin),
+                  f"combined merge {f}: finite masks differ")
+            if bool(fin.any()):
+                ulps = max(ulps, int((g[fin].view(torch.int32).long() -
+                                      r[fin].view(torch.int32).long()
+                                      ).abs().max()))
+        check(ulps <= 1, f"combined merge taus {ulps} ulps from the CPU's")
+        ex0 = disc["exact"][:BLOCK_ROWS // DISC_GROUP]
+        return dict(tau_ulps=ulps, merged_err=planted_err(merged, ex0),
+                    one_shot_err=planted_err(rows_of(
+                        disc["S"], slice(0, BLOCK_ROWS)), ex0))
+
+    def join_corr_path():
+        fig6 = fig6_panel()
+        disc = discovery()
+        store = table_store()
+        merge = combined_merge(disc)
+        return dict(fig6=fig6, disc=disc, store=store, merge=merge)
+
+    jcp, launches["join_corr_path"] = run_path(kernels, join_corr_path)
+    need = ("radix_select", "allpairs_compact", "allpairs_estimate",
+            "countsketch_scatter", "jl_rademacher", "hash_rank_hist",
+            "hash_rank")
+    check(all(launches["join_corr_path"][k] > 0 for k in need),
+          f"a kernel of the join-correlation path never launched: {launches}")
+    f6, dc, st, mg6 = (jcp[k] for k in ("fig6", "disc", "store", "merge"))
+    corr_gates = {
+        **f6["gates"],
+        "planted_mean_err_below": dc["mean_err"] < PLANTED_ERR_GATE,
+        "top1_planted_075": dc["hits"] >= TOP1_GATE}
+    emit({"phase": "join_corr_path", "fig6": {
+              "n": CORR_N, "nnz": CORR_NNZ, "overlap": CORR_OVERLAP,
+              "pairs": CORR_PAIRS, "m": CORR_M, "samples": f6["samples"],
+              "mean_abs_err": f6["errs"], "ms_per_pair": f6["ms"],
+              "best": f6["best"]},
+          "discovery": {
+              "D": DISC_D, "universe": DISC_UNIVERSE, "m": DISC_M,
+              "n_buckets": DISC_BUCKETS, "slots": DISC_SLOTS,
+              "build_ms_per_block": dc["build_ms"],
+              "correlation_matrix_ms": dc["corr_ms"],
+              "query_rows_moments_vs_reference_max_err_of_pair_scale":
+                  dc["mom_err"],
+              "query_pairs_drop_free": dc["pairs_compared"],
+              "query_rows_vs_reference_max_abs_err": dc["err_q"],
+              "query_pairs_conditioned": dc["pairs_conditioned"],
+              "planted_pairs_drop_free": dc["planted_drop_free"],
+              "planted_pairs_conditioned": dc["planted_conditioned"],
+              "rows_with_bucket_drop": int((dc["drops"] > 0).sum()),
+              "entries_dropped": int(dc["drops"].sum()),
+              "planted_mean_abs_err": dc["mean_err"],
+              "planted_max_abs_err": dc["max_err"],
+              "planted_err_gate": PLANTED_ERR_GATE,
+              "top1_planted_075": f"{dc['hits']}/{DISC_GROUPS}",
+              "per_pair_vs_reference_max_abs_err": dc["pair_err"]},
+          "store": {"top_correlated": st["top"],
+                    "vs_cpu_copies_max_abs_err": st["store_err"],
+                    "add_column_p50_ms": float(np.percentile(st["add_ms"],
+                                                             50)),
+                    "top_correlated_p50_ms": float(np.percentile(
+                        st["top_ms"], 50)),
+                    "example_top5": st["example"],
+                    "example_join_size": st["example_join_size"]},
+          "merge": mg6, "gates": corr_gates,
+          "seconds": jcp["seconds"],
+          "launches": launches["join_corr_path"]})
+    check(all(corr_gates.values()),
+          f"join-correlation gates failed: {corr_gates}")
+
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()
     C, B, S = corpus.idx.shape
@@ -1383,14 +1920,6 @@ def main() -> None:
     theirs = host_corpus([a[:D] for a in (hi_ix._idx, hi_ix._val,
                                           hi_ix._tau, hi_ix._dropped)])
     m_tau = tk.merged_tau_bucketized(mine, theirs, SEED, m=M)
-
-    # host clock around one step, the device synchronised before and after
-    def step_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     t = {}
     t["hash_rank_hist"] = (cuda_ms(lambda: tk.hash_rank_hist(blk, SEED)),
@@ -1937,6 +2466,96 @@ def main() -> None:
                                  "operations" if ops_ms > bytes_ms
                                  else "bytes")
 
+    # the join-correlation path: the combined builds on one discovery
+    # block (the kernel route, the same on the kernels' plain versions,
+    # the legacy argsorts, the threshold build); their bound: the block
+    # read once, the sketches written once
+    A0 = jcp["disc"]["block0"]
+    combined_build = {
+        "block": [BLOCK_ROWS, DISC_UNIVERSE], "m": DISC_M,
+        "priority_kernel_ms": cuda_ms(
+            lambda: tk.build_combined_priority_corpus(
+                A0, DISC_M, DISC_SEED, device=dev), warmup=1, iters=5),
+        "priority_plain_ms": cuda_ms(
+            lambda: tk.build_combined_priority_corpus(
+                A0, DISC_M, DISC_SEED, device=dev, use_kernel=False),
+            warmup=1, iters=3),
+        "priority_legacy_ms": cuda_ms(
+            lambda: combined_sketch_corpus(A0, DISC_M, DISC_SEED,
+                                           backend="reference", device=dev),
+            warmup=1, iters=1),
+        "threshold_kernel_ms": cuda_ms(
+            lambda: tk.build_combined_threshold_corpus(
+                A0, DISC_M, DISC_SEED, device=dev), warmup=1, iters=3),
+        "priority_bound_ms": (A0.numel() * 4 + BLOCK_ROWS * (DISC_M * 8 + 16))
+        / HBM_BYTES_PER_S * 1e3}
+    # correlation_matrix at D = 4096 step by step: bucketize with the
+    # inclusion probabilities, B5's compaction, the moments join (a raw
+    # launch, held against the wrapper's matrix), the Eq. 9 formula
+    S_all = jcp["disc"]["S"]
+    corr_steps = {}
+    mi, corr_steps["bucketize_and_probabilities"] = step_ms(
+        lambda: _bucketized_moment_inputs(S_all, DISC_BUCKETS,
+                                          DISC_SLOTS)[:3])
+    cm, corr_steps["compaction"] = step_ms(lambda: tk.allpairs_compact(*mi))
+    mom_o = torch.empty((DISC_D, DISC_D, len(MOMENT_CHANNELS)), device=dev)
+    mom_join = raw("intersect_estimate.intersect_estimate", "_lib",
+                   "repro_allpairs_join", cm[0].data_ptr(), cm[1].data_ptr(),
+                   cm[0].data_ptr(), cm[1].data_ptr(), mom_o.data_ptr(),
+                   DISC_D, DISC_D, DISC_BUCKETS, DISC_SLOTS, 1)
+    _, corr_steps["moments_join"] = step_ms(mom_join)
+    assert_bits(mom_o, tk.allpairs_moments(*mi, *mi),
+                "moments join raw launch vs the wrapper")
+    moments = {k: mom_o[..., c] for c, k in enumerate(MOMENT_CHANNELS)}
+    _, corr_steps["correlation_formula"] = step_ms(
+        lambda: correlation_from_estimates(moments))
+    _, corr_total_ms = step_ms(lambda: correlation_matrix(
+        S_all, backend="kernel", n_buckets=DISC_BUCKETS, slots=DISC_SLOTS))
+    # B5's moments mode device-only (raw launches in a CUDA graph) against
+    # its bound: the corpus read once, the (D, D, 6) output written once;
+    # or the compares its buckets need
+    cm_o = (torch.empty_like(cm[0]), torch.empty_like(cm[1]))
+    mom_compact = raw("intersect_estimate.intersect_estimate", "_lib",
+                      "repro_allpairs_compact", mi[0].data_ptr(),
+                      mi[1].data_ptr(), mi[2].data_ptr(), cm_o[0].data_ptr(),
+                      cm_o[1].data_ptr(), DISC_D, DISC_BUCKETS, DISC_SLOTS)
+    per_bucket_m = (mi[0] != INVALID_IDX).sum(dim=(0, 2)).double()
+    mom_bytes = mi[0].numel() * 12 + mom_o.numel() * 4
+    mom_compares = float((per_bucket_m * per_bucket_m).sum())
+    b5_moments = {
+        "shape": [DISC_D, DISC_D, DISC_BUCKETS, DISC_SLOTS],
+        "compaction_device_ms": graph_ms(mom_compact, reps=10),
+        "join_device_ms": graph_ms(mom_join, reps=5, replays=3),
+        "wrapper_ms": cuda_ms(lambda: tk.allpairs_moments(*mi, *mi),
+                              warmup=1, iters=3),
+        "plain_ms": "not measured (the plain join at this shape holds "
+                    "(64, 4096, 1024) intermediates per chunk pair)",
+        "bytes": mom_bytes, "compares": mom_compares,
+        "bound_ms": max(mom_bytes / HBM_BYTES_PER_S,
+                        mom_compares / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if mom_bytes / HBM_BYTES_PER_S
+        >= mom_compares / FP32_OPS_PER_S else "operations"}
+    b5_moments["device_ms"] = (b5_moments["compaction_device_ms"]
+                               + b5_moments["join_device_ms"])
+    del mom_o, moments, cm, cm_o, mi
+    # B2 at the union positions' shape (512, 2^18), k = m + 1: device-only,
+    # through the wrapper, its plain version and torch.kthvalue
+    q_o = torch.empty(BLOCK_ROWS, device=dev)
+    q_launch = raw("sketch_build.sketch_build", "_select_lib",
+                   "repro_radix_select", q_keys.data_ptr(), None, None,
+                   DISC_M + 1, q_o.data_ptr(), *q_keys.shape)
+    b2_union = {
+        "shape": list(q_keys.shape), "k": DISC_M + 1,
+        "device_ms": graph_ms(q_launch),
+        "wrapper_ms": cuda_ms(lambda: tk.radix_select(q_keys, DISC_M + 1)),
+        "plain_ms": cuda_ms(lambda: kth_smallest_ranks_ref(q_keys,
+                                                          DISC_M + 1),
+                            iters=3),
+        "kthvalue_ms": cuda_ms(lambda: torch.kthvalue(q_keys, DISC_M + 1,
+                                                      dim=1), iters=3),
+        "bound_ms": (q_keys.numel() + BLOCK_ROWS) * 4 / HBM_BYTES_PER_S
+        * 1e3}
+
     emit({"phase": "timing", "card": smi_line,
           "add_many_ms_per_block": float(np.mean(mp["block_ms"])),
           "add_many_block_ms": mp["block_ms"],
@@ -1994,7 +2613,17 @@ def main() -> None:
                            "threshold_path": tp["seconds"],
                            "merge_path": mg["seconds"],
                            "matrix_path": mx["seconds"],
-                           "join_size_path": jp["seconds"]},
+                           "join_size_path": jp["seconds"],
+                           "join_corr_path": jcp["seconds"]},
+          "combined_build_ms_per_block": combined_build,
+          "correlation_matrix_ms": corr_total_ms,
+          "correlation_matrix_steps_ms": corr_steps,
+          "allpairs_moments_b1024": b5_moments,
+          "radix_select_union_positions": b2_union,
+          "store_add_column_p50_ms": float(np.percentile(
+              jcp["store"]["add_ms"], 50)),
+          "store_top_correlated_p50_ms": float(np.percentile(
+              jcp["store"]["top_ms"], 50)),
           "kernel_ms": {k: v[0] for k, v in t.items()},
           "bound_ms": {k: v[0] for k, v in bounds.items()}})
 
@@ -2081,7 +2710,9 @@ def main() -> None:
             "parity_shape": device_only[f"jl_rademacher n={N} m={M} "
                                         "(parity)"],
             "sass_loop": jl_sass},
-        "radix_select": {"library_ms_at_one_vector": kth_d1}}
+        "radix_select": {"library_ms_at_one_vector": kth_d1,
+                         "union_positions_shape": b2_union},
+        "allpairs_estimate": {"moments_shape": b5_moments}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

@@ -1,19 +1,29 @@
 """Core sketching primitives: hashing, the sketch container, threshold
 sampling (Algorithms 1+4), priority sampling (Algorithm 3), the
 Algorithm 2 estimator and its bounds (DP bounds included), batched
-sketching, the merge of partition sketches, and the paper's baselines
-(JL, CountSketch, MinHash, WMH)."""
+sketching and estimation, the merge of partition sketches, join
+correlation (Algorithms 5/6), and the paper's baselines (JL, CountSketch,
+MinHash, WMH)."""
 from .hashing import (GOLDEN, UNIT, fold_seed, hash_bucket, hash_sign,
                       hash_u32, hash_unit, mix32)
-from .sketches import (INVALID_IDX, Sketch, default_capacity,
+from .sketches import (INVALID_IDX, Sketch, default_capacity, densify,
                        flush_subnormal, sampling_ranks, select_and_pack,
                        weight)
 from .threshold import adaptive_tau, threshold_sketch
 from .priority import priority_sketch
-from .estimator import estimate_inner_product, intersection_size
-from .batched import sketch_corpus
-from .merge import (PartitionStats, merge_sketches, merge_sketches_many,
-                    merge_stats, partition_stats)
+from .estimator import (estimate_inner_product,
+                        estimate_inner_product_dense, intersection_size)
+from .batched import estimate_all_pairs, estimate_query, sketch_corpus
+from .join_correlation import (CombinedSketch, combined_estimates,
+                               combined_estimates_matrix,
+                               combined_priority_sketch,
+                               combined_sketch_corpus,
+                               combined_threshold_sketch, correlation_matrix,
+                               correlation_from_estimates,
+                               empirical_correlation,
+                               estimate_join_correlation)
+from .merge import (PartitionStats, merge_combined_sketches, merge_sketches,
+                    merge_sketches_many, merge_stats, partition_stats)
 from .variance import (chebyshev_interval, dp_chebyshev_halfwidth,
                        dp_debias_gap, dp_variance_bound, error_guarantee,
                        intersection_norms, linear_sketch_error,
@@ -26,10 +36,18 @@ from .baselines import (MinHashSketch, WMHSketch, countsketch,
 
 __all__ = ["GOLDEN", "UNIT", "fold_seed", "hash_bucket", "hash_sign",
            "hash_u32", "hash_unit", "mix32", "INVALID_IDX", "Sketch",
-           "default_capacity", "flush_subnormal", "sampling_ranks",
+           "default_capacity", "densify", "flush_subnormal",
+           "sampling_ranks",
            "select_and_pack", "weight", "adaptive_tau", "threshold_sketch",
-           "priority_sketch", "estimate_inner_product", "intersection_size",
-           "sketch_corpus", "PartitionStats", "merge_sketches",
+           "priority_sketch", "estimate_inner_product",
+           "estimate_inner_product_dense", "intersection_size",
+           "estimate_all_pairs", "estimate_query", "sketch_corpus",
+           "CombinedSketch", "combined_estimates",
+           "combined_estimates_matrix", "combined_priority_sketch",
+           "combined_sketch_corpus", "combined_threshold_sketch",
+           "correlation_matrix", "correlation_from_estimates",
+           "empirical_correlation", "estimate_join_correlation",
+           "PartitionStats", "merge_combined_sketches", "merge_sketches",
            "merge_sketches_many", "merge_stats", "partition_stats",
            "chebyshev_interval", "error_guarantee", "intersection_norms",
            "linear_sketch_error", "rescaled_kept_norms",

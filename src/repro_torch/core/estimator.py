@@ -45,6 +45,24 @@ def estimate_inner_product(sa: Sketch, sb: Sketch, *,
     return terms.sum(dim=-1)
 
 
+def estimate_inner_product_dense(sa: Sketch, b: torch.Tensor, *,
+                                 variant: str = "l2") -> torch.Tensor:
+    """One-sided estimate of <a, b> from a sketch of ``a`` and the whole
+    vector ``b``: the inclusion probability is a's alone (online
+    telemetry, where the query is known in full)."""
+    valid = sa.idx != INVALID_IDX
+    safe_idx = torch.where(valid, sa.idx, 0).to(torch.int64)
+    bval = torch.as_tensor(b, dtype=torch.float32,
+                           device=sa.val.device)[safe_idx]
+    tau = torch.as_tensor(sa.tau, dtype=torch.float32)
+    if tau.ndim:
+        tau = tau[..., None]
+    p = torch.clamp(_safe_mul(tau, weight(sa.val, variant)), max=1.0)
+    p = torch.where(valid, p, torch.ones_like(p))
+    terms = torch.where(valid, sa.val * bval / p, torch.zeros_like(p))
+    return terms.sum(dim=-1)
+
+
 def intersection_size(sa: Sketch, sb: Sketch) -> torch.Tensor:
     """Number of indices present in both sketches (diagnostic)."""
     match, _ = _match(sa.idx, sb.idx)

@@ -22,11 +22,18 @@ Partitions must have disjoint supports; a coordinate present in two parts
 must carry the same value there and is deduplicated (same seed, index and
 value give the same rank).  The union math lives once in
 ``repro_torch.engine.merge``; this module is the d = 1 shim plus the
-statistics and the shared helpers.  The combined (join-correlation) merge
-comes with ROADMAP step A7.
+statistics, the shared helpers and the combined merge:
+
+- **Combined** (Algorithms 5/6, :func:`merge_combined_sketches`): the
+  per-family taus are rescaled to the merged normalization and combined
+  conservatively (min), with a global re-cut at the (m+1)-st smallest
+  min-family rank so the merged sketch fits its capacity.  A valid
+  coordinated sample under the published taus, not bit-identical to a
+  one-shot combined build.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -35,8 +42,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
+from .hashing import hash_unit
+from .join_correlation import CombinedSketch, _ranks_of
 from .sketches import (INVALID_IDX, Sketch, default_capacity,
-                       flush_subnormal, weight)
+                       flush_subnormal, select_and_pack, weight)
 from .threshold import _tau_all, _tau_from_sorted, suffix_sums
 
 
@@ -247,3 +256,73 @@ def merge_sketches(a: Sketch, b: Sketch, seed, *, m: int,
     return merge_sketches_many([a, b], seed, m=m, method=method,
                                variant=variant, cap=cap, adaptive=adaptive,
                                stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Combined (join-correlation) merge
+# ---------------------------------------------------------------------------
+
+
+def _merge_combined(a: CombinedSketch, b: CombinedSketch, seed, *, m: int,
+                    cap: int) -> CombinedSketch:
+    """The combined merge of (D, cap) parts (module docstring); op for op
+    the reference's ``_merge_combined``."""
+    from repro_torch.kernels.sketch_build import kth_smallest_ranks
+    s_m = torch.maximum(a.scale, b.scale)
+    idx_u = torch.cat([a.idx, b.idx], dim=-1)
+    val_u = torch.cat([a.val, b.val], dim=-1)
+    h = hash_unit(seed, idx_u)
+    val_f = flush_subnormal(val_u)
+    vn = flush_subnormal(val_f / s_m[:, None])
+    wv = flush_subnormal(vn * vn)
+    ws = flush_subnormal(wv * wv)
+    keep_lane = torch.cat([torch.ones_like(a.idx, dtype=torch.bool),
+                           ~_dedup_b(a.idx, b.idx)], dim=-1)
+    inf = torch.full_like(val_u, math.inf)
+    r1, rv, rs = (torch.where(keep_lane, _ranks_of(h, w), inf)
+                  for w in ((val_f != 0).to(torch.float32), wv, ws))
+
+    # a part's taus live in its own max-|a| normalization: a value-family
+    # rank scales by (s_m / s_part)^2, a square-family one by ^4 (XLA's
+    # powers: f*f and (f*f)*(f*f))
+    def to_merged(s):
+        f = s_m / s.scale
+        f2 = f * f
+        return s.tau_ones, s.tau_val * f2, s.tau_sq * (f2 * f2)
+
+    taus = [torch.minimum(x, y) for x, y in zip(to_merged(a), to_merged(b))]
+    # conservative global re-cut: the (m+1)-st smallest min-family rank
+    # bounds the kept count by m
+    scores = torch.minimum(r1, torch.minimum(rv, rs))
+    if scores.shape[1] >= m + 1:
+        c = kth_smallest_ranks(scores, m + 1)
+    else:
+        c = torch.full(scores.shape[:1], math.inf, device=scores.device)
+    tau1, tauv, taus_ = (torch.minimum(t, c) for t in taus)
+    include = ((r1 < tau1[:, None]) | (rv < tauv[:, None])
+               | (rs < taus_[:, None]))
+    kidx, kval = select_and_pack(scores, include, idx_u, val_u, cap)
+    return CombinedSketch(kidx, kval, tau1, tauv, taus_, s_m)
+
+
+def merge_combined_sketches(a: CombinedSketch, b: CombinedSketch, seed, *,
+                            m: int) -> CombinedSketch:
+    """Merge two join-correlation sketches of disjoint partitions (single
+    sketches or (D, cap) corpora) at the larger part's capacity.  See the
+    module docstring for what the result promises."""
+    squeeze = a.idx.ndim == 1
+
+    def lift(s: CombinedSketch) -> CombinedSketch:
+        if s.idx.ndim == 1:
+            return CombinedSketch(
+                s.idx[None], s.val[None],
+                *(torch.as_tensor(t, dtype=torch.float32,
+                                  device=s.idx.device).reshape(1)
+                  for t in (s.tau_ones, s.tau_val, s.tau_sq, s.scale)))
+        return s
+
+    cap = max(a.idx.shape[-1], b.idx.shape[-1])
+    out = _merge_combined(lift(a), lift(b), seed, m=m, cap=cap)
+    if squeeze:
+        return CombinedSketch(*(f[0] for f in out))
+    return out

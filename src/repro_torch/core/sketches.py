@@ -103,3 +103,20 @@ def select_and_pack(scores: torch.Tensor, include: torch.Tensor,
     kval = torch.where(kinc, kval, torch.zeros_like(kval))
     order = torch.argsort(kidx, dim=-1, stable=True)
     return torch.gather(kidx, -1, order), torch.gather(kval, -1, order)
+
+
+def densify(sketch: Sketch, n: int) -> torch.Tensor:
+    """Scatter a sketch back to a dense length-n unbiased estimate of its
+    vector: entry i gets ``val_i / p_i`` with ``p_i = min(1, tau w_i)``
+    (l2).  Used by gradient compression (DESIGN.md §3.1 of the
+    reference)."""
+    w = weight(sketch.val, "l2")
+    p = torch.clamp(torch.as_tensor(sketch.tau, dtype=torch.float32) * w,
+                    max=1.0)
+    valid = sketch.idx != INVALID_IDX
+    scale = torch.where(valid & (p > 0),
+                        sketch.val / torch.where(p > 0, p, torch.ones_like(p)),
+                        torch.zeros_like(p))
+    safe_idx = torch.where(valid, sketch.idx, 0).to(torch.int64)
+    out = torch.zeros((n,), dtype=torch.float32, device=sketch.val.device)
+    return out.index_add_(0, safe_idx, scale)

@@ -1,0 +1,7 @@
+"""Data substrate: the table store and the paper's synthetic data
+generators."""
+from .synthetic import correlated_pair, vector_pair, zipf_frequency_tables
+from .tables import SketchedTableStore, column_to_vector
+
+__all__ = ["correlated_pair", "vector_pair", "zipf_frequency_tables",
+           "SketchedTableStore", "column_to_vector"]

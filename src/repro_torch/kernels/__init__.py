@@ -3,7 +3,8 @@ version.  ``csrc/`` holds the sources; ``_build`` compiles them with
 ``nvcc`` at first launch.
 
 - ``sketch_build``: ``hash_rank_hist``, ``radix_select`` (the linear-time
-  builds: the hash/rank pass and the exact k-th smallest key);
+  builds: the hash/rank pass and the exact k-th smallest key; the
+  join-correlation combined builds run on ``radix_select``);
 - ``hash_rank``: ``hash_rank_batched``, ``hash_rank`` (the hash/rank pass
   without the histogram: the threshold build's front end);
 - ``intersect_estimate``: ``intersect_estimate`` (query vs corpus),
@@ -24,10 +25,13 @@ from .intersect_estimate import (BucketizedSketch, allpairs_compact,
                                  bucketize,
                                  bucketize_corpus, bucketize_payloads,
                                  estimate_all_pairs_bucketized,
+                                 estimate_tile_rows,
                                  intersect_estimate, query_corpus,
                                  round_up_pow2, slot_inclusion_probs)
-from .sketch_build import (adaptive_tau_batched, build_priority_corpus,
-                           build_threshold_corpus, hash_rank_hist,
+from .sketch_build import (adaptive_tau_batched,
+                           build_combined_priority_corpus,
+                           build_combined_threshold_corpus,
+                           build_priority_corpus, build_threshold_corpus, hash_rank_hist,
                            kth_smallest_ranks, pack_kept, radix_select)
 from .sketch_merge import (merge_bucketized, merge_bucketized_corpora,
                            merged_tau_bucketized)
@@ -47,9 +51,11 @@ KERNELS = (hash_rank_hist, radix_select, hash_rank_batched, hash_rank,
 __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
            "allpairs_compact", "allpairs_estimate", "allpairs_moments",
            "bucketize", "bucketize_corpus", "bucketize_payloads",
-           "estimate_all_pairs_bucketized", "intersect_estimate",
+           "estimate_all_pairs_bucketized", "estimate_tile_rows",
+           "intersect_estimate",
            "query_corpus", "round_up_pow2", "slot_inclusion_probs",
-           "adaptive_tau_batched", "build_priority_corpus",
+           "adaptive_tau_batched", "build_combined_priority_corpus",
+           "build_combined_threshold_corpus", "build_priority_corpus",
            "build_threshold_corpus", "hash_rank_hist", "kth_smallest_ranks",
            "pack_kept", "radix_select", "merge_bucketized",
            "merge_bucketized_corpora", "merged_tau_bucketized",

@@ -10,6 +10,7 @@ Estimation entry points:
 
 - ``query_corpus``                   one query vs a corpus (serving path)
 - ``estimate_all_pairs_bucketized``  the (D1, D2) estimate matrix
+- ``estimate_tile_rows``             one tile of it from gathered rows
 - ``allpairs_moments``               (D1, D2, 6) co-moment channels
 
 Each launches its CUDA kernel for CUDA tensors and the plain version for
@@ -142,6 +143,31 @@ def estimate_all_pairs_bucketized(A: BucketizedSketch, B: BucketizedSketch,
         return allpairs_estimate_ref(A.idx, A.val, a_p, B.idx, B.val, b_p,
                                      ct=ref_chunk)
     return allpairs_estimate(A.idx, A.val, a_p, B.idx, B.val, b_p)
+
+
+def estimate_tile_rows(a_idx, a_val, a_p, b_idx, b_val, b_p, rows_a, rows_b,
+                       *, use_kernel: bool = True) -> torch.Tensor:
+    """One (tq, tc) tile of the all-pairs matrix from gathered row subsets
+    of two bucketized corpora (idx/val/inclusion-probability triples) —
+    the discovery engine's tile launch (DESIGN.md §17 of the reference).
+
+    ``rows_a`` (tq,) / ``rows_b`` (tc,) are row ids into the (D, B, S)
+    arrays; out-of-range ids clamp, as the reference's gather does
+    (callers pad short tiles with any id and mask the padding).  One
+    all-pairs launch a tile; a cell's bits depend on its two rows only, so
+    a tile equals the matching block of the full matrix bit for bit."""
+    obs.kernel_launch("intersect_estimate.tile")
+
+    def gather(rows, *arrs):
+        r = torch.as_tensor(rows, device=arrs[0].device).to(torch.int64)
+        r = r.clamp(0, arrs[0].shape[0] - 1)
+        return tuple(x.index_select(0, r) for x in arrs)
+
+    a = gather(rows_a, a_idx, a_val, a_p)
+    b = gather(rows_b, b_idx, b_val, b_p)
+    if not use_kernel:
+        return allpairs_estimate_ref(*a, *b)
+    return allpairs_estimate(*a, *b)
 
 
 def allpairs_moments(a_idx, a_val, a_p, b_idx, b_val, b_p, *,

@@ -1,7 +1,10 @@
-"""Serving: the sketch index (plain mode), the matrix sketch store and
-their state conversion."""
-from .convert import index_from_arrays, store_from_arrays
+"""Serving: the sketch index (plain, bias-aware and private modes), the
+matrix sketch store, and the state conversion of those and of the table
+store and its combined sketches."""
+from .convert import (combined_from_arrays, index_from_arrays,
+                      store_from_arrays, table_store_from_arrays)
 from .sketch_service import MatrixSketchStore, SketchIndex
 
-__all__ = ["MatrixSketchStore", "SketchIndex", "index_from_arrays",
-           "store_from_arrays"]
+__all__ = ["MatrixSketchStore", "SketchIndex", "combined_from_arrays",
+           "index_from_arrays", "store_from_arrays",
+           "table_store_from_arrays"]

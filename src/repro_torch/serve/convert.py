@@ -1,4 +1,5 @@
-"""Carry a serving index's or a matrix store's state across packages.
+"""Carry a serving index's, a matrix store's or a table store's state
+across packages.
 
 The state of a ``SketchIndex`` is its host blocks, not weights: the
 bucketized ids and values, the taus and drop counts, the row summaries
@@ -14,6 +15,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.core import CombinedSketch, Sketch
+from repro_torch.data import SketchedTableStore
+from repro_torch.device import resolve_device
 
 from .sketch_service import MatrixSketchStore, SketchIndex
 
@@ -94,4 +100,46 @@ def store_from_arrays(*, idx, rows, tau, names: Sequence, m: int, dim: int,
     out._name_set = set(out._names)
     if len(out._name_set) != C:
         raise ValueError("names must be unique")
+    return out
+
+
+def combined_from_arrays(idx, val, tau_ones, tau_val, tau_sq, scale, *,
+                         device=None) -> CombinedSketch:
+    """A port ``CombinedSketch`` (one sketch or a leading batch dim) from
+    host arrays: int32 ids, float32 values and the four float32
+    scalars."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return CombinedSketch(torch.tensor(np.asarray(idx, np.int32), device=dev),
+                          f32(val), f32(tau_ones), f32(tau_val), f32(tau_sq),
+                          f32(scale))
+
+
+def table_store_from_arrays(*, names: Sequence, ip, corr, freq,
+                            universe: int, m: int, seed: int,
+                            device=None) -> SketchedTableStore:
+    """Build a port ``SketchedTableStore`` from host-state arrays.
+
+    ``ip`` and ``freq``: ``(idx, val, tau)`` of the value and key-count
+    priority sketches, stacked (len(names), m) / (len(names),); ``corr``:
+    ``(idx, val, tau_ones, tau_val, tau_sq, scale)`` of the combined
+    sketches, stacked the same way; row i belongs to ``names[i]``."""
+    out = SketchedTableStore(universe=universe, m=m, seed=seed,
+                             device=device)
+    if len(set(names)) != len(names):
+        raise ValueError("names must be unique")
+    dev = out.device
+    def sketches(arrays) -> Sketch:
+        return Sketch(*(torch.tensor(np.asarray(x, t), device=dev) for x, t
+                        in zip(arrays, (np.int32, np.float32, np.float32))))
+
+    ip_s, freq_s = sketches(ip), sketches(freq)
+    corr_s = combined_from_arrays(*corr, device=dev)
+    for i, name in enumerate(names):
+        out._ip[name] = Sketch(*(f[i] for f in ip_s))
+        out._freq[name] = Sketch(*(f[i] for f in freq_s))
+        out._corr[name] = CombinedSketch(*(f[i] for f in corr_s))
     return out

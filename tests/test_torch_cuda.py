@@ -977,3 +977,155 @@ def test_countsketch_and_jl_reject_bad_inputs(cuda_device):
         tk.jl_rademacher(v, seeds.float())
     with pytest.raises(ValueError, match="row_seeds on"):
         tk.jl_rademacher(v, seeds.cpu())
+
+
+# ------------------------------------------ join correlation (slice 9)
+
+
+def _combined_block(rng, D, n, m):
+    """(D, n): the edge rows of the CPU parity tests (all zero, m - 3
+    nonzeros, heavy-tailed with subnormal (a/scale)^4 and subnormal
+    inputs) above Gaussian rows at 40% density."""
+    A = rng.standard_normal((D, n)).astype(np.float32)
+    A[rng.random(A.shape) < 0.6] = 0.0
+    A[0] = 0.0
+    A[1] = 0.0
+    A[1, rng.choice(n, m - 3, replace=False)] = 1.5
+    A[2] = (rng.random(n) * 1e-4).astype(np.float32)
+    A[2, rng.random(n) < 0.5] = 0.0
+    A[2, 7] = 1e6
+    A[2, 11:14] = (1e-40, -1e-39, 1e-20)
+    return A
+
+
+@pytest.mark.parametrize("method", ["priority", "threshold"])
+@pytest.mark.parametrize("n,m", [(20000 + 77, 64), (1 << 18, 512), (40, 64)])
+def test_combined_build_kernel_matches_plain(cuda_device, method, n, m):
+    """The combined build on B2 against the same build on B2's plain
+    version on the card, every field bit for bit (the two share every
+    sum); the priority build also against the CPU's."""
+    D = 6 if n > 64 else 2
+    A = _combined_block(np.random.default_rng(n), D, n, m) if n > 64 else \
+        np.random.default_rng(3).standard_normal((D, n)).astype(np.float32)
+    build = (tk.build_combined_priority_corpus if method == "priority"
+             else tk.build_combined_threshold_corpus)
+    before = tk.radix_select.launches
+    got = build(A, m, 9, device=cuda_device)
+    if method == "priority" and n > m:
+        assert tk.radix_select.launches == before + 2
+    for g, r in zip(got, build(A, m, 9, device=cuda_device,
+                               use_kernel=False)):
+        assert_bits(g, r)
+    if method == "priority":
+        for g, r in zip(got, build(A, m, 9, device="cpu")):
+            assert_bits(g, r)
+
+
+def test_radix_select_on_union_positions(cuda_device):
+    """B2 on the combined build's q keys at (64, 2^18): integer-valued
+    floats in [0, m + 1], almost all equal to m + 1, so the k-th key's
+    top-byte bin holds nearly every key; bit-equal to torch.kthvalue and
+    to the plain descent, for k = m + 1 and at the edges."""
+    from repro_torch.core.join_correlation import _family_ranks
+    m, n = 512, 1 << 18
+    rng = np.random.default_rng(8)
+    A = sparse_block(rng, 64, n, 5000)
+    A[5, :] = 0.0
+    A[5, :100] = 1.0
+    _, _, ranks = _family_ranks(torch.as_tensor(A, device=cuda_device), 7)
+    q, _ = tk.sketch_build.union_positions(ranks, m)
+    head = (q < m + 1).sum(dim=1)
+    head[5] = 0     # 100 nonzeros: its zeros all sit at position 100
+    assert int(head.max()) <= 3 * (m + 1)
+    for k in (1, m + 1, n):
+        got = tk.radix_select(q, k)
+        assert_bits(got, torch.kthvalue(q, k, dim=1).values)
+        assert_bits(got, kth_smallest_ranks_ref(q, k))
+
+
+@pytest.mark.parametrize("d2", [64, 600])
+def test_allpairs_moments_at_1024_buckets(cuda_device, d2):
+    """B5's moments mode at B = 1024, S = 4 (the correlation matrix's
+    layout): within tolerance of the plain version, the same bits launch
+    to launch, a query block's rows bit-equal to the same rows of the
+    square matrix."""
+    from repro_torch.core.join_correlation import _bucketized_moment_inputs
+    rng = np.random.default_rng(d2)
+    A = sparse_block(rng, d2, 65536, 3000)
+    S = tc.combined_sketch_corpus(A, 512, 7, backend="kernel",
+                                  device=cuda_device)
+    a = _bucketized_moment_inputs(S, 1024, 4)[:3]
+    q = tuple(x[:64].contiguous() for x in a)
+    got = tk.allpairs_moments(*q, *a)
+    assert_close(got, allpairs_estimate_ref(*q, *a, moments=True, ct=64))
+    assert_bits(tk.allpairs_moments(*q, *a), got)
+    full = tk.allpairs_moments(*a, *a)
+    assert_bits(full[:64], got)
+
+
+def test_tiles_equal_all_pairs_blocks(cuda_device):
+    """Four (128, 128) tiles of random rows (and a short tile padded with
+    an out-of-range id) bit-equal to the matching blocks of the full
+    matrix: a cell's bits depend on its two rows only."""
+    c = _card_corpus(cuda_device, 600, seed=11)
+    p = tk.slot_inclusion_probs(c)
+    arrs = (c.idx, c.val, p)
+    full = tk.allpairs_estimate(*arrs, *arrs)
+    rng = np.random.default_rng(12)
+    for _ in range(4):
+        ra, rb = (rng.choice(600, 128, replace=False) for _ in range(2))
+        before = tk.allpairs_estimate.launches
+        tile = tk.estimate_tile_rows(*arrs, *arrs, ra, rb)
+        assert tk.allpairs_estimate.launches == before + 1
+        assert_bits(tile, full[np.ix_(ra, rb)])
+    short = tk.estimate_tile_rows(*arrs, *arrs, [3, 9, 10_000], [599, 0])
+    assert_bits(short, full[np.ix_([3, 9, 599], [599, 0])])
+
+
+def test_combined_merge_on_card_matches_cpu(cuda_device):
+    """The combined merge of two coordinate halves: idx and val bit-equal
+    to the CPU's merge of the same parts, taus within 1 ulp."""
+    rng = np.random.default_rng(21)
+    A = sparse_block(rng, 32, 1 << 16, 4000)
+    A[3] *= np.float32(100.0)
+    lo, hi = A.copy(), A.copy()
+    lo[:, 1 << 15:] = 0.0
+    hi[:, :1 << 15] = 0.0
+    out = []
+    for dev in (cuda_device, "cpu"):
+        parts = [tk.build_combined_priority_corpus(x, 256, 3, device=dev)
+                 for x in (lo, hi)]
+        out.append(tc.merge_combined_sketches(*parts, 3, m=256))
+    assert_bits(out[0].idx, out[1].idx)
+    assert_bits(out[0].val, out[1].val)
+    for f in ("tau_ones", "tau_val", "tau_sq", "scale"):
+        g, r = getattr(out[0], f).cpu(), getattr(out[1], f)
+        fin = torch.isfinite(r)
+        assert torch.equal(torch.isfinite(g), fin)
+        gap = (g[fin].view(torch.int32).long()
+               - r[fin].view(torch.int32).long()).abs()
+        assert gap.numel() == 0 or int(gap.max()) <= 1
+
+
+def test_table_store_on_card_matches_cpu(cuda_device):
+    """The table store on the card and on CPU copies: the same top
+    columns in the same order, scores within 1e-5."""
+    from repro_torch.data import SketchedTableStore
+    rng = np.random.default_rng(1)
+    q_keys = rng.choice(200_000, 5000, replace=False)
+    q_vals = rng.normal(100, 25, 5000)
+    cols = [("q", q_keys, q_vals)]
+    for i, rho in enumerate((0.75, -0.55, 0.05, -0.2, 0.4, 0.6)):
+        keys = np.concatenate([rng.choice(q_keys, 3000, replace=False),
+                               rng.choice(200_000, 2000, replace=False)])
+        vals = rng.standard_normal(5000) + rho * np.arange(5000) / 5000
+        cols.append((f"c{i}", keys, vals))
+    stores = [SketchedTableStore(universe=1 << 18, m=512, device=dev)
+              for dev in (cuda_device, "cpu")]
+    for s in stores:
+        for name, keys, vals in cols:
+            s.add_column(name, keys, vals)
+    got, want = (s.top_correlated("q", k=5) for s in stores)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               atol=1e-5)
