@@ -26,7 +26,12 @@ exits nonzero with no result line):
                  (integer-valued keys, almost all equal) against
                  torch.kthvalue and the plain descent, bit for bit; B5's
                  moments mode at (64, 1024, 4) x (4096, 1024, 4) within
-                 tolerance and bit-equal launch to launch;
+                 tolerance and bit-equal launch to launch, and at the
+                 correlation matrix's (4096, 1024, 4) self-join (the
+                 tiles on and above the diagonal, mirrored) bit-equal to
+                 the join with a copy of the corpus on the B side, to
+                 the 64-row launch on its first rows and to its own
+                 transpose with x and y swapped;
 4. ``main_path`` ``SketchIndex`` at its published widths (m=256,
                  n_buckets=512, slots=4, seed=11): 4032 vectors over
                  n=65536 with 2000 nonzeros each through ``add_many`` in
@@ -112,7 +117,10 @@ exits nonzero with no result line):
                  shapes beside B2; the combined builds a 512-row block
                  (kernel, plain and legacy routes, threshold),
                  ``correlation_matrix`` at D = 4096 step by step, B5's
-                 moments mode device-only against its bound, B2 at the
+                 moments mode device-only against its bound, the square
+                 self-join and the 64-row query launch apart, with the
+                 join's blocks and warps an SM and shared memory a block
+                 (``launch_shape``), B2 at the
                  union positions' shape, the table store's ``add_column``
                  and ``top_correlated``;
 11. ``kernels``  one line per the port's kernel table.
@@ -182,6 +190,9 @@ DISC_BUCKETS, DISC_SLOTS = 1024, 4
 DISC_RHOS = (0.75, -0.55, 0.05, -0.2, 0.4)
 EXAMPLE_NAMES = ("taxi_trips", "temperature", "precipitation", "pressure",
                  "wind", "humidity")
+# a moments cell (b, a)'s channels from cell (a, b)'s: (n, sum_y, sum_x,
+# xy, sum_y2, sum_x2)
+MOMENT_SWAP = (0, 2, 1, 3, 5, 4)
 CORR_GATE_RTOL = 1e-4      # kernel matrix vs the per-pair join
 CORR_COND = 1e-2           # ... where both centered second moments are at
                            # least this share of the raw ones
@@ -561,6 +572,8 @@ def main() -> None:
     from repro_torch.kernels.intersect_estimate import (
         MOMENT_CHANNELS, allpairs_compact_ref, allpairs_estimate_ref,
         intersect_estimate_ref)
+    from repro_torch.kernels.intersect_estimate.intersect_estimate import (
+        moments_join_shape)
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
                                                   kth_smallest_ranks_ref,
                                                   union_positions)
@@ -816,9 +829,23 @@ def main() -> None:
                 for c in range(6))
     assert_bits(tk.allpairs_moments(*mom_q, *mom), got_m,
                 "allpairs moments 64x4096 B=1024, run to run")
+    # the self-join (one compacted corpus on both sides: the tiles on and
+    # above the diagonal, mirrored) against the join with a copy of the
+    # corpus on the B side (every tile joined), bit for bit; its first 64
+    # rows are the query launch's, and out[a, b] is out[b, a] with x and y
+    # swapped
+    mom_self = tk.allpairs_moments(*mom, *mom)
+    assert_bits(mom_self, tk.allpairs_moments(*mom, *(x.clone() for x in
+                                                       mom)),
+                "allpairs moments 4096x4096 self-join vs a B-side copy")
+    assert_bits(mom_self[:64], got_m,
+                "allpairs moments self-join rows vs the 64-row launch")
+    assert_bits(mom_self, mom_self.transpose(0, 1)[..., list(MOMENT_SWAP)],
+                "allpairs moments self-join vs its transpose, x and y "
+                "swapped")
     err["allpairs_estimate"] = max(err["allpairs_estimate"], e_mom)
     b5_moments_err = e_mom
-    del cs, mom, mom_q, got_m, ref_m
+    del cs, mom, mom_q, got_m, ref_m, mom_self
 
     # B6 on two half-partition corpora of one block, and with 16 buckets,
     # where the merge itself overflows (m = 64 there, as the reference's
@@ -2519,25 +2546,49 @@ def main() -> None:
                       "repro_allpairs_compact", mi[0].data_ptr(),
                       mi[1].data_ptr(), mi[2].data_ptr(), cm_o[0].data_ptr(),
                       cm_o[1].data_ptr(), DISC_D, DISC_BUCKETS, DISC_SLOTS)
-    per_bucket_m = (mi[0] != INVALID_IDX).sum(dim=(0, 2)).double()
-    mom_bytes = mi[0].numel() * 12 + mom_o.numel() * 4
-    mom_compares = float((per_bucket_m * per_bucket_m).sum())
+    def moments_bound(a_idx, b_idx, out_numel):
+        """The moments join's bound: both corpora read once and the
+        output written once, or the compares its buckets need."""
+        per_a = (a_idx != INVALID_IDX).sum(dim=(0, 2)).double()
+        per_b = (b_idx != INVALID_IDX).sum(dim=(0, 2)).double()
+        nbytes = (a_idx.numel() + (0 if b_idx is a_idx else b_idx.numel())
+                  ) * 12 + out_numel * 4
+        compares = float((per_a * per_b).sum())
+        ms = max(nbytes / HBM_BYTES_PER_S, compares / FP32_OPS_PER_S) * 1e3
+        return {"bytes": nbytes, "compares": compares, "bound_ms": ms,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= compares / FP32_OPS_PER_S else "operations"}
+
     b5_moments = {
         "shape": [DISC_D, DISC_D, DISC_BUCKETS, DISC_SLOTS],
+        "launch_shape": moments_join_shape(DISC_SLOTS),
         "compaction_device_ms": graph_ms(mom_compact, reps=10),
         "join_device_ms": graph_ms(mom_join, reps=5, replays=3),
         "wrapper_ms": cuda_ms(lambda: tk.allpairs_moments(*mi, *mi),
                               warmup=1, iters=3),
         "plain_ms": "not measured (the plain join at this shape holds "
                     "(64, 4096, 1024) intermediates per chunk pair)",
-        "bytes": mom_bytes, "compares": mom_compares,
-        "bound_ms": max(mom_bytes / HBM_BYTES_PER_S,
-                        mom_compares / FP32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if mom_bytes / HBM_BYTES_PER_S
-        >= mom_compares / FP32_OPS_PER_S else "operations"}
+        **moments_bound(mi[0], mi[0], mom_o.numel())}
     b5_moments["device_ms"] = (b5_moments["compaction_device_ms"]
                                + b5_moments["join_device_ms"])
-    del mom_o, moments, cm, cm_o, mi
+    # the 64-row query launch (64 x 4096, every tile joined: no mirror)
+    # apart from the square one: the query rows compacted on their own
+    mq = tuple(x[:64].contiguous() for x in mi)
+    cq = tk.allpairs_compact(*mq)
+    mq_o = torch.empty((64, DISC_D, len(MOMENT_CHANNELS)), device=dev)
+    mq_join = raw("intersect_estimate.intersect_estimate", "_lib",
+                  "repro_allpairs_join", cq[0].data_ptr(), cq[1].data_ptr(),
+                  cm[0].data_ptr(), cm[1].data_ptr(), mq_o.data_ptr(), 64,
+                  DISC_D, DISC_BUCKETS, DISC_SLOTS, 1)
+    mq_join()
+    assert_bits(mq_o, mom_o[:64], "moments query launch vs the square's rows")
+    b5_moments["query_64_rows"] = {
+        "shape": [64, DISC_D, DISC_BUCKETS, DISC_SLOTS],
+        "join_device_ms": graph_ms(mq_join, reps=10),
+        "wrapper_ms": cuda_ms(lambda: tk.allpairs_moments(*mq, *mi),
+                              warmup=1, iters=5),
+        **moments_bound(mq[0], mi[0], mq_o.numel())}
+    del mom_o, moments, cm, cm_o, mi, mq, cq, mq_o
     # B2 at the union positions' shape (512, 2^18), k = m + 1: device-only,
     # through the wrapper, its plain version and torch.kthvalue
     q_o = torch.empty(BLOCK_ROWS, device=dev)

@@ -54,22 +54,55 @@
 //   slots into shared memory (a shuffle scan for the positions), then
 //   place each entry at its rank.  One corpus compacted once serves both
 //   sides of all_pairs.
-// - allpairs_join: one block a 64 x 64 output tile; its warps take the
-//   buckets in turn (warp w: w, w + W, ...), each into sums of its own in
-//   shared memory, so no warp waits for another.  Per bucket a warp holds
-//   the A list's first 64 entries in registers (two a lane) and stages the
-//   B list with cp.async into a ring of two, one bucket ahead of the
-//   compares (the counts two ahead).  It is a sort-merge join: each lane
-//   finds its A id in the id-sorted B list by binary search, which gives
-//   the run of equal ids it matches, and the matched pairs are then dealt
-//   out one a lane, in list order, so the work is the matches (~3% of the
-//   slot pairs a bucket shares at the serving widths) and a log of the
-//   list, not every pair.  Pairs that fall on one cell in one batch of 32
-//   add one at a time, in pair order.  No float atomics: each warp sums a
-//   cell in ascending bucket order and within a bucket in ascending id
+// - allpairs_join, plain mode: one block a 64 x 64 output tile; its warps
+//   take the buckets in turn (warp w: w, w + W, ...), each into sums of
+//   its own in shared memory, so no warp waits for another.  Per bucket a
+//   warp holds the A list's first 64 entries in registers (two a lane) and
+//   stages the B list with cp.async into a ring of two, one bucket ahead
+//   of the compares (the counts two ahead).  It is a sort-merge join: each
+//   lane finds its A id in the id-sorted B list by binary search, which
+//   gives the run of equal ids it matches, and the matched pairs are then
+//   dealt out one a lane, in list order, so the work is the matches (~3%
+//   of the slot pairs a bucket shares at the serving widths) and a log of
+//   the list, not every pair.  Pairs that fall on one cell in one batch of
+//   32 add one at a time, in pair order.  No float atomics: each warp sums
+//   a cell in ascending bucket order and within a bucket in ascending id
 //   order, the warps' sums are added in warp order, so a cell's bits
 //   depend on its two rows alone (the same on every launch, and whatever
 //   other rows the corpora hold).
+// - allpairs_join, moments mode (six sums a cell): one block of 16 warps a
+//   64 x 64 tile, and each cell owned by one warp.  Warp w owns the A rows
+//   w, w + 16, w + 32, w + 48 of the tile and keeps their cells' sums in
+//   a region of shared memory of its own, so no two warps write one cell
+//   and nothing is summed across warps.
+//   - Batches: the buckets go 16 at a time, one barrier a batch.  Warp v
+//     stages bucket v's A and B lists with cp.async into one of two
+//     buffers (each side's lists of the batch end to end, 1024 entries at
+//     most; a list that does not fit is read from global memory) a batch
+//     ahead of the join, and the counts two batches ahead.  After the
+//     batch's join, warp v bins bucket v's A entries of the next batch by
+//     owner warp (row % 16), each owner's in list order (a match-any vote
+//     a 32 entries), so each entry is looked at once.
+//   - The join of a batch, per warp: its entries in (bucket, id) order, 32
+//     at a time.  Each lane finds its entry's run of equal ids in the
+//     bucket's B list by binary search; the matched pairs, in (entry,
+//     run) order, are dealt out 32 at a time, one a lane, and added to
+//     their cells.  The pairs of one entry fall on distinct cells and add
+//     at once; pairs of several entries that share a cell (a vote on the
+//     cell's bits) add in rounds, in lane order.
+//   - Order: a row holds an id once, so a cell takes at most one pair an
+//     id and adds its pairs in ascending (bucket, id) order, one at a
+//     time: its bits depend on its two rows alone, whatever D1, D2 and
+//     the other rows are.
+//   - Mirror: when both sides are the same compacted corpus (the
+//     correlation matrix), one block a tile pair ta <= tb (the diagonal
+//     first) also writes tile (tb, ta).  Its cell (b, a) holds the same
+//     pairs in the same order with x and y swapped, and the products and
+//     fmaxf commute, so the mirrored channels (n, sum_y, sum_x, xy,
+//     sum_y2, sum_x2) are the bits a direct launch would give.
+//   The sums (96 KiB) and the lists hold an SM to one block of 16 warps;
+//   the join waits on the SM's shuffles and shared-memory accesses (the
+//   staging, the binning, the search, the deal), not on bytes.
 // Sums run in another order than the reference's, so estimates agree
 // within float32 summation tolerance, not bit for bit.
 #include <cuda_runtime.h>
@@ -409,7 +442,6 @@ constexpr int TILE = 64;                  // output tile and compaction tile
 constexpr int AP_WARPS = 8;               // compaction: a warp a bucket
 constexpr int AP_THREADS = 32 * AP_WARPS;
 constexpr int SB = 64;                    // B entries staged a bucket
-constexpr int UNR = 4;                    // B entries compared per vote
 constexpr int MAX_S = 16;
 
 // entries (T, B, TILE*S) int4, counts (T, B): grid (ceil(B / 8), T);
@@ -469,21 +501,10 @@ allpairs_compact_kernel(const int* __restrict__ idx, const float* __restrict__ v
   if (lane == 0) counts[t * B + b] = n;
 }
 
-template <bool MOMENTS>
 __device__ __forceinline__ void add_pair(float* a, int4 e, int4 f) {
-  constexpr int CS = TILE * TILE;           // channel stride of the sums
   const float av = __int_as_float(e.z), bv = __int_as_float(f.z);
   const float inv = fmaxf(__int_as_float(e.w), __int_as_float(f.w));
-  if (MOMENTS) {
-    a[0] = __fadd_rn(a[0], inv);
-    a[CS] = __fadd_rn(a[CS], __fmul_rn(av, inv));
-    a[2 * CS] = __fadd_rn(a[2 * CS], __fmul_rn(bv, inv));
-    a[3 * CS] = __fadd_rn(a[3 * CS], __fmul_rn(__fmul_rn(av, bv), inv));
-    a[4 * CS] = __fadd_rn(a[4 * CS], __fmul_rn(__fmul_rn(av, av), inv));
-    a[5 * CS] = __fadd_rn(a[5 * CS], __fmul_rn(__fmul_rn(bv, bv), inv));
-  } else {
-    a[0] = __fadd_rn(a[0], __fmul_rn(__fmul_rn(av, bv), inv));
-  }
+  a[0] = __fadd_rn(a[0], __fmul_rn(__fmul_rn(av, bv), inv));
 }
 
 // Up to 64 A entries, two a lane (x0 and x1, valid v0 and v1; x1 the later
@@ -497,7 +518,6 @@ __device__ __forceinline__ void add_pair(float* a, int4 e, int4 f) {
 // lane busy however the runs are spread.  Pairs of one batch that fall on
 // one cell add one at a time, in pair order.  A cell's pairs in a bucket
 // are thus added in ascending id order whatever else the tiles hold.
-template <bool MOMENTS>
 __device__ __forceinline__ void join_windows(float* acc, int4 x0, bool v0,
                                              int4 x1, bool v1, const int4* bl,
                                              int nb) {
@@ -559,10 +579,10 @@ __device__ __forceinline__ void join_windows(float* acc, int4 x0, bool v0,
       peers &= (cell >> k) & 1 ? m : ~m;
     }
     const bool solo = peers == (1u << lane);
-    if (act && solo) add_pair<MOMENTS>(acc + cell, a, f);
+    if (act && solo) add_pair(acc + cell, a, f);
     for (unsigned r = __ballot_sync(FULL, act && !solo); r; r &= r - 1) {
       __syncwarp();
-      if (lane == __ffs(r) - 1) add_pair<MOMENTS>(acc + cell, a, f);
+      if (lane == __ffs(r) - 1) add_pair(acc + cell, a, f);
     }
     __syncwarp();
   }
@@ -575,29 +595,21 @@ struct Lists {
   int4 e0, e1;
 };
 
-template <bool MOMENTS>
-struct JoinShape {
-  static constexpr int WARPS = MOMENTS ? 2 : 4;   // buckets in parallel
-  static constexpr int NCH = MOMENTS ? 6 : 1;
-  static constexpr size_t smem() {
-    return (size_t)WARPS * 2 * SB * sizeof(int4) +
-           (size_t)WARPS * NCH * TILE * TILE * sizeof(float);
-  }
-};
+constexpr int J_WARPS = 4;                // plain join: buckets in parallel
+constexpr size_t J_SMEM = (size_t)J_WARPS * 2 * SB * sizeof(int4) +
+                          (size_t)J_WARPS * TILE * TILE * sizeof(float);
 
-// grid (ceil(D2 / TILE), ceil(D1 / TILE)), one block of WARPS warps a
-// TILE x TILE output tile; dynamic shared memory: each warp's ring of two
-// staged B lists (SB entries each), then each warp's sums
-// [channel][A row][B row].
-template <bool MOMENTS>
-__global__ void __launch_bounds__(32 * JoinShape<MOMENTS>::WARPS)
+// The plain join.  grid (ceil(D2 / TILE), ceil(D1 / TILE)), one block of
+// J_WARPS warps a TILE x TILE output tile; dynamic shared memory: each
+// warp's ring of two staged B lists (SB entries each), then each warp's
+// sums [A row][B row].
+__global__ void __launch_bounds__(32 * J_WARPS)
 allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
                      const int4* __restrict__ eb, const int* __restrict__ cb,
                      float* __restrict__ out, int64_t D1, int64_t D2, int B,
                      int S) {
-  constexpr int W = JoinShape<MOMENTS>::WARPS;
-  constexpr int NCH = JoinShape<MOMENTS>::NCH;
-  constexpr int SUMS = NCH * TILE * TILE;   // floats of one warp's sums
+  constexpr int W = J_WARPS;
+  constexpr int SUMS = TILE * TILE;         // floats of one warp's sums
   extern __shared__ int4 ap_smem[];
   float* sums = reinterpret_cast<float*>(ap_smem + W * 2 * SB);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -654,9 +666,9 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
       const int4 x0 = ia == 0 ? cur.e0 : (v0 ? gak[ia + lane] : none);
       const int4 x1 = ia == 0 ? cur.e1 : (v1 ? gak[ia + 32 + lane] : none);
       if (nb <= SB)   // the common case: the whole B list is staged
-        join_windows<MOMENTS>(acc, x0, v0, x1, v1, sbk, nb);
+        join_windows(acc, x0, v0, x1, v1, sbk, nb);
       else
-        join_windows<MOMENTS>(acc, x0, v0, x1, v1, gbk, nb);
+        join_windows(acc, x0, v0, x1, v1, gbk, nb);
     }
     __syncwarp();                           // the slot is refilled next
   };
@@ -676,31 +688,405 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
   // each cell: the warps' sums added in warp order
   const int64_t a0 = ta * TILE, b0 = tb * TILE;
   for (int x = threadIdx.x; x < SUMS; x += 32 * W) {
-    const int c = x % NCH, rest = x / NCH;
-    const int col = rest % TILE, r = rest / TILE;
+    const int col = x % TILE, r = x / TILE;
     const int64_t a = a0 + r, bcol = b0 + col;
     if (a >= D1 || bcol >= D2) continue;
-    const int k = (c * TILE + r) * TILE + col;
-    float v = sums[k];
+    float v = sums[x];
 #pragma unroll
-    for (int w = 1; w < W; ++w) v = __fadd_rn(v, sums[w * SUMS + k]);
-    out[(a * D2 + bcol) * NCH + c] = v;
+    for (int w = 1; w < W; ++w) v = __fadd_rn(v, sums[w * SUMS + x]);
+    out[a * D2 + bcol] = v;
   }
 }
 
-template <bool MOMENTS>
 int launch_join(const int4* ea, const int* ca, const int4* eb, const int* cb,
                 float* out, int64_t D1, int64_t D2, int B, int S,
                 cudaStream_t s) {
-  constexpr size_t smem = JoinShape<MOMENTS>::smem();
   const cudaError_t e = cudaFuncSetAttribute(
-      allpairs_join_kernel<MOMENTS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      allpairs_join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)J_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((D2 + TILE - 1) / TILE),
                   (unsigned)((D1 + TILE - 1) / TILE));
-  allpairs_join_kernel<MOMENTS><<<grid, 32 * JoinShape<MOMENTS>::WARPS, smem,
-                                  s>>>(ea, ca, eb, cb, out, D1, D2, B, S);
+  allpairs_join_kernel<<<grid, 32 * J_WARPS, J_SMEM, s>>>(ea, ca, eb, cb,
+                                                          out, D1, D2, B, S);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- moments join
+constexpr int M_WARPS = 16;               // warps a block = buckets a batch
+constexpr int M_THREADS = 32 * M_WARPS;
+constexpr int M_ROWS = TILE / M_WARPS;    // A rows a warp owns
+constexpr int M_CAP = M_WARPS * 64;       // entries staged a side and batch
+constexpr int NCH = 6;                    // MOMENT_CHANNELS
+// floats of a warp's sums: [row q][B row][channel], and 6 more, so that
+// the warps' regions start 6 banks apart
+constexpr int M_WSUMS = M_ROWS * TILE * NCH + NCH;
+constexpr int M_CELLS = M_WARPS * M_WARPS;     // (owner warp, bucket) bins
+// a run's place, as one word: its index (in the staged list, or in the
+// tile's global lists), the entry's row q at bits 28-29, the staged flag
+constexpr int M_INDEX = (1 << 28) - 1;
+constexpr int M_STAGED = 1 << 30;
+
+// Dynamic shared memory of the moments join at S slots: the warps' sums,
+// and for two batches each: the lists (A then B) and their layout, the
+// counts, and the bins: for each owner warp and bucket, the places of the
+// owner's rows' entries in the bucket's A list (at most M_ROWS * S), and
+// their count.
+__host__ __device__ constexpr size_t moments_smem(int S) {
+  return (size_t)(M_WARPS * M_WSUMS + 3) / 4 * sizeof(int4) +
+         (size_t)2 * (2 * M_CAP + M_WARPS) * sizeof(int4) +
+         2 * 2 * M_WARPS * sizeof(int) +
+         (size_t)2 * M_CELLS * (1 + M_ROWS * S) * sizeof(unsigned short);
+}
+
+// Where warp w keeps its row q's cell with B row rb: six channels side by
+// side.  A lane of a deal reads and writes them as three 8-byte words (its
+// address once); 16 lanes on consecutive B rows meet no bank twice, nor do
+// the epilogue's reads along a row or, as the warps' regions start 6
+// banks apart, along a column.
+__device__ __forceinline__ float2* cell_at(float* sums, int w, int q,
+                                           int rb) {
+  return reinterpret_cast<float2*>(sums + w * M_WSUMS +
+                                   (q * TILE + rb) * NCH);
+}
+
+// One pair's six Eq. (9) terms (MOMENT_CHANNELS order, x the A side) into
+// its cell's sums; each product and sum correctly rounded.
+__device__ __forceinline__ void add_moments(float2* cell, float av, float ai,
+                                            float bv, float bi) {
+  const float inv = fmaxf(ai, bi);
+  float2 s0 = cell[0], s1 = cell[1], s2 = cell[2];
+  s0.x = __fadd_rn(s0.x, inv);
+  s0.y = __fadd_rn(s0.y, __fmul_rn(av, inv));
+  s1.x = __fadd_rn(s1.x, __fmul_rn(bv, inv));
+  s1.y = __fadd_rn(s1.y, __fmul_rn(__fmul_rn(av, bv), inv));
+  s2.x = __fadd_rn(s2.x, __fmul_rn(__fmul_rn(av, av), inv));
+  s2.y = __fadd_rn(s2.y, __fmul_rn(__fmul_rn(bv, bv), inv));
+  cell[0] = s0;
+  cell[1] = s1;
+  cell[2] = s2;
+}
+
+// The first entry of an id-sorted list of n entries whose id is not below
+// `id` (*at), and the length of the run of `id` there (0 if absent).
+__device__ __forceinline__ int find_run(const int4* list, int n, int id,
+                                        int* at) {
+  const int* ids = reinterpret_cast<const int*>(list);
+  int pos = 0;
+  for (int st = n ? 1 << (31 - __clz(n)) : 0; st > 0; st >>= 1)
+    if (pos + st <= n && ids[4 * (pos + st - 1)] < id) pos += st;
+  *at = pos;
+  return pos < n && ids[4 * pos] == id ? ids[4 * pos + 1] >> 8 : 0;
+}
+
+// A batch's lists as lane j < 16 holds them for bucket j: the counts, and
+// the places of the staged lists in the batch buffer (each side's lists
+// end to end; a list that would end past M_CAP is not staged).
+struct BatchLists {
+  int na, nb, oa, ob;
+};
+__device__ __forceinline__ BatchLists batch_lists(const int* c) {
+  const int lane = threadIdx.x & 31;
+  BatchLists l;
+  l.na = lane < M_WARPS ? c[lane] : 0;
+  l.nb = lane < M_WARPS ? c[M_WARPS + lane] : 0;
+  int ia = l.na, ib = l.nb;
+#pragma unroll
+  for (int off = 1; off < M_WARPS; off <<= 1) {
+    const int ta = __shfl_up_sync(FULL, ia, off);
+    const int tb = __shfl_up_sync(FULL, ib, off);
+    if (lane >= off) {
+      ia += ta;
+      ib += tb;
+    }
+  }
+  l.oa = ia - l.na;
+  l.ob = ib - l.nb;
+  return l;
+}
+
+// Block L of the self-join's T (T + 1) / 2 tiles ta <= tb: the T diagonal
+// tiles first, then the others, row ta by row.
+__device__ __forceinline__ void tile_pair(int64_t L, int64_t T, int64_t* ta,
+                                          int64_t* tb) {
+  if (L < T) {
+    *ta = *tb = L;
+    return;
+  }
+  const int64_t R = T * (T - 1) / 2 - 1 - (L - T);   // counted from the end
+  int64_t k = (int64_t)((sqrt(8.0 * (double)R + 1.0) - 1.0) * 0.5);
+  while (k * (k + 1) / 2 > R) --k;
+  while ((k + 1) * (k + 2) / 2 <= R) ++k;
+  *ta = T - 2 - k;
+  *tb = T - 1 - (R - k * (k + 1) / 2);
+}
+
+// The moments join.  Without MIRROR, grid (ceil(D2 / TILE), ceil(D1 /
+// TILE)), a block a TILE x TILE output tile; with MIRROR (both sides the
+// same compacted corpus), one block a tile pair ta <= tb, which also
+// writes tile (tb, ta).  M_WARPS warps a block; warp w owns the A rows
+// w, w + M_WARPS, ... of the tile and sums their cells.
+template <bool MIRROR>
+__global__ void __launch_bounds__(M_THREADS, 1)
+moments_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
+                    const int4* __restrict__ eb, const int* __restrict__ cb,
+                    float* __restrict__ out, int64_t D1, int64_t D2, int B,
+                    int S) {
+  extern __shared__ int4 mj_smem[];
+  float* sums = reinterpret_cast<float*>(mj_smem);
+  int4* lists = mj_smem + (M_WARPS * M_WSUMS + 3) / 4;   // [2][A, B][M_CAP]
+  int4* lay = lists + 2 * 2 * M_CAP;        // [2][bucket]: (na, nb, oa, ob)
+  int* cnt = reinterpret_cast<int*>(lay + 2 * M_WARPS);
+  unsigned short* bin_n =                    // [2][owner][bucket]
+      reinterpret_cast<unsigned short*>(cnt + 2 * 2 * M_WARPS);
+  unsigned short* bin = bin_n + 2 * M_CELLS;
+  const int per_bin = M_ROWS * S;           // [2][owner][bucket][per_bin]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int64_t ta, tb;
+  if (MIRROR) {
+    tile_pair(blockIdx.x, (D1 + TILE - 1) / TILE, &ta, &tb);
+  } else {
+    ta = blockIdx.y;
+    tb = blockIdx.x;
+  }
+  const int cap = TILE * S;
+  const int4* ga = ea + ta * B * (int64_t)cap;
+  const int4* gb = eb + tb * B * (int64_t)cap;
+  const int* na_of = ca + ta * B;
+  const int* nb_of = cb + tb * B;
+  const int nbatch = (B + M_WARPS - 1) / M_WARPS;
+
+  for (int i = threadIdx.x; i < M_WARPS * M_WSUMS; i += M_THREADS)
+    sums[i] = 0.0f;
+
+  // batch k's counts (lanes 0..15 the A lists', 16..31 the B lists') into
+  // slot k & 1, two batches ahead of the join; warp 0
+  auto load_counts = [&](int k) {
+    if (warp != 0) return;
+    const int b = k * M_WARPS + (lane & (M_WARPS - 1));
+    int* dst = cnt + (k & 1) * 2 * M_WARPS + lane;
+    if (b < B)
+      sketch::cp_async4(dst, (lane < M_WARPS ? na_of : nb_of) + b);
+    else
+      *dst = 0;
+  };
+  // warp v stages bucket v's lists of batch k into buffer k & 1; its A
+  // list's count and place there stay for bin_batch(k), and warp 0 writes
+  // the batch's layout for join_batch(k)
+  int my_na = 0, my_oa = 0;
+  auto stage = [&](int k) {
+    const BatchLists l = batch_lists(cnt + (k & 1) * 2 * M_WARPS);
+    if (warp == 0 && lane < M_WARPS)
+      lay[(k & 1) * M_WARPS + lane] = make_int4(l.na, l.nb, l.oa, l.ob);
+    my_na = __shfl_sync(FULL, l.na, warp);
+    my_oa = __shfl_sync(FULL, l.oa, warp);
+    const int nb = __shfl_sync(FULL, l.nb, warp);
+    const int ob = __shfl_sync(FULL, l.ob, warp);
+    const int64_t src = ((int64_t)k * M_WARPS + warp) * cap;
+    int4* buf = lists + (k & 1) * 2 * M_CAP;
+    if (my_oa + my_na <= M_CAP)
+      for (int i = lane; i < my_na; i += 32)
+        sketch::cp_async16(buf + my_oa + i, ga + src + i);
+    if (ob + nb <= M_CAP)
+      for (int i = lane; i < nb; i += 32)
+        sketch::cp_async16(buf + M_CAP + ob + i, gb + src + i);
+  };
+  // warp v bins bucket v's A entries of batch k by owner warp (row %
+  // M_WARPS), each owner's in list order, into bins k & 1.  It reads the
+  // rows from the list it staged itself (its own copies waited for).
+  auto bin_batch = [&](int k) {
+    const int na = my_na;
+    const bool staged = my_oa + na <= M_CAP;
+    const int* rows = staged
+        ? &lists[(k & 1) * 2 * M_CAP + my_oa].y
+        : &ga[((int64_t)k * M_WARPS + warp) * cap].y;
+    unsigned short* n_of = bin_n + (k & 1) * M_CELLS + warp;  // [owner * 16]
+    unsigned short* to = bin + ((size_t)(k & 1) * M_CELLS + warp) * per_bin;
+    sketch::cp_async_wait_all();
+    if (lane < M_WARPS) n_of[lane * M_WARPS] = 0;
+    __syncwarp();
+    for (int i0 = 0; i0 < na; i0 += 32) {
+      const int i = i0 + lane;
+      const int o = i < na ? rows[4 * i] & (M_WARPS - 1) : M_WARPS + lane;
+      const unsigned peers = __match_any_sync(FULL, o);
+      const int base = i < na ? n_of[o * M_WARPS] : 0;
+      if (i < na)
+        to[(size_t)o * M_WARPS * per_bin + base + __popc(peers & below)] =
+            (unsigned short)i;
+      __syncwarp();
+      if (i < na && (peers & below) == 0)
+        n_of[o * M_WARPS] = (unsigned short)(base + __popc(peers));
+      __syncwarp();
+    }
+  };
+
+  // The buckets of batch k against this warp's rows.
+  auto join_batch = [&](int k) {
+    const int4* sa = lists + (k & 1) * 2 * M_CAP;
+    const int4* sb = sa + M_CAP;
+    const int4* lk = lay + (k & 1) * M_WARPS;
+    const int64_t b0 = (int64_t)k * M_WARPS;
+    const unsigned short* n_of = bin_n + (k & 1) * M_CELLS + warp * M_WARPS;
+    const unsigned short* mine =
+        bin + ((size_t)(k & 1) * M_CELLS + warp * M_WARPS) * per_bin;
+    // this warp's entries, bucket by bucket: lane v < 16 holds bucket v's
+    // count; scanned, the buckets' first places in the warp's sequence
+    const int own = lane < M_WARPS ? n_of[lane] : 0;
+    int incl = own;
+#pragma unroll
+    for (int off = 1; off < M_WARPS; off <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int n = __shfl_sync(FULL, incl, M_WARPS - 1);
+    const int excl = incl - own;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      // lane: the (c0 + lane)-th entry; its bucket j is the number of
+      // buckets whose entries end at or before it
+      const int g = c0 + lane;
+      int j = 0;
+#pragma unroll
+      for (int st = M_WARPS / 2; st > 0; st >>= 1)
+        if (__shfl_sync(FULL, incl, j + st - 1) <= g) j += st;
+      const int first = __shfl_sync(FULL, excl, j);
+      int4 e = make_int4(0, 0, 0, 0);
+      int at = 0, len = 0, where = 0;
+      if (g < n) {
+        const int4 L = lk[j];                 // (na, nb, oa, ob)
+        const int i = mine[j * per_bin + g - first];
+        e = L.z + L.x <= M_CAP ? sa[L.z + i] : ga[(b0 + j) * cap + i];
+        if (L.w + L.y <= M_CAP) {
+          len = find_run(sb + L.w, L.y, e.x, &at);
+          where = (L.w + at) | M_STAGED;
+        } else {
+          len = find_run(gb + (b0 + j) * cap, L.y, e.x, &at);
+          where = (int)((b0 + j) * cap + at);
+        }
+        where |= (e.y & 0xFF) / M_WARPS << 28;   // which of the warp's rows
+      }
+      if (!__any_sync(FULL, len > 0)) continue;
+      // the matched pairs, in (entry, run) order, dealt out 32 at a time,
+      // one a lane
+      int in = len;                           // pairs of lanes <= this one
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(FULL, in, off);
+        if (lane >= off) in += t;
+      }
+      const int total = __shfl_sync(FULL, in, 31);
+      const int start = in - len;
+      for (int base = 0; base < total; base += 32) {
+        const int t = base + lane;            // this lane's pair
+        const bool act = t < total;
+        // the entries whose pairs fall in this window of 32
+        const unsigned win =
+            __ballot_sync(FULL, len > 0 && start < base + 32 && in > base);
+        const bool one = (win & (win - 1)) == 0;
+        int src = __ffs(win) - 1;             // the lane it comes from
+        if (!one) {
+          src = 0;
+#pragma unroll
+          for (int st = 16; st > 0; st >>= 1)
+            if (__shfl_sync(FULL, in, src + st - 1) <= t) src += st;
+          src = min(src, 31);
+        }
+        const int u = t - __shfl_sync(FULL, start, src);
+        const int w = __shfl_sync(FULL, where, src);
+        const int qs = (w >> 28) & (M_ROWS - 1);
+        const float av = __int_as_float(__shfl_sync(FULL, e.z, src));
+        const float ai = __int_as_float(__shfl_sync(FULL, e.w, src));
+        int4 f = make_int4(0, 0, 0, 0);
+        if (act)
+          f = w & M_STAGED ? sb[(w & M_INDEX) + u] : gb[(w & M_INDEX) + u];
+        const int rb = f.y & 0xFF;
+        const float bv = __int_as_float(f.z), bi = __int_as_float(f.w);
+        // the pairs of one entry fall on distinct cells; those of several
+        // may share one: a cell's pairs add in rounds, in lane order
+        int rank = 0;
+        if (!one) {
+          const int key = qs << 6 | rb;
+          unsigned peers = __ballot_sync(FULL, act);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const unsigned m = __ballot_sync(FULL, (key >> b) & 1);
+            peers &= (key >> b) & 1 ? m : ~m;
+          }
+          rank = act ? __popc(peers & below) : 0;
+        }
+        float2* cell = cell_at(sums, warp, qs, rb);
+        for (int rd = 0;; ++rd) {
+          if (act && rank == rd) add_moments(cell, av, ai, bv, bi);
+          __syncwarp();
+          if (!__any_sync(FULL, rank > rd)) break;
+        }
+      }
+    }
+  };
+
+  load_counts(0);
+  load_counts(1);
+  sketch::cp_async_commit();
+  sketch::cp_async_wait_all();
+  __syncthreads();
+  stage(0);
+  sketch::cp_async_commit();
+  bin_batch(0);
+  for (int k = 0; k < nbatch; ++k) {
+    // batch k staged and binned, batch k + 1's counts landed; every warp
+    // is done with batch k - 1, whose buffers are refilled, and with the
+    // counts of batch k, whose slot batch k + 2's take
+    sketch::cp_async_wait_all();
+    __syncthreads();
+    const bool next = k + 1 < nbatch;
+    if (next) stage(k + 1);
+    if (k + 2 < nbatch) load_counts(k + 2);
+    sketch::cp_async_commit();
+    join_batch(k);
+    if (next) bin_batch(k + 1);
+  }
+  __syncthreads();                          // every warp's sums are final
+
+  // the tile, a row of 64 cells x 6 channels at a time
+  const int64_t a0 = ta * TILE, b0 = tb * TILE;
+  constexpr int ROW = TILE * NCH;
+  for (int x = threadIdx.x; x < TILE * ROW; x += M_THREADS) {
+    const int ra = x / ROW, rem = x - ra * ROW;
+    if (a0 + ra < D1 && b0 + rem / NCH < D2)
+      out[((a0 + ra) * D2 + b0) * NCH + rem] =
+          sums[(ra % M_WARPS) * M_WSUMS + (ra / M_WARPS) * ROW + rem];
+  }
+  if (MIRROR && ta != tb) {
+    // the mirror tile (tb, ta): cell (b, a) holds the pairs of cell (a,
+    // b) in the same order with x and y swapped, so its channels are (n,
+    // sum_y, sum_x, xy, sum_y2, sum_x2) of (a, b)
+    for (int x = threadIdx.x; x < TILE * ROW; x += M_THREADS) {
+      const int col = x / ROW, rem = x - col * ROW;
+      const int ra = rem / NCH, ch = rem - ra * NCH;
+      const int sch = ch == 1 ? 2 : ch == 2 ? 1 : ch == 4 ? 5 : ch == 5 ? 4
+                                                                        : ch;
+      if (b0 + col < D1 && a0 + ra < D2)
+        out[((b0 + col) * D2 + a0) * NCH + rem] =
+            sums[(ra % M_WARPS) * M_WSUMS + (ra / M_WARPS) * ROW +
+                 col * NCH + sch];
+    }
+  }
+}
+
+template <bool MIRROR>
+int launch_moments(const int4* ea, const int* ca, const int4* eb,
+                   const int* cb, float* out, int64_t D1, int64_t D2, int B,
+                   int S, cudaStream_t s) {
+  const size_t smem = moments_smem(S);
+  const cudaError_t e = cudaFuncSetAttribute(
+      moments_join_kernel<MIRROR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t T1 = (D1 + TILE - 1) / TILE, T2 = (D2 + TILE - 1) / TILE;
+  const dim3 grid = MIRROR ? dim3((unsigned)(T1 * (T1 + 1) / 2))
+                           : dim3((unsigned)T2, (unsigned)T1);
+  moments_join_kernel<MIRROR><<<grid, M_THREADS, smem, s>>>(
+      ea, ca, eb, cb, out, D1, D2, B, S);
   return (int)cudaGetLastError();
 }
 
@@ -751,7 +1137,9 @@ int repro_allpairs_compact(const int* idx, const float* val, const float* p,
 }
 
 // Join two compacted corpora -> out (D1, D2) f32, or (D1, D2, 6) when
-// moments != 0.
+// moments != 0.  The moments join of a corpus with itself (the same
+// entries and counts on both sides, D1 == D2) computes the tiles ta <= tb
+// and mirrors them.
 int repro_allpairs_join(const void* a_entries, const int* a_counts,
                         const void* b_entries, const int* b_counts, float* out,
                         int64_t D1, int64_t D2, int B, int S, int moments,
@@ -761,9 +1149,36 @@ int repro_allpairs_join(const void* a_entries, const int* a_counts,
   const int4* ea = static_cast<const int4*>(a_entries);
   const int4* eb = static_cast<const int4*>(b_entries);
   cudaStream_t s = (cudaStream_t)stream;
-  if (moments)
-    return launch_join<true>(ea, a_counts, eb, b_counts, out, D1, D2, B, S, s);
-  return launch_join<false>(ea, a_counts, eb, b_counts, out, D1, D2, B, S, s);
+  if (!moments)
+    return launch_join(ea, a_counts, eb, b_counts, out, D1, D2, B, S, s);
+  if ((int64_t)B * TILE * S > M_INDEX) return (int)cudaErrorInvalidValue;
+  if (ea == eb && a_counts == b_counts && D1 == D2)
+    return launch_moments<true>(ea, a_counts, eb, b_counts, out, D1, D2, B,
+                                S, s);
+  return launch_moments<false>(ea, a_counts, eb, b_counts, out, D1, D2, B, S,
+                               s);
+}
+
+// The moments join's launch shape at S slots on the current device: its
+// blocks an SM (the occupancy calculator's), warps a block, dynamic shared
+// memory a block and registers a thread.
+int repro_allpairs_moments_shape(int S, int* blocks_per_sm, int* warps,
+                                 int* smem_bytes, int* regs) {
+  if (S <= 0 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  const size_t smem = moments_smem(S);
+  cudaError_t e = cudaFuncSetAttribute(
+      moments_join_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, moments_join_kernel<true>, M_THREADS, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, moments_join_kernel<true>);
+  if (e != cudaSuccess) return (int)e;
+  *warps = M_WARPS;
+  *smem_bytes = (int)smem;
+  *regs = attr.numRegs;
+  return 0;
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@
   co-moment channels with ``moments=True``.  On the card it compacts each
   corpus to its occupied slots (:func:`allpairs_compact`, once when both
   sides are the same corpus) and joins the compacted lists (its own
-  count covers the join launch).
+  count covers the join launch).  The moments join of a corpus with
+  itself computes the tiles on and above the diagonal and mirrors them
+  (the same bits as a join with a copy of the corpus).
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  Each wrapper counts its launches in ``.launches``.
@@ -32,6 +34,7 @@ _SIGNATURES = {
     "repro_allpairs_compact": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _P],
     "repro_allpairs_join": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                             _P],
+    "repro_allpairs_moments_shape": [_INT, _P, _P, _P, _P],
 }
 # the all-pairs kernels hold a bucket's entries of 64 rows, at most 64 x 16
 # a side, in shared memory
@@ -158,6 +161,19 @@ def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
     _build.check(err, "allpairs_estimate")
     allpairs_estimate.launches += 1
     return out
+
+
+def moments_join_shape(slots: int) -> dict:
+    """The moments join's launch shape on the current card at ``slots``
+    slots a bucket: blocks and warps an SM (the occupancy calculator's),
+    dynamic shared memory a block and registers a thread."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.check(_lib().repro_allpairs_moments_shape(
+        slots, *(ctypes.addressof(v) for v in vals)), "moments_join_shape")
+    blocks, warps, smem, regs = (v.value for v in vals)
+    return {"blocks_per_sm": blocks, "warps_per_block": warps,
+            "warps_per_sm": blocks * warps, "smem_bytes_per_block": smem,
+            "registers_per_thread": regs}
 
 
 intersect_estimate.launches = 0

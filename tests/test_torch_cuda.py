@@ -1063,6 +1063,116 @@ def test_allpairs_moments_at_1024_buckets(cuda_device, d2):
     assert_bits(full[:64], got)
 
 
+# a mirrored cell's channels: (n, sum_y, sum_x, xy, sum_y2, sum_x2)
+_SWAP_XY = [0, 2, 1, 3, 5, 4]
+
+
+def _moments_inputs(device, D, seed):
+    """A combined-sketch corpus (m = 512) bucketized as the correlation
+    matrix lays it (1024 buckets x 4 slots, inclusion probabilities)."""
+    from repro_torch.core.join_correlation import _bucketized_moment_inputs
+    rng = np.random.default_rng(seed)
+    S = tc.combined_sketch_corpus(sparse_block(rng, D, 65536, 3000), 512, 7,
+                                  backend="kernel", device=device)
+    return _bucketized_moment_inputs(S, 1024, 4)[:3]
+
+
+def test_allpairs_moments_mirror_equals_a_copy(cuda_device):
+    """The self-join (one compacted corpus on both sides: the tiles on
+    and above the diagonal, mirrored) bit-equal to the join with a copy
+    of the corpus on the B side (every tile joined) at a ragged D, and
+    out[a, b] equal to out[b, a] with x and y swapped."""
+    a = _moments_inputs(cuda_device, 300, 21)
+    copy = tuple(x.clone() for x in a)
+    got = tk.allpairs_moments(*a, *a)
+    assert_bits(got, tk.allpairs_moments(*a, *copy))
+    assert_bits(got, got.transpose(0, 1)[..., _SWAP_XY])
+    assert_close(got, allpairs_estimate_ref(*a, *a, moments=True, ct=64))
+
+
+def test_allpairs_moments_cells_depend_on_their_rows_only(cuda_device):
+    """The moments join: emptying other rows leaves the cells of untouched
+    row pairs bit-equal, in the self-join (mirrored) and against a copy."""
+    a = _card_corpus(cuda_device, 200, slots=4, seed=9)
+    pa = tk.slot_inclusion_probs(a)
+    full = tk.allpairs_moments(a.idx, a.val, pa, a.idx, a.val, pa)
+    cut = tk.BucketizedSketch(a.idx.clone(), a.val.clone(), a.tau, a.dropped)
+    gone = torch.arange(0, 200, 7, device=cuda_device)
+    cut.idx[gone] = 0x7FFFFFFF
+    cut.val[gone] = 0.0
+    pc = tk.slot_inclusion_probs(cut)
+    keep = torch.ones(200, dtype=torch.bool, device=cuda_device)
+    keep[gone] = False
+    for b in ((cut.idx, cut.val, pc),
+              (cut.idx.clone(), cut.val.clone(), pc.clone())):
+        part = tk.allpairs_moments(cut.idx, cut.val, pc, *b)
+        assert_bits(part[keep][:, keep], full[keep][:, keep])
+        assert bool((part[gone] == 0).all())
+        assert bool((part[:, gone] == 0).all())
+
+
+def _heavy_moments_inputs(device, D, n_buckets, seed):
+    """D rows that share most ids, as (idx, val, p) at 4 slots.  Bucket b
+    draws each row's ids (distinct within the row) from a pool: b % 3 ==
+    0, all four slots from 5 ids (lists of 4 x 64 entries, runs of ~51
+    equal ids); b % 3 == 1, two slots from 8 ids (~128 entries); b % 3 ==
+    2, at most one slot from 40 ids.  A batch of 16 buckets then holds
+    more entries a side than the 1024 the join stages, so its later lists
+    are read from global memory."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((D, n_buckets, 4), 0x7FFFFFFF, dtype=np.int32)
+    for b in range(n_buckets):
+        kind = b % 3
+        pool = rng.choice(1 << 24, (5, 8, 40)[kind], replace=False)
+        for r in range(D):
+            k = (4, 2, int(rng.integers(0, 2)))[kind]
+            idx[r, b, :k] = rng.choice(pool, k, replace=False)
+    used = idx != 0x7FFFFFFF
+    val = np.where(used, rng.standard_normal(idx.shape), 0.0)
+    p = np.where(used, rng.uniform(0.05, 1.0, idx.shape), 1.0)
+    return tuple(torch.as_tensor(x, device=device) for x in
+                 (idx, val.astype(np.float32), p.astype(np.float32)))
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_allpairs_moments_heavy_tiles(cuda_device, mirror):
+    """Rows that share most ids (runs of up to 64 equal ids, lists of
+    more than 64 entries a bucket, batches of more entries than the join
+    stages, whose later lists it reads from global memory), D = 100 (a
+    full and a ragged tile): within tolerance of the plain version and the
+    same bits launch to launch, in the self-join (mirrored) and against
+    the rows permuted."""
+    a = _heavy_moments_inputs(cuda_device, 100, 48, 3)
+    counts = tk.allpairs_compact(*a)[1]
+    assert int(counts.max()) > 64
+    assert int(counts.reshape(2, 3, 16).sum(dim=2).max()) > 1024
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(100),
+                           device=cuda_device)
+    b = a if mirror else tuple(x[perm].contiguous() for x in a)
+    got = tk.allpairs_moments(*a, *b)
+    assert_close(got, allpairs_estimate_ref(*a, *b, moments=True))
+    assert_bits(tk.allpairs_moments(*a, *b), got)
+    if not mirror:
+        assert_bits(tk.allpairs_moments(*b, *a),
+                    got.transpose(0, 1)[..., _SWAP_XY])
+
+
+@pytest.mark.parametrize("slots", [1, 3, 4, 16])
+def test_allpairs_moments_ragged_sides(cuda_device, slots):
+    """D1 = 70 against D2 = 333 (ragged tiles on both sides, more tiles
+    on one side than the other) at S = 1, 3, 4 and 16: within tolerance
+    of the plain version both ways, and the two ways the same bits with
+    x and y swapped."""
+    a = _card_corpus(cuda_device, 70, slots=slots, seed=13)
+    b = _card_corpus(cuda_device, 333, slots=slots, seed=14)
+    pa, pb = tk.slot_inclusion_probs(a), tk.slot_inclusion_probs(b)
+    ab = tk.allpairs_moments(a.idx, a.val, pa, b.idx, b.val, pb)
+    assert_close(ab, allpairs_estimate_ref(a.idx, a.val, pa, b.idx, b.val,
+                                           pb, moments=True))
+    ba = tk.allpairs_moments(b.idx, b.val, pb, a.idx, a.val, pa)
+    assert_bits(ba, ab.transpose(0, 1)[..., _SWAP_XY])
+
+
 def test_tiles_equal_all_pairs_blocks(cuda_device):
     """Four (128, 128) tiles of random rows (and a short tile padded with
     an out-of-range id) bit-equal to the matching blocks of the full
