@@ -98,7 +98,28 @@ exits nonzero with no result line):
                  same store on CPU copies, and on the example's six
                  columns; the combined merge of two coordinate halves
                  against the CPU's merge;
-10. ``timing``   end-to-end and per-kernel CUDA-event times with each
+10. ``discovery_path`` bound-pruned top-k discovery over one index
+                 (``DiscoveryEngine``, ``SketchIndex.top_pairs`` /
+                 ``top_k_for_query``, one B5 launch a visited tile pair) at
+                 ``benchmarks/topk_discovery.py``'s FULL widths: 8192
+                 Zipf(1.5)-scaled Gaussian columns over n = 16384 with 12
+                 planted pairs (its generator, rng seed 8192), m = 256,
+                 256 buckets x 2 slots, tiles of 64, k = 10, built through
+                 ``add_many`` in 512-row blocks; ``top_pairs`` in both
+                 modes bit-equal to ``all_pairs()`` plus the reference
+                 tests' tie-broken sort, a launch reduction of at least 5x,
+                 the peak working set at most 40 D m bytes and under the
+                 dense matrix's, the Chebyshev ceiling launching no more
+                 tiles (its recall printed); the same scans on the main
+                 path's index (flat norms: most of its 2080 tile pairs
+                 launch); on both, ``top_k_for_query`` bit-equal to one
+                 one-row B5 launch plus the sort and equal by names
+                 (estimates within rtol) to ``query(top_k=10)``; a copy
+                 of the skewed index (``index_from_arrays``) appends 512
+                 low-norm rows and its next scan refreshes only trailing
+                 tiles and still equals ``all_pairs()`` plus the sort; B5's
+                 launches rise by each scan's kernel launches;
+11. ``timing``   end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, the per-step split of ``add_many``,
                  ``query``, ``all_pairs``, ``merge_from`` and the store's
                  ``query``, B5's compaction and join apart, and the
@@ -122,10 +143,16 @@ exits nonzero with no result line):
                  join's blocks and warps an SM and shared memory a block
                  (``launch_shape``), B2 at the
                  union positions' shape, the table store's ``add_column``
-                 and ``top_correlated``;
-11. ``kernels``  one line per the port's kernel table.
+                 and ``top_correlated``; discovery: each scan's wall time
+                 (p50 of 5) with the share of it the tiles' device time
+                 explains, B5's tile launch at (64, 64, 256, 2) and (64,
+                 64, 512, 4) through ``estimate_tile_rows``, with its copy
+                 to the host and device-only, beside its bound,
+                 ``top_k_for_query`` and ``query`` p50, ``all_pairs`` plus
+                 the sort at D = 8192;
+12. ``kernels``  one line per the port's kernel table.
 
-Each path (4-9) zeroes every kernel's launch counter before it runs and
+Each path (4-10) zeroes every kernel's launch counter before it runs and
 reads them after; each of its kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
 
@@ -134,6 +161,7 @@ The last lines are ``nvidia-smi``'s name and power limit and then
 """
 import collections
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -198,6 +226,14 @@ CORR_COND = 1e-2           # ... where both centered second moments are at
                            # least this share of the raw ones
 PLANTED_ERR_GATE = 0.08    # mean |estimate - exact| on the planted pairs
 TOP1_GATE = 60             # of 64 queries: the top column has |rho| 0.75
+# the discovery path: benchmarks/topk_discovery.py's FULL point (its rng
+# seed D draws the same corpus) and its gates
+TOPK_D, TOPK_N, TOPK_M, TOPK_BUCKETS, TOPK_SLOTS = 8192, 16384, 256, 256, 2
+TOPK_TILE, TOPK_K, TOPK_ZIPF, TOPK_PLANTED = 64, 10, 1.5, 12
+TOPK_MIN_REDUCTION = 5.0   # tile pairs over tile launches
+TOPK_BYTES_PER_SAMPLE = 40  # peak scan bytes over D m
+TOPK_TAIL_SCALE = 1e-7     # appended rows, below every column's scale
+TOPK_REPS, TOPK_QUERIES = 5, 20
 
 
 def emit(obj) -> None:
@@ -370,6 +406,64 @@ def discovery_columns():
             cols.append((keys, vals))
             rho.append(r)
     return cols, np.array(rho)
+
+
+def topk_corpus() -> np.ndarray:
+    """``benchmarks/topk_discovery.py::_corpus`` at its FULL point:
+    (8192, 16384) N(0, 1) float32 rows scaled by 8 d^-1.5 (d = 1..D), row
+    2i + 1 (i < 12) 0.9 times row 2i plus noise at its own scale."""
+    rng = np.random.default_rng(TOPK_D)
+    scales = (np.arange(1, TOPK_D + 1, dtype=np.float32)
+              ** -TOPK_ZIPF) * 8.0
+    X = rng.standard_normal((TOPK_D, TOPK_N), dtype=np.float32) \
+        * scales[:, None]
+    for i in range(TOPK_PLANTED):
+        a, b = 2 * i, 2 * i + 1
+        X[b] = 0.9 * X[a] + \
+            0.3 * scales[b] * rng.standard_normal(TOPK_N).astype(np.float32)
+    return X
+
+
+def true_top_pairs(est: np.ndarray, names, k: int,
+                   absolute: bool = False) -> list:
+    """The top k pairs i < j of a (D, D) estimate matrix in the order of
+    ``tests/test_discovery.py::_true_pairs`` (descending score, ties by
+    ascending (i, j)), without sorting all pairs: argpartition's k
+    largest and every pair tied with the k-th, then the sort."""
+    D = est.shape[0]
+    score = np.abs(est) if absolute else est.copy()
+    score[np.tri(D, dtype=bool)] = -np.inf
+    flat = score.ravel()
+    kth = flat[np.argpartition(-flat, k - 1)[:k]].min()
+    cand = np.flatnonzero(flat >= kth)
+    i, j = np.divmod(cand, D)
+    order = np.lexsort((j, i, -flat[cand]))[:k]
+    return [(names[i[o]], names[j[o]], float(est[i[o], j[o]]))
+            for o in order]
+
+
+def true_top_rows(est: np.ndarray, names, k: int) -> list:
+    """The top k of one query's estimates, ties by ascending row."""
+    order = np.lexsort((np.arange(est.size), -est))[:k]
+    return [(names[i], float(est[i])) for i in order]
+
+
+def same_ranking(got: list, want: list, what: str) -> float:
+    """Two top-k lists of ``(name, estimate)`` from two estimator forms:
+    estimates within ``RTOL`` position by position, names equal except a
+    swap between estimates within that tolerance of each other.  -> the
+    max abs difference."""
+    g = torch.as_tensor([e for _, e in got], dtype=torch.float64)
+    w = torch.as_tensor([e for _, e in want], dtype=torch.float64)
+    err = assert_close(g, w, what)
+    tol = 2e-5 * max(1.0, float(w.abs().max())) + RTOL * w.abs()
+    by_name = dict(got)
+    for i, (name, est) in enumerate(want):
+        check(got[i][0] == name or (name in by_name and abs(
+            by_name[name] - est) <= float(tol[i])),
+            f"{what}: {name} at {i} is not in the scan's answer within "
+            f"rtol={RTOL}")
+    return err
 
 
 def planted_exact(A: torch.Tensor) -> torch.Tensor:
@@ -578,7 +672,8 @@ def main() -> None:
                                                   kth_smallest_ranks_ref,
                                                   union_positions)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
-    from repro_torch.serve import MatrixSketchStore, SketchIndex
+    from repro_torch.serve import (DiscoveryEngine, MatrixSketchStore,
+                                   SketchIndex, index_from_arrays)
     from repro_torch.serve.validation import check_finite, check_vector
 
     dev = torch.device("cuda")
@@ -1918,6 +2013,193 @@ def main() -> None:
     check(all(corr_gates.values()),
           f"join-correlation gates failed: {corr_gates}")
 
+    # -------------------------------------------------------- discovery path
+    def query_row(ix, qv) -> np.ndarray:
+        """The query against every row of ``ix`` in one one-row launch of
+        B5, sketched as ``SketchIndex.query`` sketches it."""
+        sq = priority_sketch(torch.as_tensor(qv, device=dev), ix.m, ix.seed)
+        qb = tk.bucketize(sq, n_buckets=ix.n_buckets, slots=ix.slots)
+        qc = tk.BucketizedSketch(qb.idx[None], qb.val[None],
+                                 qb.tau.reshape(1),
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device=dev))
+        c = ix._corpus()
+        return tk.estimate_tile_rows(
+            qc.idx, qc.val, tk.slot_inclusion_probs(qc), c.idx, c.val,
+            tk.slot_inclusion_probs(c), [0],
+            np.arange(len(ix))).cpu().numpy()[0]
+
+    def counted(scan, what):
+        """Run one scan: B5's launches rise by its kernel launches, one a
+        visited tile pair, and every tile pair is launched or pruned."""
+        before = tk.allpairs_estimate.launches
+        res = scan()
+        st = res.stats
+        check(tk.allpairs_estimate.launches - before == st.kernel_launches
+              == st.tiles_launched > 0,
+              f"{what}: {tk.allpairs_estimate.launches - before} B5 "
+              f"launches for {st.kernel_launches} kernel launches, "
+              f"{st.tiles_launched} tiles")
+        check(st.tiles_launched + st.tiles_pruned == st.tiles_total,
+              f"{what}: launched + pruned != total ({st})")
+        return res
+
+    def scan_gates(ix, est, what):
+        """top_pairs(k=10) in both modes, each bit-equal to ``est`` (the
+        index's all_pairs matrix) plus the sort."""
+        eng = DiscoveryEngine(ix, tile=TOPK_TILE)
+        out = {}
+        for absolute in (False, True):
+            res = counted(lambda: eng.top_pairs(TOPK_K, absolute=absolute),
+                          f"{what} top_pairs")
+            check(res.items == true_top_pairs(est, ix._names, TOPK_K,
+                                              absolute),
+                  f"{what}: top_pairs(absolute={absolute}) differs from "
+                  "all_pairs() plus the sort")
+            out["absolute" if absolute else "plain"] = res
+        return eng, out
+
+    def query_gates(ix, eng, qv, what):
+        """top_k_for_query(k=10) bit-equal to one one-row launch of B5
+        plus the sort; against ``query(top_k=10)`` (B4) by names, within
+        RTOL."""
+        res = counted(lambda: eng.top_k_for_query(qv, TOPK_K),
+                      f"{what} top_k_for_query")
+        check(res.items == true_top_rows(query_row(ix, qv), ix._names,
+                                         TOPK_K),
+              f"{what}: top_k_for_query differs from a one-row launch plus "
+              "the sort")
+        err = same_ranking(res.items, ix.query(qv, top_k=TOPK_K),
+                           f"{what}: top_k_for_query vs query(top_k)")
+        return res, err
+
+    def stats_of(res) -> dict:
+        return dataclasses.asdict(res.stats)
+
+    def discovery_path():
+        X = topk_corpus()
+        dense_host_bytes = X.nbytes
+        queries = X[:TOPK_QUERIES].copy()   # row 1 is planted on row 0
+        names_t = [f"c{i}" for i in range(TOPK_D)]
+        sk = SketchIndex(TOPK_M, n_buckets=TOPK_BUCKETS, slots=TOPK_SLOTS,
+                         seed=SEED, initial_capacity=TOPK_D, device=dev)
+        block_ms = []
+        for lo in range(0, TOPK_D, BLOCK_ROWS):
+            t0 = time.perf_counter()
+            sk.add_many(names_t[lo:lo + BLOCK_ROWS], X[lo:lo + BLOCK_ROWS])
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+        del X
+        est_t = sk.all_pairs()
+        eng, scans = scan_gates(sk, est_t, "skewed")
+        # B5 against its plain version at this corpus's shape: the rows of
+        # the first two scan tiles (the heaviest columns, whose samples
+        # share ids) against every column, from the matrix the scan gates
+        # hold the scans to
+        hc = sk._corpus()
+        hp = tk.slot_inclusion_probs(hc)
+        heavy = np.concatenate([eng.tile_members(0), eng.tile_members(1)])
+        hr = torch.as_tensor(heavy, device=dev)
+        block_err = assert_close(
+            torch.as_tensor(est_t[heavy], device=dev),
+            allpairs_estimate_ref(hc.idx[hr], hc.val[hr], hp[hr], hc.idx,
+                                  hc.val, hp, ct=512)[:, :TOPK_D],
+            f"skewed all_pairs rows of tiles 0-1 ({heavy.size} x {TOPK_D})")
+        err["allpairs_estimate"] = max(err["allpairs_estimate"], block_err)
+        del hc, hp, hr
+        st = scans["plain"].stats
+        reduction = st.tiles_total / st.kernel_launches
+        budget = TOPK_BYTES_PER_SAMPLE * TOPK_D * TOPK_M
+        truth = {it[:2] for it in true_top_pairs(est_t, names_t, TOPK_K)}
+        cheb = counted(lambda: DiscoveryEngine(
+            sk, tile=TOPK_TILE, ceiling="chebyshev").top_pairs(TOPK_K),
+            "skewed chebyshev")
+        gates = {
+            "launch_reduction_ge_5x": reduction >= TOPK_MIN_REDUCTION,
+            "peak_bytes_le_40_D_m": st.peak_bytes <= budget,
+            "peak_bytes_below_dense": st.peak_bytes < est_t.nbytes,
+            "chebyshev_launches_le_admissible":
+                cheb.stats.tiles_launched <= st.tiles_launched}
+        check(all(gates.values()), f"discovery gates failed: {gates}")
+        q_res, q_err = query_gates(sk, eng, queries[0], "skewed")
+        check(q_res.items[0][0] == "c0" and q_res.items[1][0] == "c1",
+              f"skewed query: planted rows not first: {q_res.items[:2]}")
+        # the flat corpus: the main path's index and its all_pairs matrix
+        feng, fscans = scan_gates(index, ap, "flat")
+        fq_res, fq_err = query_gates(index, feng, planted(0, sources[0]),
+                                     "flat")
+        check(fq_res.items[0][0] == names[sources[0]],
+              "flat query: the planted source is not first")
+        # dirty tiles: a copy of the skewed index appends 512 rows below
+        # every column's norm; the next scan refreshes the trailing tiles
+        cp = index_from_arrays(
+            **{k: getattr(sk, "_" + k) for k in (
+                "idx", "val", "tau", "dropped", "g", "kn", "head_idx",
+                "head_val", "head_kept")},
+            names=sk._names, dim=sk._dim, m=TOPK_M, n_buckets=TOPK_BUCKETS,
+            slots=TOPK_SLOTS, seed=SEED, device=dev)
+        ceng = DiscoveryEngine(cp, tile=TOPK_TILE)
+        check(counted(lambda: ceng.top_pairs(TOPK_K), "copy").items
+              == scans["plain"].items, "the copy's scan differs")
+        n_tiles, r0 = ceng._summaries.n_tiles, ceng._summaries.refreshes
+        tail = np.random.default_rng(7).standard_normal(
+            (BLOCK_ROWS, TOPK_N), dtype=np.float32) * TOPK_TAIL_SCALE
+        cp.add_many([f"tail{i}" for i in range(BLOCK_ROWS)], tail)
+        after = counted(lambda: ceng.top_pairs(TOPK_K), "after append")
+        refreshed = ceng._summaries.refreshes - r0
+        check(0 < refreshed < n_tiles,
+              f"append refreshed {refreshed} of {n_tiles} tiles")
+        check(after.items == true_top_pairs(cp.all_pairs(), cp._names,
+                                             TOPK_K),
+              "after the append: top_pairs differs from all_pairs() plus "
+              "the sort")
+        return dict(
+            index=sk, eng=eng, feng=feng, queries=queries, scans=scans,
+            fscans=fscans, cheb=cheb, reduction=reduction, budget=budget,
+            dense_host_bytes=dense_host_bytes, dense_bytes=est_t.nbytes,
+            block_ms=block_ms, gates=gates, q_res=q_res, q_err=q_err,
+            block_err=block_err, block_rows=int(heavy.size),
+            fq_res=fq_res, fq_err=fq_err, refreshed=refreshed,
+            n_tiles=n_tiles, D_after=len(cp),
+            cheb_recall=len({it[:2] for it in cheb.items} & truth) / TOPK_K)
+
+    dp, launches["discovery_path"] = run_path(kernels, discovery_path)
+    need = ("hash_rank_hist", "radix_select", "intersect_estimate",
+            "allpairs_compact", "allpairs_estimate")
+    check(all(launches["discovery_path"][k] > 0 for k in need),
+          f"a kernel of the discovery path never launched: {launches}")
+    emit({"phase": "discovery_path",
+          "skewed": {
+              "D": TOPK_D, "n": TOPK_N, "m": TOPK_M,
+              "n_buckets": TOPK_BUCKETS, "slots": TOPK_SLOTS,
+              "tile": TOPK_TILE, "k": TOPK_K,
+              "dense_host_bytes": dp["dense_host_bytes"],
+              "all_pairs_bytes": dp["dense_bytes"],
+              "peak_budget_bytes": dp["budget"],
+              "add_many_ms_per_block": float(np.mean(dp["block_ms"])),
+              "top_pairs": {k: stats_of(v) for k, v in dp["scans"].items()},
+              "top_pairs_items": dp["scans"]["plain"].items,
+              "launch_reduction": dp["reduction"],
+              "heavy_rows_vs_plain": {
+                  "rows": dp["block_rows"], "cols": TOPK_D,
+                  "max_abs_err": dp["block_err"], "parity": f"rtol={RTOL}"},
+              "chebyshev": {**stats_of(dp["cheb"]),
+                            "recall": dp["cheb_recall"]},
+              "query": {**stats_of(dp["q_res"]),
+                        "vs_index_query_max_abs_err": dp["q_err"]}},
+          "flat": {
+              "D": D, "m": M, "n_buckets": N_BUCKETS, "slots": SLOTS,
+              "top_pairs": {k: stats_of(v) for k, v in dp["fscans"].items()},
+              "query": {**stats_of(dp["fq_res"]),
+                        "vs_index_query_max_abs_err": dp["fq_err"]}},
+          "append": {"rows": BLOCK_ROWS, "D_after": dp["D_after"],
+                     "tiles_refreshed": dp["refreshed"],
+                     "tiles_before": dp["n_tiles"]},
+          "gates": dp["gates"],
+          "bit_equal_to_all_pairs_sort": "skewed and flat, both modes, "
+                                         "and after the append",
+          "seconds": dp["seconds"],
+          "launches": launches["discovery_path"]})
+
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()
     C, B, S = corpus.idx.shape
@@ -2589,6 +2871,98 @@ def main() -> None:
                               warmup=1, iters=5),
         **moments_bound(mq[0], mi[0], mq_o.numel())}
     del mom_o, moments, cm, cm_o, mi, mq, cq, mq_o
+    # discovery: B5's tile launch at each corpus's shape (its first two
+    # scan tiles) through estimate_tile_rows, as the scan takes it (with
+    # the copy to the host), and device-only (the two compactions and the
+    # join, raw; the join alone); each scan's wall time (p50 of
+    # TOPK_REPS, summaries current) and the share of it the tiles' device
+    # time explains; top_k_for_query and query p50 over TOPK_QUERIES
+    # queries; all_pairs plus the sort at D = 8192 for contrast
+
+    def tile_launch(ix, eng):
+        c = ix._corpus()
+        p = tk.slot_inclusion_probs(c)
+        ru, rv = eng.tile_members(0), eng.tile_members(1)
+        args = (c.idx, c.val, p, c.idx, c.val, p, ru, rv)
+        sides = [[x.index_select(0, torch.as_tensor(r, device=dev))
+                  for x in (c.idx, c.val, p)] for r in (ru, rv)]
+        outs = [[torch.empty_like(y) for y in tk.allpairs_compact(*side)]
+                for side in sides]
+        tile_o = torch.empty((len(ru), len(rv)), device=dev)
+        _, Bt, St = c.idx.shape
+        steps = [raw("intersect_estimate.intersect_estimate", "_lib",
+                     "repro_allpairs_compact",
+                     *(x.data_ptr() for x in side), o[0].data_ptr(),
+                     o[1].data_ptr(), side[0].shape[0], Bt, St)
+                 for side, o in zip(sides, outs)]
+        steps.append(raw("intersect_estimate.intersect_estimate", "_lib",
+                         "repro_allpairs_join", outs[0][0].data_ptr(),
+                         outs[0][1].data_ptr(), outs[1][0].data_ptr(),
+                         outs[1][1].data_ptr(), tile_o.data_ptr(), len(ru),
+                         len(rv), Bt, St, 0))
+
+        def launch():
+            for step in steps:
+                step()
+
+        launch()
+        torch.cuda.synchronize()
+        got = tk.estimate_tile_rows(*args)
+        assert_bits(tile_o, got, "tile: raw launches vs the wrapper")
+        shape = [len(ru), len(rv), Bt, St]
+        tile_err = assert_close(
+            got, tk.estimate_tile_rows(*args, use_kernel=False),
+            f"tile {shape}: the wrapper vs its plain route")
+        err["allpairs_estimate"] = max(err["allpairs_estimate"], tile_err)
+        return {"shape": shape, "max_abs_err_vs_plain": tile_err,
+                "wrapper_ms": cuda_ms(lambda: tk.estimate_tile_rows(*args)),
+                "with_host_copy_ms": float(np.median([step_ms(
+                    lambda: tk.estimate_tile_rows(*args).cpu().numpy())[1]
+                    for _ in range(50)])),
+                "device_ms": graph_ms(launch),
+                "join_device_ms": graph_ms(steps[-1]),
+                "plain_ms": cuda_ms(lambda: tk.estimate_tile_rows(
+                    *args, use_kernel=False), iters=5),
+                **moments_bound(sides[0][0], sides[1][0], tile_o.numel())}
+
+    def p50_ms(calls) -> float:
+        return float(np.median([step_ms(f)[1] for f in calls]))
+
+    disc_t = {}
+    for what, eng, ix, scans, qs in (
+            ("skewed", dp["eng"], dp["index"], dp["scans"], dp["queries"]),
+            ("flat", dp["feng"], index, dp["fscans"],
+             [planted(qi, sources[qi]) for qi in range(TOPK_QUERIES)])):
+        tl = tile_launch(ix, eng)
+        rec = {"tile_launch": tl}
+        for mode, absolute in (("plain", False), ("absolute", True)):
+            ms = p50_ms([lambda: eng.top_pairs(TOPK_K, absolute=absolute)]
+                        * TOPK_REPS)
+            n_t = scans[mode].stats.tiles_launched
+            # an estimate, not a trace: the device time of the first two
+            # tiles' launch taken for every launched tile
+            rec[mode] = {"scan_p50_ms": ms, "tiles_launched": n_t,
+                         "ms_per_tile": ms / n_t,
+                         "host_share_estimate":
+                             1.0 - n_t * tl["device_ms"] / ms}
+        rec["top_k_for_query_p50_ms"] = p50_ms(
+            [lambda q=q: eng.top_k_for_query(q, TOPK_K) for q in qs])
+        rec["query_p50_ms"] = p50_ms(
+            [lambda q=q: ix.query(q, top_k=TOPK_K) for q in qs])
+        disc_t[what] = rec
+    cheb_eng = DiscoveryEngine(dp["index"], tile=TOPK_TILE,
+                               ceiling="chebyshev")
+    cheb_eng.top_pairs(TOPK_K)
+    disc_t["skewed"]["chebyshev"] = {
+        "scan_p50_ms": p50_ms([lambda: cheb_eng.top_pairs(TOPK_K)]
+                              * TOPK_REPS),
+        "tiles_launched": dp["cheb"].stats.tiles_launched}
+    est_t, ap_t_ms = step_ms(dp["index"].all_pairs)
+    _, sort_t_ms = step_ms(lambda: true_top_pairs(
+        est_t, dp["index"]._names, TOPK_K))
+    disc_t["skewed"]["all_pairs_ms"] = ap_t_ms
+    disc_t["skewed"]["all_pairs_sort_ms"] = sort_t_ms
+    del est_t
     # B2 at the union positions' shape (512, 2^18), k = m + 1: device-only,
     # through the wrapper, its plain version and torch.kthvalue
     q_o = torch.empty(BLOCK_ROWS, device=dev)
@@ -2665,11 +3039,13 @@ def main() -> None:
                            "merge_path": mg["seconds"],
                            "matrix_path": mx["seconds"],
                            "join_size_path": jp["seconds"],
-                           "join_corr_path": jcp["seconds"]},
+                           "join_corr_path": jcp["seconds"],
+                           "discovery_path": dp["seconds"]},
           "combined_build_ms_per_block": combined_build,
           "correlation_matrix_ms": corr_total_ms,
           "correlation_matrix_steps_ms": corr_steps,
           "allpairs_moments_b1024": b5_moments,
+          "discovery": disc_t,
           "radix_select_union_positions": b2_union,
           "store_add_column_p50_ms": float(np.percentile(
               jcp["store"]["add_ms"], 50)),
@@ -2763,7 +3139,11 @@ def main() -> None:
             "sass_loop": jl_sass},
         "radix_select": {"library_ms_at_one_vector": kth_d1,
                          "union_positions_shape": b2_union},
-        "allpairs_estimate": {"moments_shape": b5_moments}}
+        "allpairs_estimate": {
+            "moments_shape": b5_moments,
+            "discovery_tiles": {w: r["tile_launch"]
+                                for w, r in disc_t.items()},
+            "discovery_heavy_rows_max_abs_err": dp["block_err"]}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

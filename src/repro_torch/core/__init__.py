@@ -24,10 +24,12 @@ from .join_correlation import (CombinedSketch, combined_estimates,
                                estimate_join_correlation)
 from .merge import (PartitionStats, merge_combined_sketches, merge_sketches,
                     merge_sketches_many, merge_stats, partition_stats)
-from .variance import (chebyshev_interval, dp_chebyshev_halfwidth,
+from .variance import (chebyshev_estimate_ceiling, chebyshev_interval,
+                       coverage_fraction, dp_chebyshev_halfwidth,
                        dp_debias_gap, dp_variance_bound, error_guarantee,
                        intersection_norms, linear_sketch_error,
-                       rescaled_kept_norms, sketch_size_high_prob,
+                       pair_estimate_ceiling, rescaled_kept_norms,
+                       sketch_size_high_prob, surviving_corpus_bound,
                        variance_bound)
 from .baselines import (MinHashSketch, WMHSketch, countsketch,
                         countsketch_estimate, jl_estimate, jl_sketch,
@@ -52,6 +54,8 @@ __all__ = ["GOLDEN", "UNIT", "fold_seed", "hash_bucket", "hash_sign",
            "chebyshev_interval", "error_guarantee", "intersection_norms",
            "linear_sketch_error", "rescaled_kept_norms",
            "sketch_size_high_prob", "variance_bound",
+           "chebyshev_estimate_ceiling", "coverage_fraction",
+           "pair_estimate_ceiling", "surviving_corpus_bound",
            "dp_chebyshev_halfwidth", "dp_debias_gap", "dp_variance_bound",
            "MinHashSketch", "WMHSketch", "countsketch",
            "countsketch_estimate", "jl_estimate", "jl_sketch",

@@ -1,9 +1,11 @@
-"""Accuracy guarantees (Theorems 1 and 3, Corollary 2, Lemma 4) and the
-DP-release variance accounting: the parts of ``repro.core.variance`` that
-the quickstart, the serving index and the private mode use.  The bounds
-take full vectors (tests, benchmarks); the Chebyshev intervals need only
-norms and the sketch size (production use).  All in float32, as the
-reference computes them.
+"""Accuracy guarantees (Theorems 1 and 3, Corollary 2, Lemma 4), the
+discovery bounds (the per-pair estimate ceilings, the shard-loss bound
+and coverage) and the DP-release variance accounting: the parts of
+``repro.core.variance`` that the quickstart, the serving index, discovery
+and the private mode use.  The bounds take full vectors (tests,
+benchmarks); the Chebyshev intervals and ceilings need only norms and the
+sketch size (production use).  All in float32, as the reference computes
+them.
 """
 from __future__ import annotations
 
@@ -16,6 +18,36 @@ def _t(x) -> torch.Tensor:
 
 def _lead(m: int, method: str) -> float:
     return 2.0 / m if method == "threshold" else 2.0 / max(m - 1, 1)
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root: torch's float32 ``sqrt`` on
+    the CPU is not (its vector path); one rounding of the float64 root
+    is."""
+    return torch.sqrt(x.double()).float()
+
+
+# XLA's CPU compiler sums a reduced axis of more than this many elements
+# as a reduce-window of this size (tree_reduction_rewriter)
+_XLA_WINDOW = 32
+
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of the reference's (XLA CPU)
+    reduction: up to ``_XLA_WINDOW`` elements one after another; beyond,
+    the axis padded with zeros to a multiple of the window (half the
+    padding before it, the rest after), each window summed in order, and
+    the window sums summed the same way."""
+    n = x.shape[-1]
+    if n > _XLA_WINDOW:
+        pad = -n % _XLA_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        return _sum_last(_sum_last(
+            x.reshape(x.shape[:-1] + (-1, _XLA_WINDOW))))
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(n):
+        acc = acc + x[..., i]
+    return acc
 
 
 def intersection_norms(a, b):
@@ -60,6 +92,64 @@ def chebyshev_interval(estimate, a_norm2, b_norm2, m: int,
     sqrt(lead a2 b2 / delta)."""
     half = torch.sqrt(_lead(m, method) * _t(a_norm2) * _t(b_norm2) / delta)
     return estimate - half, estimate + half
+
+
+def surviving_corpus_bound(surv_a2, surv_b2, lost_a2, lost_b2, m: int,
+                           delta: float = 0.05, *,
+                           method: str = "priority"):
+    """Widened error bound of an estimate that lost some coordinate
+    partitions (shards), DESIGN.md §16 of the reference.  Inputs are
+    per-partition squared norms along the last axis (surviving and lost;
+    leading axes broadcast).  The surviving partitions' independent
+    sketches add their Theorem 1/3 variances (``lead a2_p b2_p`` each), so
+    Chebyshev gives ``sampling = sqrt(lead / delta sum_p a2_p b2_p)``; the
+    lost coordinates' inner product is at most ``lost = sqrt(sum lost_a2)
+    sqrt(sum lost_b2)`` (Cauchy-Schwarz).  -> ``(sampling, lost, sampling
+    + lost)``: with probability ``1 - delta`` the degraded estimate is
+    within the last of the full answer."""
+    surv_a2, surv_b2, lost_a2, lost_b2 = (
+        _t(x) for x in (surv_a2, surv_b2, lost_a2, lost_b2))
+    sampling = _sqrt32(_lead(m, method) / delta
+                       * _sum_last(surv_a2 * surv_b2))
+    lost = _sqrt32(_sum_last(lost_a2)) * _sqrt32(_sum_last(lost_b2))
+    return sampling, lost, sampling + lost
+
+
+def pair_estimate_ceiling(g_a, n_a, g_b, n_b):
+    """Admissible ceiling on the sampling estimate of any pair of sketches
+    with rescaled / plain kept norms ``(g_a, n_a)``, ``(g_b, n_b)``
+    (:func:`rescaled_kept_norms`): ``min(G_a G_b, G_a N_b + N_a G_b)``.
+    The estimate sums ``a_i b_i max(1/p_a, 1/p_b)`` over the matches, and
+    ``max(x, y)`` is at most ``x y`` and ``x + y`` for ``x, y >= 1``, so
+    Cauchy-Schwarz bounds every realization, not only the mean: a pruning
+    certificate that loses nothing.  Inputs broadcast (tile maxima give
+    tile ceilings)."""
+    g_a, n_a, g_b, n_b = (_t(x) for x in (g_a, n_a, g_b, n_b))
+    return torch.minimum(g_a * g_b, g_a * n_b + n_a * g_b)
+
+
+def chebyshev_estimate_ceiling(n_a, n_b, m: int, delta: float = 0.05, *,
+                               method: str = "priority"):
+    """Probabilistic ceiling on an estimate: with probability at least
+    ``1 - delta`` a pair's ``|est| <= N_a N_b (1 + sqrt(lead / delta))``
+    (Cauchy-Schwarz on the true product plus the Chebyshev deviation of
+    the conservative Theorem 1/3 bound).  Tighter than
+    :func:`pair_estimate_ceiling` when ``G >> N``, but a true top-k pair is
+    pruned with probability up to ``delta``."""
+    return _t(n_a) * _t(n_b) * (1.0 + (_lead(m, method) / delta) ** 0.5)
+
+
+def coverage_fraction(surv_mass, lost_mass):
+    """Share of the (squared-norm) mass the surviving shards serve,
+    ``surv / (surv + lost)`` summed over the last axis; 1.0 where there is
+    no mass at all."""
+    surv = _sum_last(_t(surv_mass))
+    lost = _sum_last(_t(lost_mass))
+    total = surv + lost
+    ok = total > 0
+    return torch.where(ok, surv / torch.where(ok, total,
+                                              torch.ones_like(total)),
+                       torch.ones_like(total))
 
 
 def rescaled_kept_norms(val, tau, *, sample_ndim: int = 2):

@@ -9,10 +9,12 @@ uses, so the port never imports the JAX package:
   sums ``repro_op_seconds{op=...}``;
 - :func:`kernel_launch` — ``repro_kernel_launches_total{kernel=...}``;
 - :func:`counter` — a plain named counter (the serving boundary's
-  rejection counts);
-- :func:`gauge` — a named value that ``set`` overwrites (the serving
-  index's ``repro_biasaware_head_fraction`` and
-  ``repro_dp_epsilon_spent``);
+  rejection counts; discovery's ``repro_discovery_*_total{scan=...}``);
+- :func:`gauge` — a named value that ``set`` overwrites, with a label
+  as a counter has (the serving index's ``repro_biasaware_head_fraction``
+  and ``repro_dp_epsilon_spent``; discovery's
+  ``repro_discovery_peak_bytes{scan=...}`` and
+  ``repro_discovery_summary_tiles_refreshed{scan=...}``);
 - :func:`quality_monitor` — the ingest half of ``repro.obs.quality``'s
   ``QualityMonitor``: ``SketchIndex.add`` / ``add_many`` fold each
   batch's taus and bucket-overflow drops into ``repro_quality_tau_last``,
@@ -159,23 +161,24 @@ NOOP_GAUGE = _NoopGauge()
 
 
 class _Gauge:
-    """``set`` overwrites the registry's value of ``name``."""
+    """``set`` overwrites the registry's value of ``name{label}``."""
 
-    __slots__ = ("name",)
+    __slots__ = ("key",)
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, label: str):
+        self.key = (name, label)
 
     def set(self, value) -> None:
         with _LOCK:
-            _METRICS[(self.name, "")] = float(value)
+            _METRICS[self.key] = float(value)
 
 
-def gauge(name: str, help: str = ""):
-    """The gauge ``name`` (``help`` documents it; no-op object when off)."""
+def gauge(name: str, help: str = "", label: str = ""):
+    """The gauge ``name{label}`` (``help`` documents it; no-op object when
+    off)."""
     if not _ENABLED:
         return NOOP_GAUGE
-    return _Gauge(name)
+    return _Gauge(name, label)
 
 
 EWMA_ALPHA = 0.1

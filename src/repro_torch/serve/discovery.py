@@ -1,0 +1,440 @@
+"""Streaming top-k discovery over one index: bound-pruned tile scans on the
+all-pairs kernel (DESIGN.md §17 of the reference).
+
+``all_pairs`` gives the whole (D, D) matrix: quadratic in the corpus and
+out of reach at the column counts discovery runs at (the most-correlated
+column pairs across unjoined tables).  The engine prunes, scans and
+streams instead:
+
+1. **Summaries.**  Every indexed row carries its rescaled kept norm ``G``
+   and plain kept norm ``N``, kept up to date at ingest
+   (``SketchIndex._refresh_row_stats``).  Every estimate of a pair obeys
+   ``|est| <= min(G_a G_b, G_a N_b + N_a G_b)``
+   (:func:`repro_torch.core.variance.pair_estimate_ceiling`), so a tile's
+   maxima of (G, N) bound whatever a launch on it can return.
+2. **Bound-ordered scan.**  Rows are tiled in descending ``G``
+   (:class:`TileSummaries`), tile pairs are visited in descending ceiling
+   order, and once a streaming top-k heap is full and the next ceiling is
+   below its k-th score, no later tile can hold a top-k pair: the scan
+   stops.  Each visited tile pair is one launch of the all-pairs kernel on
+   the tile's rows (``kernels.estimate_tile_rows``); only the (tq, tc)
+   tile comes to the host.  The working set is O(D m), never O(D^2).
+3. **Dirty-tile invalidation.**  Ingest refreshes the summaries of the
+   rows it touched; :class:`TileSummaries` recomputes the maxima of only
+   the tiles whose members or member stats changed.
+
+The summaries, ceilings, scan order and heap are host numpy, as in the
+reference, so the scan order and every pruning decision are its own; the
+corpus and its slot probabilities stay on the index's device.
+"""
+from __future__ import annotations
+
+import heapq
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import priority_sketch
+from repro_torch.core.variance import chebyshev_estimate_ceiling
+from repro_torch.kernels import (BucketizedSketch, bucketize,
+                                 estimate_tile_rows, round_up_pow2,
+                                 slot_inclusion_probs)
+
+from .sketch_service import _host, _row_summaries
+from .validation import check_vector
+
+DEFAULT_TILE = 64
+
+
+def _pair_ceiling_np(ga, na, gb, nb):
+    """Numpy twin of :func:`repro_torch.core.variance.pair_estimate_ceiling`
+    (broadcasting outer products for the tile-pair ceiling matrix)."""
+    return np.minimum(ga * gb, ga * nb + na * gb)
+
+
+class TileSummaries:
+    """Bound-ordered tile view of one index's (G, N) row summaries.
+
+    Rows are ranked by descending ``G`` and cut into tiles of ``tile`` rows;
+    each tile carries its (max G, max N), all a scan needs to bound every
+    estimate the tile can produce.  ``refresh`` does nothing while the
+    index's ``summary_epoch`` is unchanged, and otherwise recomputes the
+    maxima of only the tiles whose member set or member stats differ from
+    the cached snapshot: an append of low-``G`` rows dirties only the
+    trailing tiles.
+    """
+
+    def __init__(self, index, tile: int = DEFAULT_TILE):
+        if tile < 1 or round_up_pow2(tile) != tile:
+            raise ValueError(f"tile must be a positive power of two, "
+                             f"got {tile}")
+        self.index = index
+        self.tile = tile
+        self._epoch = -1
+        self._tile_rows: list = []     # per tile: np array of original row ids
+        self._g_snap: Optional[np.ndarray] = None
+        self._n_snap: Optional[np.ndarray] = None
+        self.tile_g = np.empty((0,), np.float32)
+        self.tile_n = np.empty((0,), np.float32)
+        self.refreshes = 0             # cumulative tiles recomputed
+        self.refresh_calls = 0         # refreshes that did any work
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self._tile_rows)
+
+    def tile_rows(self, t: int) -> np.ndarray:
+        """Original row ids of tile ``t`` (descending-G order)."""
+        return self._tile_rows[t]
+
+    def nbytes(self) -> int:
+        snap = 0 if self._g_snap is None else \
+            self._g_snap.nbytes + self._n_snap.nbytes
+        return snap + self.tile_g.nbytes + self.tile_n.nbytes + \
+            sum(r.nbytes for r in self._tile_rows)
+
+    def refresh(self) -> None:
+        if self.index.summary_epoch == self._epoch:
+            return
+        g_view, n_view = self.index.row_summaries()
+        g = np.array(g_view, np.float32)   # snapshot: views mutate on ingest
+        n = np.array(n_view, np.float32)
+        D, T = g.shape[0], self.tile
+        # stable: equal-G rows keep insertion order, so appends that do not
+        # outrank existing rows leave the leading tiles' members alone
+        order = np.argsort(-g, kind="stable").astype(np.int64)
+        nt = -(-D // T)
+        rows = [order[t * T:(t + 1) * T] for t in range(nt)]
+        tile_g = np.zeros((nt,), np.float32)
+        tile_n = np.zeros((nt,), np.float32)
+        d_old = 0 if self._g_snap is None else self._g_snap.shape[0]
+        for t in range(nt):
+            r = rows[t]
+            clean = (t < len(self._tile_rows)
+                     and r.shape == self._tile_rows[t].shape
+                     and np.array_equal(r, self._tile_rows[t])
+                     and (r.size == 0 or r.max() < d_old)
+                     and np.array_equal(g[r], self._g_snap[r])
+                     and np.array_equal(n[r], self._n_snap[r]))
+            if clean:
+                tile_g[t] = self.tile_g[t]
+                tile_n[t] = self.tile_n[t]
+            else:
+                if r.size:
+                    tile_g[t] = g[r].max()
+                    tile_n[t] = n[r].max()
+                self.refreshes += 1
+        self._tile_rows = rows
+        self.tile_g, self.tile_n = tile_g, tile_n
+        self._g_snap, self._n_snap = g, n
+        self._epoch = self.index.summary_epoch
+        self.refresh_calls += 1
+
+
+@dataclass
+class ScanStats:
+    """Accounting of one pruned scan: the tile launches the bound saved,
+    and the peak working-set bytes the scan held (corpus blocks,
+    summaries, ceiling table, one tile buffer, heap; never the (D1, D2)
+    estimate matrix)."""
+    tiles_total: int = 0
+    tiles_launched: int = 0
+    tiles_pruned: int = 0
+    kernel_launches: int = 0
+    threshold: float = float("-inf")
+    peak_bytes: int = 0
+    summary_tiles_refreshed: int = 0
+
+
+def _publish_scan(stats: ScanStats, scan: str) -> None:
+    """Add one scan's :class:`ScanStats` to the ``repro_discovery_*``
+    metrics, labelled by ``scan`` (``"pairs"`` or ``"query"``)."""
+    if not obs.enabled():
+        return
+    obs.counter("repro_discovery_scans_total", scan)
+    obs.counter("repro_discovery_tiles_total", scan, stats.tiles_total)
+    obs.counter("repro_discovery_tiles_launched_total", scan,
+                stats.tiles_launched)
+    obs.counter("repro_discovery_tiles_pruned_total", scan,
+                stats.tiles_pruned)
+    obs.counter("repro_discovery_kernel_launches_total", scan,
+                stats.kernel_launches)
+    obs.gauge("repro_discovery_peak_bytes",
+              "peak working-set bytes of the last scan", scan
+              ).set(stats.peak_bytes)
+    obs.gauge("repro_discovery_summary_tiles_refreshed",
+              "cumulative dirty-tile summary refreshes at the last scan",
+              scan).set(stats.summary_tiles_refreshed)
+
+
+@dataclass
+class DiscoveryResult:
+    """Top-k discovery answer.  ``items`` is descending by score:
+    ``(name_a, name_b, estimate)`` for pair scans, ``(name, estimate)``
+    for query scans.  ``audit`` (pair scans asked for it) lists every tile
+    pair in scan order with its ceiling and whether it was launched.
+    ``degraded``, ``coverage``, ``lost_pairs`` and ``lost_shards`` describe
+    lost shards; a scan over one index loses none."""
+    items: list
+    stats: ScanStats
+    degraded: bool = False
+    coverage: float = 1.0
+    lost_pairs: tuple = ()
+    lost_shards: tuple = ()
+    audit: Optional[list] = None
+
+    @property
+    def pairs(self) -> list:
+        return self.items
+
+
+def _push_candidates(heap, k, scores, payloads):
+    """Stream tile candidates into the bounded min-heap."""
+    for sc, payload in zip(scores, payloads):
+        item = (float(sc),) + payload
+        if len(heap) < k:
+            heapq.heappush(heap, item)
+        elif item > heap[0]:
+            heapq.heappushpop(heap, item)
+
+
+def _drain(heap) -> list:
+    """Heap -> descending score, ties broken by ascending ids (the tie
+    contract of the index's ``query(top_k=...)``)."""
+    return sorted(heap, key=lambda it: (-it[0],) + it[1:-1])
+
+
+def _tile(a, pa, b, pb, rows_a, rows_b) -> np.ndarray:
+    """One (rows_a, rows_b) tile of estimates on the host: one launch of
+    the all-pairs kernel on the corpora's device (its plain version on the
+    CPU)."""
+    return _host(estimate_tile_rows(a.idx, a.val, pa, b.idx, b.val, pb,
+                                    rows_a, rows_b))
+
+
+class DiscoveryEngine:
+    """Bound-pruned streaming top-k discovery over one
+    :class:`~repro_torch.serve.sketch_service.SketchIndex`.
+
+    ``tile``: rows a scan tile (a power of two).  ``ceiling``:
+    ``"admissible"`` (the default) prunes on the deterministic certificate
+    only, so the top-k equals ``all_pairs()`` plus a sort;
+    ``"chebyshev"`` also applies the Theorem-3 probabilistic ceiling at
+    confidence ``1 - delta`` a pair: it prunes more and no longer
+    guarantees recall 1.
+    """
+
+    def __init__(self, index, *, tile: int = DEFAULT_TILE,
+                 ceiling: str = "admissible", delta: float = 0.05):
+        if ceiling not in ("admissible", "chebyshev"):
+            raise ValueError(f"ceiling must be 'admissible' or 'chebyshev', "
+                             f"got {ceiling!r}")
+        self.index = index
+        self.tile = tile
+        self.ceiling = ceiling
+        self.delta = delta
+        self._summaries = TileSummaries(index, tile)
+        self._lock = threading.Lock()
+        self._dev_epoch = -1
+        self._dev: Optional[BucketizedSketch] = None
+        self._probs: Optional[torch.Tensor] = None
+
+    def _prepare(self):
+        """Refresh the tile summaries, and the device corpus and its slot
+        probabilities when the index changed."""
+        with self._lock:
+            self._summaries.refresh()
+            ep = self.index.summary_epoch
+            if self._dev_epoch != ep:
+                self._dev = self.index._corpus()
+                self._probs = slot_inclusion_probs(self._dev)
+                self._dev_epoch = ep
+        return self._dev, self._probs
+
+    def _corpus_nbytes(self) -> int:
+        return int(self._dev.idx.nbytes + self._dev.val.nbytes +
+                   self._probs.nbytes)
+
+    def tile_members(self, t: int) -> np.ndarray:
+        """Original row ids of scan tile ``t`` (audit, introspection)."""
+        return np.array(self._summaries.tile_rows(t))
+
+    def _ceiling_matrix(self, other: "DiscoveryEngine") -> np.ndarray:
+        sa, sb = self._summaries, other._summaries
+        ceil = _pair_ceiling_np(sa.tile_g[:, None], sa.tile_n[:, None],
+                                sb.tile_g[None, :], sb.tile_n[None, :])
+        if self.ceiling == "chebyshev":
+            ceil = np.minimum(ceil, chebyshev_estimate_ceiling(
+                sa.tile_n[:, None], sb.tile_n[None, :], self.index.m,
+                self.delta).numpy())
+        return ceil
+
+    def top_pairs(self, k: int = 10, *, absolute: bool = False,
+                  audit: bool = False) -> DiscoveryResult:
+        """Global top-k pairs of the index against itself (each unordered
+        pair once, self-pairs excluded)."""
+        with obs.op("serve.discovery.top_pairs") as sp:
+            res = _pair_scan(self, self, k, absolute=absolute, audit=audit)
+            sp.set("launched", res.stats.tiles_launched)
+            sp.set("pruned", res.stats.tiles_pruned)
+            _publish_scan(res.stats, "pairs")
+            return res
+
+    def top_k_for_query(self, vector, k: int = 10, *,
+                        absolute: bool = False) -> DiscoveryResult:
+        """Top-k indexed rows for one query vector: corpus tiles whose
+        ceiling falls below the running k-th score are never launched."""
+        with obs.op("serve.discovery.top_k_for_query") as sp:
+            res = self._top_k_for_query(vector, k, absolute=absolute)
+            sp.set("launched", res.stats.tiles_launched)
+            sp.set("pruned", res.stats.tiles_pruned)
+            _publish_scan(res.stats, "query")
+            return res
+
+    def _top_k_for_query(self, vector, k: int, *,
+                         absolute: bool) -> DiscoveryResult:
+        index = self.index
+        if not index._names:
+            raise ValueError("discovery on an empty index: add vectors "
+                             "before querying")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        vector = check_vector(vector, "query vector", dim=index._dim,
+                              nonfinite=index.nonfinite)
+        # the query sketch takes SketchIndex.query's route
+        sq = priority_sketch(torch.as_tensor(vector, device=index.device),
+                             index.m, index.seed)
+        q = bucketize(sq, n_buckets=index.n_buckets, slots=index.slots)
+        gq, nq = _row_summaries(_host(q.val)[None], _host(q.tau).reshape(1))
+        cb, pb = self._prepare()
+        s = self._summaries
+        stats = ScanStats(tiles_total=s.n_tiles,
+                          summary_tiles_refreshed=s.refreshes)
+        ceil = _pair_ceiling_np(float(gq[0]), float(nq[0]),
+                                s.tile_g, s.tile_n)
+        if self.ceiling == "chebyshev":
+            ceil = np.minimum(ceil, chebyshev_estimate_ceiling(
+                float(nq[0]), s.tile_n, index.m, self.delta).numpy())
+        order = np.argsort(-ceil, kind="stable")
+        qb = BucketizedSketch(q.idx[None], q.val[None], q.tau.reshape(1),
+                              torch.zeros((1,), dtype=torch.int32,
+                                          device=q.idx.device))
+        qp = slot_inclusion_probs(qb)
+        rows_q = np.zeros((1,), np.int64)
+        heap: list = []
+        launched = 0
+        for t in order:
+            c = float(ceil[t])
+            if len(heap) == k and c < heap[0][0]:
+                break
+            rows = s.tile_rows(int(t))
+            est = _tile(qb, qp, cb, pb, rows_q, rows)[0]
+            launched += 1
+            score = np.abs(est) if absolute else est
+            sel = np.arange(rows.size)
+            if rows.size > k:
+                sel = np.argpartition(-score, k - 1)[:k]
+            _push_candidates(heap, k, score[sel],
+                             [(int(rows[i]), float(est[i])) for i in sel])
+        stats.kernel_launches = stats.tiles_launched = launched
+        stats.tiles_pruned = stats.tiles_total - launched
+        stats.threshold = heap[0][0] if len(heap) == k else float("-inf")
+        # the tile buffer reckoned at a full tile's (T,) float32 row, three
+        # times, as the reference's padded tile is
+        tile_bytes = 3 * 4 * self.tile
+        stats.peak_bytes = (self._corpus_nbytes() + s.nbytes() + ceil.nbytes
+                            + tile_bytes + 64 * max(len(heap), 1))
+        names = index._names
+        items = [(names[rid], est) for _, rid, est in _drain(heap)]
+        return DiscoveryResult(items=items, stats=stats)
+
+
+def _pair_scan(ea: DiscoveryEngine, eb: DiscoveryEngine, k: int, *,
+               absolute: bool = False,
+               audit: bool = False) -> DiscoveryResult:
+    """Bound-pruned scan of every (row of ``ea``) x (row of ``eb``) pair;
+    when both engines wrap the same index, each unordered pair is scored
+    once and self-pairs are left out."""
+    symmetric = ea.index is eb.index
+    if ea.tile != eb.tile:
+        raise ValueError("engines must share a tile size to scan jointly")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if not ea.index._names or not eb.index._names:
+        raise ValueError("discovery on an empty index: add vectors first")
+    ca, pa = ea._prepare()
+    cb, pb = eb._prepare()
+    sa, sb = ea._summaries, eb._summaries
+    T = ea.tile
+
+    ceil = ea._ceiling_matrix(eb)
+    if symmetric:
+        uu, vv = np.triu_indices(sa.n_tiles)
+    else:
+        uu, vv = np.indices(ceil.shape).reshape(2, -1)
+    order = np.argsort(-ceil[uu, vv], kind="stable")
+    uu, vv = uu[order], vv[order]
+
+    stats = ScanStats(
+        tiles_total=uu.size,
+        summary_tiles_refreshed=sa.refreshes + (0 if symmetric
+                                                else sb.refreshes))
+    heap: list = []
+    audit_log: Optional[list] = [] if audit else None
+    n_visited = 0
+    for u, v, c in zip(uu, vv, ceil[uu, vv]):
+        c = float(c)
+        if len(heap) == k and c < heap[0][0]:
+            break
+        n_visited += 1
+        rows_u, rows_v = sa.tile_rows(int(u)), sb.tile_rows(int(v))
+        est = _tile(ca, pa, cb, pb, rows_u, rows_v)
+        score = np.abs(est) if absolute else est
+        if symmetric and u == v:
+            # the same tile on both sides: strict original-id order drops
+            # the mirrored pairs and the self-pairs (tiles u < v have
+            # disjoint members)
+            flat = np.flatnonzero(rows_u[:, None] < rows_v[None, :])
+        else:
+            flat = np.arange(est.size)
+        if flat.size:
+            sflat = score.ravel()[flat]
+            if flat.size > k:
+                keep = np.argpartition(-sflat, k - 1)[:k]
+                flat, sflat = flat[keep], sflat[keep]
+            payloads = []
+            for fi in flat:
+                i, j = divmod(int(fi), rows_v.size)
+                aid, bid = int(rows_u[i]), int(rows_v[j])
+                if symmetric and aid > bid:
+                    aid, bid = bid, aid
+                payloads.append((aid, bid, float(est[i, j])))
+            _push_candidates(heap, k, sflat, payloads)
+        if audit_log is not None:
+            audit_log.append({"u": int(u), "v": int(v), "ceiling": c,
+                              "launched": True})
+    if audit_log is not None:
+        for u, v, c in zip(uu[n_visited:], vv[n_visited:],
+                           ceil[uu[n_visited:], vv[n_visited:]]):
+            audit_log.append({"u": int(u), "v": int(v), "ceiling": float(c),
+                              "launched": False})
+    stats.kernel_launches = stats.tiles_launched = n_visited
+    stats.tiles_pruned = stats.tiles_total - n_visited
+    stats.threshold = heap[0][0] if len(heap) == k else float("-inf")
+    # the tile buffer reckoned at a full (T, T) tile, as the reference's
+    # padded one: three float32 copies and the bool validity mask
+    tile_bytes = (3 * 4 + 1) * T * T if n_visited else 0
+    corpus_bytes = ea._corpus_nbytes() + (0 if symmetric
+                                          else eb._corpus_nbytes())
+    stats.peak_bytes = (corpus_bytes + sa.nbytes()
+                        + (0 if symmetric else sb.nbytes())
+                        + ceil.nbytes + uu.nbytes + vv.nbytes
+                        + tile_bytes + 80 * max(len(heap), 1))
+    names_a, names_b = ea.index._names, eb.index._names
+    items = [(names_a[aid], names_b[bid], est)
+             for _, aid, bid, est in _drain(heap)]
+    return DiscoveryResult(items=items, stats=stats, audit=audit_log)

@@ -20,8 +20,10 @@ privacy accountant.
 row-sampled matrix sketches answering ``A^T B`` estimates, one query
 against the whole library with one launch of the matrix-product kernel.
 
-``top_pairs`` and ``top_k_for_query`` come with a later slice (ROADMAP
-queue A, step 11).
+``top_pairs`` and ``top_k_for_query`` run the bound-pruned discovery
+scan of :mod:`repro_torch.serve.discovery` (one all-pairs kernel launch
+a visited tile pair), on a lazy engine that keeps its tile summaries
+between calls.
 """
 from __future__ import annotations
 
@@ -155,6 +157,7 @@ class SketchIndex:
         self._kn = np.zeros((self._cap,), np.float32)
         self._stats_epoch = 0
         self._stats_rows_computed = 0
+        self._discovery = None   # lazy DiscoveryEngine (tile summaries)
         # bias-aware head state: per-row exact top-head_h coordinates,
         # values, and whether each landed in the bucketized kept set
         self._head_idx = np.full((self._cap, self.head_h), -1, np.int64)
@@ -491,6 +494,25 @@ class SketchIndex:
             D = len(self._names)
             sp.set("rows", D)
             return est[:D, :D]
+
+    def top_pairs(self, k: int = 10, **kw):
+        """Top-k most similar pairs by the bound-pruned tile scan: an
+        O(D m) working set, never the (D, D) matrix.  Keywords go to
+        :meth:`~repro_torch.serve.discovery.DiscoveryEngine.top_pairs`;
+        returns a :class:`~repro_torch.serve.discovery.DiscoveryResult`."""
+        return self._engine().top_pairs(k, **kw)
+
+    def top_k_for_query(self, vector: np.ndarray, k: int = 10, **kw):
+        """Top-k indexed vectors for one query by the bound-pruned scan:
+        corpus tiles whose ceiling falls below the running k-th score are
+        never launched."""
+        return self._engine().top_k_for_query(vector, k, **kw)
+
+    def _engine(self):
+        from .discovery import DiscoveryEngine  # it imports this module
+        if self._discovery is None:
+            self._discovery = DiscoveryEngine(self)
+        return self._discovery
 
     def merge_from(self, other: "SketchIndex") -> None:
         """Merge a partition-peer index into this one, row by row, without

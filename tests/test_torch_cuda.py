@@ -1239,3 +1239,97 @@ def test_table_store_on_card_matches_cpu(cuda_device):
     assert [n for n, _ in got] == [n for n, _ in want]
     np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
                                atol=1e-5)
+
+
+def _skewed_index(device, D, seed=0, m=64, n=4096):
+    """A ``SketchIndex`` on ``device`` over Zipf(1.5)-scaled Gaussian rows
+    (the discovery regime: heavy-tailed norms), six planted pairs."""
+    rng = np.random.default_rng(seed)
+    scales = (np.arange(1, D + 1, dtype=np.float32) ** -1.5) * 8.0
+    X = rng.standard_normal((D, n), dtype=np.float32) * scales[:, None]
+    for i in range(6):
+        X[2 * i + 1] = 0.9 * X[2 * i] + 0.3 * scales[2 * i + 1] * \
+            rng.standard_normal(n).astype(np.float32)
+    ix = SketchIndex(m, n_buckets=128, slots=4, device=device)
+    ix.add_many([f"c{i}" for i in range(D)], X)
+    return ix, X
+
+
+def _sorted_pairs(est, names, k, absolute):
+    """The top k of the upper triangle of ``est``: descending score, ties
+    by ascending (row, column)."""
+    iu, ju = np.triu_indices(est.shape[0], k=1)
+    v = est[iu, ju]
+    score = np.abs(v) if absolute else v
+    order = np.lexsort((ju, iu, -score))[:k]
+    return [(names[iu[o]], names[ju[o]], float(v[o])) for o in order]
+
+
+@pytest.mark.parametrize("absolute", [False, True])
+@pytest.mark.parametrize("tile", [8, 64, 128])
+def test_discovery_scan_equals_all_pairs_sort(cuda_device, tile, absolute):
+    """The pruned scan on the card: bit-equal to ``all_pairs()`` plus the
+    sort (a tile's cells equal all_pairs' blocks), every visited tile one
+    launch of B5's kernel, and the tiles accounted for."""
+    from repro_torch.serve import DiscoveryEngine
+    ix, _ = _skewed_index(cuda_device, 600)
+    want = _sorted_pairs(ix.all_pairs(), ix._names, 10, absolute)
+    eng = DiscoveryEngine(ix, tile=tile)
+    before = tk.allpairs_estimate.launches
+    res = eng.top_pairs(k=10, absolute=absolute)
+    s = res.stats
+    assert tk.allpairs_estimate.launches - before == s.kernel_launches
+    assert s.kernel_launches == s.tiles_launched > 0
+    assert s.tiles_launched + s.tiles_pruned == s.tiles_total
+    assert res.items == want
+
+
+def test_discovery_query_scan_equals_one_row_launch(cuda_device):
+    """The query scan against one one-row launch of B5 over every row plus
+    the sort, bit for bit, and its launches counted."""
+    from repro_torch.core import priority_sketch
+    ix, X = _skewed_index(cuda_device, 600, seed=1)
+    q = 0.7 * X[4] + 0.2 * X[9]
+    sq = priority_sketch(torch.as_tensor(q, device=cuda_device), ix.m,
+                         ix.seed)
+    qb = tk.bucketize(sq, n_buckets=ix.n_buckets, slots=ix.slots)
+    qc = tk.BucketizedSketch(qb.idx[None], qb.val[None], qb.tau.reshape(1),
+                             torch.zeros(1, dtype=torch.int32,
+                                         device=cuda_device))
+    c = ix._corpus()
+    est = tk.estimate_tile_rows(
+        qc.idx, qc.val, tk.slot_inclusion_probs(qc), c.idx, c.val,
+        tk.slot_inclusion_probs(c), [0], np.arange(len(ix))).cpu().numpy()[0]
+    for absolute in (False, True):
+        score = np.abs(est) if absolute else est
+        order = np.lexsort((np.arange(est.size), -score))[:10]
+        before = tk.allpairs_estimate.launches
+        res = ix.top_k_for_query(q, k=10, absolute=absolute)
+        assert tk.allpairs_estimate.launches - before == \
+            res.stats.kernel_launches > 0
+        assert res.items == [(ix._names[i], float(est[i])) for i in order]
+
+
+def test_discovery_after_add_many_equals_fresh_engine(cuda_device):
+    """An engine that scanned before an ``add_many`` (high-norm rows that
+    reorder the tiles, then low-norm rows that dirty the tail) answers as
+    a fresh engine does, and as ``all_pairs()`` plus the sort."""
+    from repro_torch.serve import DiscoveryEngine
+    ix, X = _skewed_index(cuda_device, 300, seed=2)
+    eng = DiscoveryEngine(ix, tile=64)
+    eng.top_pairs(k=10)
+    rng = np.random.default_rng(3)
+    for names, rows in (
+            ([f"hot{i}" for i in range(40)],
+             X[:40] * 3.0 + rng.standard_normal(X[:40].shape,
+                                                dtype=np.float32)),
+            ([f"tiny{i}" for i in range(70)],
+             np.full((70, X.shape[1]), 1e-4, np.float32))):
+        refreshed = eng._summaries.refreshes
+        ix.add_many(names, rows)
+        got = eng.top_pairs(k=10, audit=True)
+        want = DiscoveryEngine(ix, tile=64).top_pairs(k=10, audit=True)
+        assert eng._summaries.refreshes > refreshed
+        assert got.items == want.items == _sorted_pairs(
+            ix.all_pairs(), ix._names, 10, False)
+        assert got.audit == want.audit

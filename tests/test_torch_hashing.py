@@ -112,7 +112,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.kernels.jl_rademacher.ops\n"
         "import repro_torch.data, repro_torch.data.tables, "
         "repro_torch.data.synthetic, repro_torch.core.join_correlation, "
-        "repro_torch.kernels.sketch_build.combined\n"
+        "repro_torch.kernels.sketch_build.combined, "
+        "repro_torch.serve.discovery\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
