@@ -119,7 +119,30 @@ exits nonzero with no result line):
                  low-norm rows and its next scan refreshes only trailing
                  tiles and still equals ``all_pairs()`` plus the sort; B5's
                  launches rise by each scan's kernel launches;
-11. ``timing``   end-to-end and per-kernel CUDA-event times with each
+11. ``sharded_path`` sharded serving (``ShardedSketchIndex`` in 4
+                 shards, ``ShardedDiscoveryEngine``'s guarded fan-out in
+                 worker threads on the card's stream,
+                 ``partitioned_sketch_corpus_sharded``): the discovery
+                 path's skewed corpus round-robin over 4 shards, its
+                 ``top_pairs`` (plain, absolute, Chebyshev) and
+                 ``all_pairs()`` bit-equal to the global index's (exact
+                 ties aside for Chebyshev), ``top_k_for_query`` for 16
+                 planted queries bit-equal to the global scan and equal
+                 by names (within rtol) to ``query(top_k=10)``, one
+                 cross-shard B5 tile against its plain route and the
+                 global matrix's block; the main path's rows in 4 shards
+                 (no tile prunes): ``top_pairs``, ``all_pairs`` and 64
+                 queries bit-equal to the global index's; faults on the
+                 skewed index: shard 1 raising ``ConnectionError`` under
+                 ``RetryPolicy(attempts=2)`` (degraded, coverage as
+                 reckoned from the shard sizes, every surviving true
+                 top-10 pair found, its tasks tried twice), a
+                 ``TimeoutError`` tried once, shard 0 killed (never
+                 called) and revived (coverage 1.0); the partitioned
+                 build as a one-rank NCCL group over a 512 x 65536 block
+                 (priority bit-equal to the one-shot build, threshold
+                 idx bit-equal and tau within rtol 1e-5);
+12. ``timing``   end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, the per-step split of ``add_many``,
                  ``query``, ``all_pairs``, ``merge_from`` and the store's
                  ``query``, B5's compaction and join apart, and the
@@ -149,10 +172,14 @@ exits nonzero with no result line):
                  64, 512, 4) through ``estimate_tile_rows``, with its copy
                  to the host and device-only, beside its bound,
                  ``top_k_for_query`` and ``query`` p50, ``all_pairs`` plus
-                 the sort at D = 8192;
-12. ``kernels``  one line per the port's kernel table.
+                 the sort at D = 8192; sharded beside global on the same
+                 rows (``top_pairs`` p50 with the fan-out in 8 threads
+                 and in 1, ``top_k_for_query`` p50, tiles launched and
+                 pruned, peak bytes, ``all_pairs``, and the flat scan in
+                 8 threads and in 1);
+13. ``kernels``  one line per the port's kernel table.
 
-Each path (4-10) zeroes every kernel's launch counter before it runs and
+Each path (4-11) zeroes every kernel's launch counter before it runs and
 reads them after; each of its kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
 
@@ -234,6 +261,9 @@ TOPK_MIN_REDUCTION = 5.0   # tile pairs over tile launches
 TOPK_BYTES_PER_SAMPLE = 40  # peak scan bytes over D m
 TOPK_TAIL_SCALE = 1e-7     # appended rows, below every column's scale
 TOPK_REPS, TOPK_QUERIES = 5, 20
+# the sharded path: the discovery corpus and the main path's index in 4
+# shards; planted queries of the skewed corpus, queries of the flat one
+SHARDS, SHARD_QUERIES, FLAT_QUERIES = 4, 16, 64
 
 
 def emit(obj) -> None:
@@ -652,7 +682,8 @@ def main() -> None:
     from repro_torch.private import (DPParams, bias_aware_cs_sketch,
                                      estimate_bias_aware_cs, head_split)
     from repro_torch.distributed import (partitioned_matrix_sketch,
-                                         partitioned_sketch_corpus)
+                                         partitioned_sketch_corpus,
+                                         partitioned_sketch_corpus_sharded)
     from repro_torch.engine import (build_payload_corpus, pack_payloads,
                                     payload_weight, to_matrix)
     from repro_torch.kernels.matrix_sketch import matrix_products_ref
@@ -673,7 +704,9 @@ def main() -> None:
                                                   union_positions)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
     from repro_torch.serve import (DiscoveryEngine, MatrixSketchStore,
-                                   SketchIndex, index_from_arrays)
+                                   RetryPolicy, ShardedDiscoveryEngine,
+                                   ShardedSketchIndex, SketchIndex,
+                                   index_from_arrays)
     from repro_torch.serve.validation import check_finite, check_vector
 
     dev = torch.device("cuda")
@@ -2200,6 +2233,292 @@ def main() -> None:
           "seconds": dp["seconds"],
           "launches": launches["discovery_path"]})
 
+    # ---------------------------------------------------------- sharded path
+    def same_up_to_ties(got: list, want: list, what: str) -> None:
+        """Two answers' estimates bit-equal position by position; their
+        names equal except where the estimate ties another of ``want``'s
+        (the global heap and the coordinator break exact ties their own
+        ways)."""
+        check([it[-1] for it in got] == [it[-1] for it in want],
+              f"{what}: the estimates differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g[:-1] == w[:-1] or sum(it[-1] == w[-1] for it in want)
+                  > 1, f"{what}: {g} against {w} at {i}, not a tie")
+
+    def homes_of(sh) -> np.ndarray:
+        """(D, 2) (shard, row in shard) of every global row."""
+        return np.array(sh._homes, np.int64).reshape(-1, 2)
+
+    def counting_engine(sh, raise_on, exc, **kw):
+        """A fan-out whose ``call_wrapper`` records every task attempt and
+        raises ``exc`` for tasks that touch shard ``raise_on``."""
+        calls = []
+
+        def wrapper(shards, fn):
+            calls.append(shards)
+            if raise_on in shards:
+                raise exc(f"injected fault on shard {raise_on}")
+            return fn()
+
+        eng = ShardedDiscoveryEngine(sh, tile=TOPK_TILE, call_wrapper=wrapper,
+                                     sleep=lambda s: None, **kw)
+        return eng, calls
+
+    def fault_gates(sh, truth) -> dict:
+        """Shard 1 lost to ConnectionError (2 tries), to TimeoutError (1
+        try); shard 0 killed, then revived."""
+        D_s = len(sh)
+        sizes = [len(s) for s in sh._shards]
+        total = D_s * (D_s - 1) // 2
+        lost_1 = sizes[1] * (sizes[1] - 1) // 2 + sizes[1] * (D_s - sizes[1])
+        home = dict(zip(sh._names, homes_of(sh)[:, 0].tolist()))
+        out = {}
+        eng, calls = counting_engine(
+            sh, 1, ConnectionError,
+            retry=RetryPolicy(attempts=2, base_delay=0.0))
+        res = eng.top_pairs(TOPK_K)
+        tries = collections.Counter(calls)
+        lost = tuple((s, t) for s in range(SHARDS) for t in range(s, SHARDS)
+                     if 1 in (s, t))
+        got = {it[:2] for it in res.items}
+        surviving = [it[:2] for it in truth
+                     if home[it[0]] != 1 and home[it[1]] != 1]
+        check(res.degraded and res.lost_pairs == lost
+              and res.coverage == (total - lost_1) / total,
+              f"shard 1 lost: degraded={res.degraded}, lost "
+              f"{res.lost_pairs}, coverage {res.coverage}")
+        check(all(p in got for p in surviving),
+              "shard 1 lost: a surviving true top-k pair is missing")
+        check(all(tries[key] == 2 for key in lost)
+              and all(tries[key] == 1 for key in tries if key not in lost),
+              f"shard 1 lost: attempts {dict(tries)}")
+        out["connection_error"] = {
+            "coverage": res.coverage, "lost_pairs": list(res.lost_pairs),
+            "surviving_true_pairs_found": f"{len(surviving)}/"
+                                          f"{len(surviving)}",
+            "attempts_of_lost_tasks": [tries[key] for key in lost],
+            "tiles_launched": res.stats.tiles_launched}
+        eng, calls = counting_engine(
+            sh, 1, TimeoutError, retry=RetryPolicy(attempts=5, base_delay=0.0))
+        res = eng.top_pairs(TOPK_K)
+        tries = collections.Counter(calls)
+        check(res.degraded and res.lost_pairs == lost
+              and all(tries[key] == 1 for key in tries),
+              f"timeout: lost {res.lost_pairs}, attempts {dict(tries)}")
+        out["timeout"] = {"coverage": res.coverage,
+                          "attempts": sorted(set(tries.values()))}
+        eng, calls = counting_engine(sh, -1, ConnectionError)
+        eng.kill_shard(0, "maintenance")
+        down = eng.top_pairs(TOPK_K)
+        down_calls = list(calls)
+        eng.revive_shard(0)
+        up = eng.top_pairs(TOPK_K)
+        check(down.degraded and down.lost_shards == (0,)
+              and all(0 not in key for key in down_calls),
+              f"killed shard 0: lost shards {down.lost_shards}, calls "
+              f"{sorted(set(down_calls))}")
+        check(not up.degraded and up.coverage == 1.0
+              and up.items == truth,
+              f"revived shard 0: coverage {up.coverage}")
+        out["killed_shard_0"] = {"coverage": down.coverage,
+                                 "calls_to_shard_0": 0,
+                                 "revived_coverage": up.coverage}
+        return out
+
+    def nccl_build():
+        """``partitioned_sketch_corpus_sharded`` as a one-rank NCCL group
+        over the main path's first 512 x 65536 block, both methods."""
+        import torch.distributed as dist
+        from datetime import timedelta
+        rdv = os.path.join(ROOT, "build", f"nccl_rendezvous.{os.getpid()}")
+        os.makedirs(os.path.dirname(rdv), exist_ok=True)
+        if os.path.exists(rdv):
+            os.remove(rdv)
+        dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                                world_size=1, timeout=timedelta(seconds=60))
+        try:
+            A = torch.as_tensor(dense_rows(vidx, vval, range(BLOCK_ROWS)),
+                                device=dev)
+            out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+            # the first collective creates the NCCL communicator: timed apart
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            partitioned_sketch_corpus_sharded(A, M, SEED)
+            torch.cuda.synchronize()
+            out["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+            for method in ("priority", "threshold"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sk = partitioned_sketch_corpus_sharded(A, M, SEED,
+                                                       method=method)
+                torch.cuda.synchronize()
+                out[method] = sk
+                out[f"{method}_ms"] = (time.perf_counter() - t0) * 1e3
+            return A, out
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(rdv):
+                os.remove(rdv)
+
+    def sharded_path():
+        X = topk_corpus()
+        names_t = [f"c{i}" for i in range(TOPK_D)]
+        sh = ShardedSketchIndex(num_shards=SHARDS, m=TOPK_M,
+                                n_buckets=TOPK_BUCKETS, slots=TOPK_SLOTS,
+                                seed=SEED, device=dev)
+        for lo in range(0, TOPK_D, BLOCK_ROWS):
+            sh.add_many(names_t[lo:lo + BLOCK_ROWS], X[lo:lo + BLOCK_ROWS])
+        queries = X[:SHARD_QUERIES].copy()
+        del X
+        check(np.array_equal(homes_of(sh), np.stack(
+            [np.arange(TOPK_D) % SHARDS, np.arange(TOPK_D) // SHARDS], 1)),
+              "skewed: the homes are not round-robin")
+        scans = {mode: sh.top_pairs(TOPK_K, absolute=absolute)
+                 for mode, absolute in (("plain", False), ("absolute", True))}
+        cheb = ShardedDiscoveryEngine(sh, tile=TOPK_TILE,
+                                      ceiling="chebyshev").top_pairs(TOPK_K)
+        for res in (*scans.values(), cheb):
+            st = res.stats
+            check(not res.degraded and res.coverage == 1.0
+                  and st.kernel_launches == st.tiles_launched > 0
+                  and st.tiles_launched + st.tiles_pruned == st.tiles_total
+                  == dp["scans"]["plain"].stats.tiles_total,
+                  f"skewed sharded scan: {st}, coverage {res.coverage}")
+        q_scans = [sh.top_k_for_query(q, TOPK_K) for q in queries]
+        q_index = [sh.query(q, top_k=TOPK_K) for q in queries]
+        t0 = time.perf_counter()
+        est_s = sh.all_pairs()
+        all_pairs_ms = (time.perf_counter() - t0) * 1e3
+        faults = fault_gates(sh, dp["scans"]["plain"].items)
+        # the flat index: the main path's rows in the main path's order
+        fsh = ShardedSketchIndex(num_shards=SHARDS, m=M, n_buckets=N_BUCKETS,
+                                 slots=SLOTS, seed=SEED, device=dev)
+        for lo in range(0, D_BATCH, BLOCK_ROWS):
+            rows = list(range(lo, min(lo + BLOCK_ROWS, D_BATCH)))
+            fsh.add_many([names[r] for r in rows],
+                         dense_rows(vidx, vval, rows))
+        for d in range(D_BATCH, D):
+            fsh.add(names[d], indices=vidx[d], values=vval[d])
+        t0 = time.perf_counter()
+        fscan = fsh.top_pairs(TOPK_K)
+        fscan_ms = (time.perf_counter() - t0) * 1e3
+        fq = [planted(qi, sources[qi]) for qi in range(FLAT_QUERIES)]
+        f_answers = [fsh.query(q) for q in fq]
+        f_all_pairs = fsh.all_pairs()
+        nccl_A, nccl = nccl_build()
+        return dict(index=sh, queries=queries, scans=scans, cheb=cheb,
+                    q_scans=q_scans, q_index=q_index, est=est_s,
+                    all_pairs_ms=all_pairs_ms, faults=faults, flat=fsh,
+                    fscan=fscan, fscan_ms=fscan_ms, fq=fq,
+                    f_answers=f_answers, f_all_pairs=f_all_pairs,
+                    nccl_A=nccl_A, nccl=nccl)
+
+    shp, launches["sharded_path"] = run_path(kernels, sharded_path)
+    # the query sketches are priority sketches: B1 and B2, not B3
+    need = ("hash_rank_hist", "radix_select", "intersect_estimate",
+            "allpairs_compact", "allpairs_estimate")
+    check(all(launches["sharded_path"][k] > 0 for k in need),
+          f"a kernel of the sharded path never launched: {launches}")
+    # the gates against the global index (its launches outside the path)
+    sh, fsh = shp["index"], shp["flat"]
+    for mode in ("plain", "absolute"):
+        check(shp["scans"][mode].items == dp["scans"][mode].items,
+              f"skewed sharded top_pairs ({mode}) differs from the global "
+              "index's")
+    same_up_to_ties(shp["cheb"].items, dp["cheb"].items,
+                    "skewed sharded Chebyshev scan vs the global one")
+    est_g = dp["index"].all_pairs()
+    assert_bits(torch.as_tensor(shp["est"]), torch.as_tensor(est_g),
+                "skewed sharded all_pairs vs the global all_pairs")
+    del est_g
+    q_err = 0.0
+    for i, (q, res, top) in enumerate(zip(shp["queries"], shp["q_scans"],
+                                          shp["q_index"])):
+        same_up_to_ties(res.items, dp["eng"].top_k_for_query(
+            q, TOPK_K).items, f"skewed sharded top_k_for_query {i} vs the "
+            "global one")
+        q_err = max(q_err, same_ranking(
+            res.items, top, f"skewed sharded top_k_for_query {i} vs "
+            "query(top_k)"))
+    check(shp["fscan"].items == dp["fscans"]["plain"].items,
+          "flat sharded top_pairs differs from the global scan's")
+    assert_bits(torch.as_tensor(shp["f_all_pairs"]), torch.as_tensor(ap),
+                "flat sharded all_pairs vs the global all_pairs")
+    for i, (q, got) in enumerate(zip(shp["fq"], shp["f_answers"])):
+        want = index.query(q)
+        check([n for n, _ in got] == [n for n, _ in want],
+              f"flat query {i}: names differ")
+        assert_bits(torch.tensor([e for _, e in got], dtype=torch.float32),
+                    torch.tensor([e for _, e in want], dtype=torch.float32),
+                    f"flat sharded query {i} vs the global query")
+    nccl = shp["nccl"]
+    one_shot = tk.build_priority_corpus(shp["nccl_A"], M, SEED)
+    for g, w, f in zip(nccl["priority"], one_shot, ("idx", "val", "tau")):
+        assert_bits(g, w, f"NCCL partitioned priority {f} vs the one-shot "
+                          "build")
+    one_shot_t = tk.build_threshold_corpus(shp["nccl_A"], M, SEED)
+    assert_bits(nccl["threshold"].idx, one_shot_t.idx,
+                "NCCL partitioned threshold idx vs the one-shot build")
+    nccl_tau_err = assert_tol(nccl["threshold"].tau, one_shot_t.tau, 1e-5,
+                              0.0, "NCCL partitioned threshold tau")
+    # B5 on one cross-shard tile (the first tiles of shards 0 and 1)
+    # against its plain version and the global matrix's block
+    e0, e1 = sh._discovery._engines[:2]
+    (c0, p0), (c1, p1) = e0._prepare(), e1._prepare()
+    r0, r1 = e0.tile_members(0), e1.tile_members(0)
+    cross_args = (c0.idx, c0.val, p0, c1.idx, c1.val, p1, r0, r1)
+    cross = tk.estimate_tile_rows(*cross_args)
+    cross_err = assert_close(
+        cross, tk.estimate_tile_rows(*cross_args, use_kernel=False),
+        f"cross-shard tile ({len(r0)}, {len(r1)}) vs its plain route")
+    gid = {h: g for g, h in enumerate(sh._homes)}
+    assert_bits(cross.cpu(), torch.as_tensor(shp["est"][np.ix_(
+        [gid[(0, int(r))] for r in r0], [gid[(1, int(r))] for r in r1])]),
+        "cross-shard tile vs the global matrix's block")
+    err["allpairs_estimate"] = max(err["allpairs_estimate"], cross_err)
+    del shp["est"], shp["f_all_pairs"]
+    emit({"phase": "sharded_path", "shards": SHARDS,
+          "skewed": {
+              "D": TOPK_D, "n": TOPK_N, "m": TOPK_M,
+              "n_buckets": TOPK_BUCKETS, "slots": TOPK_SLOTS,
+              "tile": TOPK_TILE, "k": TOPK_K,
+              "shard_sizes": [len(s) for s in sh._shards],
+              "top_pairs": {k: stats_of(v) for k, v in shp["scans"].items()},
+              "global_top_pairs": {k: stats_of(v)
+                                   for k, v in dp["scans"].items()},
+              "chebyshev": stats_of(shp["cheb"]),
+              "top_k_for_query_launched_p50": float(np.median(
+                  [r.stats.tiles_launched for r in shp["q_scans"]])),
+              "query_vs_index_query_max_abs_err": q_err,
+              "all_pairs_ms": shp["all_pairs_ms"],
+              "cross_tile_vs_plain": {
+                  "shape": [len(r0), len(r1), TOPK_BUCKETS, TOPK_SLOTS],
+                  "max_abs_err": cross_err, "parity": f"rtol={RTOL}"}},
+          "flat": {"D": D, "top_pairs": stats_of(shp["fscan"]),
+                   "top_pairs_ms": shp["fscan_ms"],
+                   "queries_bit_equal": FLAT_QUERIES},
+          "faults": shp["faults"],
+          "nccl_build": {"backend": nccl["backend"], "world": nccl["world"],
+                         "shape": list(shp["nccl_A"].shape),
+                         "first_call_ms": nccl["first_call_ms"],
+                         "priority_ms": nccl["priority_ms"],
+                         "threshold_ms": nccl["threshold_ms"],
+                         "threshold_tau_max_abs_err": nccl_tau_err},
+          "gates_passed": [
+              "skewed top_pairs (plain, absolute) and all_pairs bit-equal "
+              "to the global index's; Chebyshev up to exact ties",
+              "top_k_for_query bit-equal to the global scan (up to exact "
+              "ties) and by names to query(top_k)",
+              "flat top_pairs, all_pairs and query bit-equal to the global "
+              "index's",
+              "lost shard: coverage as reckoned, surviving true pairs "
+              "found, 2 tries (ConnectionError), 1 (TimeoutError); killed "
+              "shard never called, revived coverage 1.0",
+              "NCCL world-1 build: priority bit-equal, threshold idx "
+              "bit-equal and tau within rtol 1e-5"],
+          "seconds": shp["seconds"],
+          "launches": launches["sharded_path"]})
+
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()
     C, B, S = corpus.idx.shape
@@ -2963,6 +3282,55 @@ def main() -> None:
     disc_t["skewed"]["all_pairs_ms"] = ap_t_ms
     disc_t["skewed"]["all_pairs_sort_ms"] = sort_t_ms
     del est_t
+    # sharded serving beside the global index on the same rows, the calls
+    # alternated (global, fan-out in 8 threads, fan-out in 1): top_pairs
+    # p50 of TOPK_REPS, top_k_for_query p50 over the SHARD_QUERIES
+    # queries, all_pairs; the flat index's scan once each
+    shx, gix = shp["index"], dp["index"]
+    fan = {"threads_8": shx._discovery,
+           "threads_1": ShardedDiscoveryEngine(shx, tile=TOPK_TILE,
+                                               max_workers=1)}
+    fan["threads_1"].top_pairs(TOPK_K)
+    scan_runs = collections.defaultdict(list)
+    for _ in range(TOPK_REPS):
+        scan_runs["global"].append(step_ms(
+            lambda: dp["eng"].top_pairs(TOPK_K))[1])
+        for key, eng in fan.items():
+            scan_runs[key].append(step_ms(
+                lambda eng=eng: eng.top_pairs(TOPK_K))[1])
+    query_runs = collections.defaultdict(list)
+    for q in shp["queries"]:
+        query_runs["global"].append(step_ms(
+            lambda: dp["eng"].top_k_for_query(q, TOPK_K))[1])
+        for key, eng in fan.items():
+            query_runs[key].append(step_ms(
+                lambda eng=eng: eng.top_k_for_query(q, TOPK_K))[1])
+    _, ap_global_ms = step_ms(gix.all_pairs)
+    _, ap_sharded_ms = step_ms(shx.all_pairs)
+    _, flat_global_ms = step_ms(lambda: dp["feng"].top_pairs(TOPK_K))
+    _, flat_sharded_ms = step_ms(lambda: shp["flat"].top_pairs(TOPK_K))
+    _, flat_serial_ms = step_ms(lambda: ShardedDiscoveryEngine(
+        shp["flat"], tile=TOPK_TILE, max_workers=1).top_pairs(TOPK_K))
+    sharded_t = {
+        "top_pairs_p50_ms": {k: float(np.median(v))
+                             for k, v in scan_runs.items()},
+        "top_k_for_query_p50_ms": {k: float(np.median(v))
+                                   for k, v in query_runs.items()},
+        "tiles_launched": {
+            "global": dp["scans"]["plain"].stats.tiles_launched,
+            "sharded": shp["scans"]["plain"].stats.tiles_launched},
+        "tiles_pruned": {
+            "global": dp["scans"]["plain"].stats.tiles_pruned,
+            "sharded": shp["scans"]["plain"].stats.tiles_pruned},
+        "peak_bytes": {"global": dp["scans"]["plain"].stats.peak_bytes,
+                       "sharded_merged":
+                           shp["scans"]["plain"].stats.peak_bytes},
+        "all_pairs_ms": {"global": ap_global_ms, "sharded": ap_sharded_ms},
+        "flat_top_pairs_ms": {"global": flat_global_ms,
+                              "threads_8": flat_sharded_ms,
+                              "threads_1": flat_serial_ms,
+                              "tiles_launched": shp["fscan"].stats
+                              .tiles_launched}}
     # B2 at the union positions' shape (512, 2^18), k = m + 1: device-only,
     # through the wrapper, its plain version and torch.kthvalue
     q_o = torch.empty(BLOCK_ROWS, device=dev)
@@ -3040,12 +3408,14 @@ def main() -> None:
                            "matrix_path": mx["seconds"],
                            "join_size_path": jp["seconds"],
                            "join_corr_path": jcp["seconds"],
-                           "discovery_path": dp["seconds"]},
+                           "discovery_path": dp["seconds"],
+                           "sharded_path": shp["seconds"]},
           "combined_build_ms_per_block": combined_build,
           "correlation_matrix_ms": corr_total_ms,
           "correlation_matrix_steps_ms": corr_steps,
           "allpairs_moments_b1024": b5_moments,
           "discovery": disc_t,
+          "sharded": sharded_t,
           "radix_select_union_positions": b2_union,
           "store_add_column_p50_ms": float(np.percentile(
               jcp["store"]["add_ms"], 50)),
@@ -3143,7 +3513,8 @@ def main() -> None:
             "moments_shape": b5_moments,
             "discovery_tiles": {w: r["tile_launch"]
                                 for w, r in disc_t.items()},
-            "discovery_heavy_rows_max_abs_err": dp["block_err"]}}
+            "discovery_heavy_rows_max_abs_err": dp["block_err"],
+            "cross_shard_tile_max_abs_err": cross_err}}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

@@ -1,5 +1,5 @@
 """Map-reduce sketch construction over coordinate-partitioned corpora
-(DESIGN.md §14 of the reference), on one host.
+(DESIGN.md §14 of the reference).
 
 Coordinated sketches merge (``repro_torch.core.merge``), so a corpus whose
 coordinates are split over partitions never needs its full vectors in one
@@ -14,8 +14,11 @@ place:
   ``PartitionStats`` to recompute the adaptive tau.
 
 The matrix form (:func:`partitioned_matrix_sketch`) does the same over
-row slices of an (n, d) matrix.  The multi-process form (the reference's
-``shard_map`` variant) comes with a later slice (ROADMAP step A8).
+row slices of an (n, d) matrix.  :func:`partitioned_sketch_corpus_sharded`
+is the build as one ``torch.distributed`` program (the reference's
+``shard_map`` form): a partition a rank, the m-sized sketches
+all-gathered (the only communication), the same merge folded on every
+rank.
 """
 from __future__ import annotations
 
@@ -95,6 +98,61 @@ def partitioned_sketch_corpus(A, m: int, seed, *, num_partitions: int,
         st = PartitionStats(
             total_weight=torch.stack([x.total_weight for x in stats]),
             nnz=torch.stack([x.nnz for x in stats]))
+    # column slices are disjoint by construction: skip the duplicate scan
+    return tree_merge_sketches(parts, seed, m=m, method=method,
+                               variant=variant, cap=cap, adaptive=adaptive,
+                               stats=st, dedupe=False)
+
+
+def partitioned_sketch_corpus_sharded(A, m: int, seed, *, group=None,
+                                      method: str = "priority",
+                                      variant: str = "l2",
+                                      cap: int | None = None,
+                                      adaptive: bool = True,
+                                      device=None) -> Sketch:
+    """The map-reduce build as one ``torch.distributed`` program over the
+    ranks of ``group`` (default: the default process group; ``ValueError``
+    when none is initialised).  Every rank passes the whole (D, n) ``A``
+    and sketches its own ``n / world`` columns with the linear-time
+    builder, hashing their global ids; the (D, cap) sketches (and, for
+    threshold, the ``PartitionStats``) are all-gathered, and every rank
+    folds the same merge, so the result is replicated.
+
+    ``n`` must divide by the group's size.  Runs on ``device`` (default
+    ``cuda``, for NCCL); a gloo group takes ``device="cpu"``.  Equal to
+    :func:`partitioned_sketch_corpus` with ``num_partitions = world``."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError("partitioned_sketch_corpus_sharded needs an "
+                         "initialised torch.distributed process group "
+                         "(init_process_group)")
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    dev = resolve_device(device)
+    A = torch.atleast_2d(torch.as_tensor(A, dtype=torch.float32, device=dev))
+    D, n = A.shape
+    if n % world != 0:
+        raise ValueError(f"n={n} must divide over {world} shards")
+    shard_n = n // world
+    if method == "threshold" and cap is None:
+        cap = default_capacity(m)
+    lo = rank * shard_n
+    block = A[:, lo:lo + shard_n]
+    ids = torch.arange(lo, lo + shard_n, dtype=torch.int32, device=dev)
+    sk = _build_partition(block, m, seed, method=method, variant=variant,
+                          cap=cap, adaptive=adaptive, indices=ids, device=dev)
+
+    def gather(t):
+        out = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(out, t.contiguous(), group=group)
+        return torch.stack(out)
+
+    parts = Sketch(gather(sk.idx), gather(sk.val), gather(sk.tau))
+    st = None
+    if method == "threshold":
+        own = partition_stats(block, variant=variant)
+        st = PartitionStats(total_weight=gather(own.total_weight),
+                            nnz=gather(own.nnz))
     # column slices are disjoint by construction: skip the duplicate scan
     return tree_merge_sketches(parts, seed, m=m, method=method,
                                variant=variant, cap=cap, adaptive=adaptive,

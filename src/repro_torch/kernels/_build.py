@@ -7,6 +7,11 @@ Libraries go to ``build/repro_torch/<hash>/`` at the repository root,
 keyed by a hash of the sources and the flags, so a rebuild happens only
 when a source changes.  ``nvcc`` is found through ``CUDA_HOME``, then
 ``PATH``, then ``/usr/local/cuda``.
+
+Wrappers may launch from several threads at once (the sharded discovery
+fan-out): a first load builds under one module lock, so concurrent first
+calls run one ``nvcc`` a source, and :func:`count_launch` adds to a
+wrapper's ``launches`` under a lock of its own.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict = {}
 _BOUND: set = set()        # (source, C entry) whose argtypes are set
 BUILD_SECONDS: dict = {}   # source -> wall seconds of its nvcc run
+# held by builds, loads and argtype binding
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -61,6 +70,11 @@ def build_all() -> dict:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all at once.  Returns ``{name: ptxas report}``; raises with the
     compiler's output if any build fails."""
+    with _LOAD_LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict:
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -92,19 +106,31 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
     needed.  ``signatures`` maps each C entry the caller uses to its
     ``argtypes``; every entry returns a ``cudaError_t`` (int).  Several
-    wrapper modules may bind entries of one library."""
+    wrapper modules may bind entries of one library.  A library loaded
+    with these entries bound returns without taking the lock."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if not lib_path(name).exists():
-            build_all()
-        lib = ctypes.CDLL(str(lib_path(name)))
+    if lib is not None and all((name, fn) in _BOUND for fn in signatures):
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not lib_path(name).exists():
+                _build_all()
+            lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, argtypes in signatures.items():
+            if (name, fn) not in _BOUND:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+                _BOUND.add((name, fn))
         _LIBS[name] = lib
-    for fn, argtypes in signatures.items():
-        if (name, fn) not in _BOUND:
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-            _BOUND.add((name, fn))
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a read-modify-write, so under a
+    lock: wrappers launch from the fan-out's worker threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch_on(dev, launch):

@@ -68,7 +68,7 @@ def countsketch_scatter(values: torch.Tensor, m: int, seed_bucket: int,
         int(seed_sign) & 0xFFFFFFFF, out.data_ptr(),
         None if partial is None else partial.data_ptr(), stream))
     _build.check(err, "countsketch")
-    countsketch_scatter.launches += 1
+    _build.count_launch(countsketch_scatter)
     return out
 
 

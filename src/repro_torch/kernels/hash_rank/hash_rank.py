@@ -82,7 +82,7 @@ def hash_rank_batched(values: torch.Tensor, seed, *, variant: str = "l2"):
         values.data_ptr(), h.data_ptr(), rank.data_ptr(), D, n,
         int(seed) & 0xFFFFFFFF, code, spread, stream))
     _build.check(err, "hash_rank_batched")
-    hash_rank_batched.launches += 1
+    _build.count_launch(hash_rank_batched)
     return h, rank
 
 
@@ -104,7 +104,7 @@ def hash_rank(values: torch.Tensor, seed, *, variant: str = "l2"):
         values.data_ptr(), h.data_ptr(), rank.data_ptr(), n,
         int(seed) & 0xFFFFFFFF, code, spread, stream))
     _build.check(err, "hash_rank")
-    hash_rank.launches += 1
+    _build.count_launch(hash_rank)
     return h, rank
 
 

@@ -90,7 +90,7 @@ def intersect_estimate(q_idx, q_val, q_tau, c_idx, c_val, c_tau
         ptrs[0], ptrs[1], q_tau.data_ptr(), ptrs[2], ptrs[3],
         c_tau.data_ptr(), out.data_ptr(), C, B, S, vec, stream))
     _build.check(err, "intersect_estimate")
-    intersect_estimate.launches += 1
+    _build.count_launch(intersect_estimate)
     return out
 
 
@@ -122,7 +122,7 @@ def allpairs_compact(idx, val, p):
         idx.data_ptr(), val.data_ptr(), p.data_ptr(), entries.data_ptr(),
         counts.data_ptr(), D, B, S, stream))
     _build.check(err, "allpairs_compact")
-    allpairs_compact.launches += 1
+    _build.count_launch(allpairs_compact)
     return entries, counts
 
 
@@ -159,7 +159,7 @@ def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
         a[0].data_ptr(), a[1].data_ptr(), b[0].data_ptr(), b[1].data_ptr(),
         out.data_ptr(), D1, D2, B, S, int(moments), stream))
     _build.check(err, "allpairs_estimate")
-    allpairs_estimate.launches += 1
+    _build.count_launch(allpairs_estimate)
     return out
 
 

@@ -62,7 +62,7 @@ def jl_rademacher(values: torch.Tensor, row_seeds: torch.Tensor) -> torch.Tensor
     err = _build.launch_on(dev, lambda stream: lib.repro_jl_rademacher(
         values.data_ptr(), seeds.data_ptr(), n, m, out.data_ptr(), stream))
     _build.check(err, "jl_rademacher")
-    jl_rademacher.launches += 1
+    _build.count_launch(jl_rademacher)
     return out
 
 

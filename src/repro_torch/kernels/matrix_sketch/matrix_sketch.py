@@ -97,7 +97,7 @@ def matrix_products(a_idx, a_rows, a_p, b_idx, b_rows, b_p) -> torch.Tensor:
         b_rows.data_ptr(), b_p.data_ptr(), out.data_ptr(), P, int(Pa == P), B,
         S, da, db, stream))
     _build.check(err, "matrix_products")
-    matrix_products.launches += 1
+    _build.count_launch(matrix_products)
     return out
 
 

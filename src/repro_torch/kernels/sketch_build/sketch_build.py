@@ -62,7 +62,7 @@ def hash_rank_hist(values: torch.Tensor, seed, *, variant: str = "l2"):
         values.data_ptr(), h.data_ptr(), rank.data_ptr(), hist.data_ptr(), D,
         n, int(seed) & 0xFFFFFFFF, code, int(spread), stream))
     _build.check(err, "hash_rank_hist")
-    hash_rank_hist.launches += 1
+    _build.count_launch(hash_rank_hist)
     return h, rank, hist
 
 
@@ -103,7 +103,7 @@ def radix_select(keys: torch.Tensor, k, *,
         keys.data_ptr(), None if hist0 is None else hist0.data_ptr(), kptr,
         kscalar, out.data_ptr(), D, n, stream))
     _build.check(err, "radix_select")
-    radix_select.launches += 1
+    _build.count_launch(radix_select)
     return out
 
 

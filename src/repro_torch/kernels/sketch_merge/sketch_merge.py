@@ -73,7 +73,7 @@ def merge_bucketized(a_idx, a_val, b_idx, b_val, tau, seed, *,
         tau.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
         dropped.data_ptr(), D, B, S, int(seed) & 0xFFFFFFFF, code, stream))
     _build.check(err, "merge_bucketized")
-    merge_bucketized.launches += 1
+    _build.count_launch(merge_bucketized)
     return out_idx, out_val, dropped
 
 

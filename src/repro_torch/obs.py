@@ -1,33 +1,42 @@
 """The port's observability subset: one switch, timed spans, counters.
 
-A standalone copy of the part of ``repro.obs`` that the serving slice
-uses, so the port never imports the JAX package:
+A standalone copy of the part of ``repro.obs`` that the serving slices
+use, so the port never imports the JAX package:
 
 - :func:`enabled` — the ``REPRO_OBS`` switch (``enable``/``disable``);
 - :func:`op` — a timed span that also counts
   ``repro_op_total{op=...}`` and ``repro_op_errors_total{op=...}`` and
   sums ``repro_op_seconds{op=...}``;
+- :func:`span` — a plain timed span that records no metrics (the
+  sharded discovery fan-out's ``serve.discovery.task``);
 - :func:`kernel_launch` — ``repro_kernel_launches_total{kernel=...}``;
 - :func:`counter` — a plain named counter (the serving boundary's
-  rejection counts; discovery's ``repro_discovery_*_total{scan=...}``);
+  rejection counts; discovery's ``repro_discovery_*_total{scan=...}``;
+  the sharded fan-out's ``repro_retry_attempts_total``,
+  ``repro_deadline_hits_total``, ``repro_retry_backoffs_total`` and
+  ``repro_shard_down_total`` ``{surface="discovery"}`` and
+  ``repro_degraded_results_total{surface="discovery.<scan>"}``);
 - :func:`gauge` — a named value that ``set`` overwrites, with a label
   as a counter has (the serving index's ``repro_biasaware_head_fraction``
   and ``repro_dp_epsilon_spent``; discovery's
-  ``repro_discovery_peak_bytes{scan=...}`` and
-  ``repro_discovery_summary_tiles_refreshed{scan=...}``);
-- :func:`quality_monitor` — the ingest half of ``repro.obs.quality``'s
-  ``QualityMonitor``: ``SketchIndex.add`` / ``add_many`` fold each
-  batch's taus and bucket-overflow drops into ``repro_quality_tau_last``,
-  ``repro_quality_tau_ewma``, ``repro_quality_ingest_rows_total``,
+  ``repro_discovery_peak_bytes{scan=...}``,
+  ``repro_discovery_summary_tiles_refreshed{scan=...}`` and
+  ``repro_shards_down{surface="discovery"}``);
+- :func:`quality_monitor` — ``repro.obs.quality``'s ``QualityMonitor``
+  without its training telemetry: ``SketchIndex.add`` / ``add_many``
+  fold each batch's taus and bucket-overflow drops into
+  ``repro_quality_tau_last``, ``repro_quality_tau_ewma``,
+  ``repro_quality_ingest_rows_total``,
   ``repro_quality_overflow_entries_total`` and
-  ``repro_quality_overflow_rows_total``.
+  ``repro_quality_overflow_rows_total``; the sharded fan-out sets
+  ``repro_quality_coverage{surface=...}`` (``observe_coverage``).
 
 While disabled every accessor returns a shared no-op object, so an
 instrumented call site costs one bool test.  The metric registry is a
 flat dict of ``(name, label) -> number``; :func:`snapshot` copies it and
-:func:`spans` lists the recorded spans.  The Prometheus exporter and the
-rest of ``repro.obs.quality`` (canaries, coverage, recovery) are not
-ported yet.
+:func:`spans` lists the recorded spans.  The Prometheus exporter, the
+tracer's export and the rest of ``repro.obs.quality`` (canaries,
+recovery) are not ported yet.
 """
 from __future__ import annotations
 
@@ -101,8 +110,8 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
-class _Op:
-    """Timed operation: one span plus the ``repro_op_*{op=name}`` metrics."""
+class _Span:
+    """One timed span, recorded in the span ring when it closes."""
 
     __slots__ = ("name", "attrs", "_t0")
 
@@ -119,16 +128,36 @@ class _Op:
         self.attrs[key] = value
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        dur = time.perf_counter() - self._t0
+        self._record(time.perf_counter() - self._t0)
+        return False
+
+    def _record(self, dur: float) -> None:
         with _LOCK:
             _SPANS.append((self.name, self._t0, dur, self.attrs))
             if len(_SPANS) > _MAX_SPANS:
                 del _SPANS[0]
+
+
+class _Op(_Span):
+    """Timed operation: one span plus the ``repro_op_*{op=name}`` metrics."""
+
+    __slots__ = ()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        dur = time.perf_counter() - self._t0
+        self._record(dur)
         _add("repro_op_total", self.name, 1)
         _add("repro_op_seconds", self.name, dur)
         if exc_type is not None:
             _add("repro_op_errors_total", self.name, 1)
         return False
+
+
+def span(name: str):
+    """Plain timed span, no metrics (no-op when off)."""
+    if not _ENABLED:
+        return NOOP_SPAN
+    return _Span(name)
 
 
 def op(name: str):
@@ -185,10 +214,11 @@ EWMA_ALPHA = 0.1
 
 
 class QualityMonitor:
-    """Ingest health, as ``repro.obs.quality.QualityMonitor``: the last
+    """Estimator health, as ``repro.obs.quality.QualityMonitor``: the last
     tau, an EWMA (alpha ``EWMA_ALPHA``) of each batch's mean finite tau
     (a drifting tau means the corpus weight profile is moving), the rows
-    ingested, and the entries and rows lost to bucket overflow."""
+    ingested, the entries and rows lost to bucket overflow, and the
+    coverage of a surface's most recent fan-out read."""
 
     def __init__(self):
         self._tau_ewma = None
@@ -214,6 +244,13 @@ class QualityMonitor:
                 _add("repro_quality_overflow_entries_total", "", total)
                 _add("repro_quality_overflow_rows_total", "",
                      int((dropped > 0).sum()))
+
+    def observe_coverage(self, coverage: float, surface: str) -> None:
+        """``repro_quality_coverage{surface}``: the share of the answer
+        the surviving shards served in the surface's latest read (1.0 when
+        fully healthy)."""
+        with _LOCK:
+            _METRICS[("repro_quality_coverage", surface)] = float(coverage)
 
 
 _QUALITY = None

@@ -1,5 +1,5 @@
-"""Streaming top-k discovery over one index: bound-pruned tile scans on the
-all-pairs kernel (DESIGN.md §17 of the reference).
+"""Streaming top-k discovery: bound-pruned tile scans on the all-pairs
+kernel, over one index or a sharded one (DESIGN.md §17 of the reference).
 
 ``all_pairs`` gives the whole (D, D) matrix: quadratic in the corpus and
 out of reach at the column counts discovery runs at (the most-correlated
@@ -19,7 +19,15 @@ streams instead:
    stops.  Each visited tile pair is one launch of the all-pairs kernel on
    the tile's rows (``kernels.estimate_tile_rows``); only the (tq, tc)
    tile comes to the host.  The working set is O(D m), never O(D^2).
-3. **Dirty-tile invalidation.**  Ingest refreshes the summaries of the
+3. **Sharded fan-out.**  :class:`ShardedDiscoveryEngine` scans the shard
+   pairs of a :class:`~repro_torch.serve.sketch_service.ShardedSketchIndex`
+   concurrently (worker threads launching on the card's current stream),
+   each task keeping its own top-k heap, merged at the coordinator.  Each
+   task runs under :class:`~repro_torch.serve.resilience.RetryPolicy`
+   semantics (retry, backoff, deadline, ``TimeoutError`` terminal), so a
+   slow or dead shard degrades the answer, with its ``coverage``
+   quantified, instead of stalling it (DESIGN.md §16 of the reference).
+4. **Dirty-tile invalidation.**  Ingest refreshes the summaries of the
    rows it touched; :class:`TileSummaries` recomputes the maxima of only
    the tiles whose members or member stats changed.
 
@@ -31,8 +39,10 @@ from __future__ import annotations
 
 import heapq
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -44,6 +54,7 @@ from repro_torch.kernels import (BucketizedSketch, bucketize,
                                  estimate_tile_rows, round_up_pow2,
                                  slot_inclusion_probs)
 
+from .resilience import RetryPolicy, ShardDownError, ShardHealth
 from .sketch_service import _host, _row_summaries
 from .validation import check_vector
 
@@ -178,7 +189,8 @@ class DiscoveryResult:
     for query scans.  ``audit`` (pair scans asked for it) lists every tile
     pair in scan order with its ceiling and whether it was launched.
     ``degraded``, ``coverage``, ``lost_pairs`` and ``lost_shards`` describe
-    lost shards; a scan over one index loses none."""
+    the shard tasks a sharded fan-out lost; a scan over one index loses
+    none."""
     items: list
     stats: ScanStats
     degraded: bool = False
@@ -438,3 +450,224 @@ def _pair_scan(ea: DiscoveryEngine, eb: DiscoveryEngine, k: int, *,
     items = [(names_a[aid], names_b[bid], est)
              for _, aid, bid, est in _drain(heap)]
     return DiscoveryResult(items=items, stats=stats, audit=audit_log)
+
+
+def _merge_stats(parts: list) -> ScanStats:
+    """Sum of the per-task scan statistics (the threshold stays unset;
+    ``peak_bytes`` sums the tasks' peaks, as the reference's does)."""
+    out = ScanStats()
+    for s in parts:
+        out.tiles_total += s.tiles_total
+        out.tiles_launched += s.tiles_launched
+        out.tiles_pruned += s.tiles_pruned
+        out.kernel_launches += s.kernel_launches
+        out.peak_bytes += s.peak_bytes
+        out.summary_tiles_refreshed += s.summary_tiles_refreshed
+    return out
+
+
+class ShardedDiscoveryEngine:
+    """Guarded fan-out of pruned scans over a
+    :class:`~repro_torch.serve.sketch_service.ShardedSketchIndex`.
+
+    Shard-pair tasks (s <= t: the pairs within each shard, and each
+    cross-shard combination once) run concurrently in up to
+    ``max_workers`` threads (default: 8, or fewer tasks), each launching
+    on its shard's device; each task keeps a partial top-k heap, merged at
+    the coordinator.  Every task is guarded by ``retry``
+    (:class:`~repro_torch.serve.resilience.RetryPolicy`: retry with
+    exponential backoff under a per-call deadline, ``TimeoutError``
+    terminal at once), so a slow shard costs its own pairs (reported as
+    ``coverage`` < 1 and ``lost_pairs``), never the whole answer.
+    ``call_wrapper(shards, fn)`` is the fault-injection hook;
+    ``kill_shard`` administratively drops a shard; ``sleep`` and
+    ``clock`` are injectable for tests.
+    """
+
+    def __init__(self, sharded, *, tile: int = DEFAULT_TILE,
+                 ceiling: str = "admissible", delta: float = 0.05,
+                 retry: Optional[RetryPolicy] = None,
+                 call_wrapper: Optional[Callable] = None,
+                 sleep: Callable[[float], None] = time.sleep,
+                 clock: Callable[[], float] = time.monotonic,
+                 max_workers: Optional[int] = None):
+        self.sharded = sharded
+        self.retry = retry if retry is not None else RetryPolicy()
+        self.health = ShardHealth(sharded.num_shards, clock=clock)
+        self._call_wrapper = call_wrapper
+        self._sleep = sleep
+        self._clock = clock
+        self._max_workers = max_workers
+        self._engines = [DiscoveryEngine(s, tile=tile, ceiling=ceiling,
+                                         delta=delta)
+                         for s in sharded._shards]
+
+    def kill_shard(self, shard: int, reason: str = "killed") -> None:
+        self.health.mark_down(shard, reason)
+
+    def revive_shard(self, shard: int) -> None:
+        self.health.beat(shard)
+
+    def _guarded(self, shards: tuple, fn: Callable):
+        """One task under the retry policy, keyed by its shard tuple so
+        that cross-shard tasks degrade independently.  Raises
+        :class:`ShardDownError` carrying the last failure's text."""
+        policy = self.retry
+        t0 = self._clock()
+        delay = policy.base_delay
+        last: Optional[BaseException] = None
+        with obs.span("serve.discovery.task") as tsp:
+            tsp.set("shards", list(shards))
+            for attempt in range(max(policy.attempts, 1)):
+                try:
+                    obs.counter("repro_retry_attempts_total", "discovery")
+                    if self._call_wrapper is not None:
+                        out = self._call_wrapper(shards, fn)
+                    else:
+                        out = fn()
+                    for p in shards:
+                        self.health.beat(p)
+                    return out
+                except Exception as e:  # noqa: BLE001 — the fault boundary
+                    last = e
+                    timed_out = isinstance(e, TimeoutError) or (
+                        policy.deadline is not None
+                        and self._clock() - t0 >= policy.deadline)
+                    if timed_out:
+                        obs.counter("repro_deadline_hits_total", "discovery")
+                    if timed_out or attempt >= policy.attempts - 1:
+                        break
+                    obs.counter("repro_retry_backoffs_total", "discovery")
+                    self._sleep(delay)
+                    delay = min(delay * 2.0, policy.max_delay)
+            obs.counter("repro_shard_down_total", "discovery")
+            raise ShardDownError(
+                f"discovery task over shards {shards} failed after "
+                f"{attempt + 1} attempt(s): {last}") from last
+
+    def _fan_out(self, tasks: dict):
+        """Run ``{shard tuple: thunk}`` concurrently -> ``(results,
+        lost)``: each lost task's key with why (a down shard, or its
+        :class:`ShardDownError`'s text)."""
+        live = {key: fn for key, fn in tasks.items()
+                if all(self.health.is_up(p) for p in key)}
+        lost = {key: "shard marked down" for key in tasks if key not in live}
+        results: dict = {}
+        if live:
+            workers = self._max_workers or min(8, len(live))
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                futs = {key: pool.submit(self._guarded, key, fn)
+                        for key, fn in live.items()}
+                for key, fut in futs.items():
+                    try:
+                        results[key] = fut.result()
+                    except ShardDownError as e:
+                        lost[key] = str(e)
+        return results, lost
+
+    def top_pairs(self, k: int = 10, *, absolute: bool = False
+                  ) -> DiscoveryResult:
+        """Global top-k pairs: each unordered pair once, names in global
+        insertion order, ties broken by (first, second) insertion
+        position, as ``all_pairs()`` plus the sort."""
+        sharded = self.sharded
+        if not sharded._names:
+            raise ValueError("discovery on an empty index: add vectors "
+                             "first")
+        shards = sharded._shards
+        # prepare serially: the scans then only read each engine's state
+        for s, e in enumerate(self._engines):
+            if len(shards[s]):
+                e._prepare()
+        tasks = {}
+        for s in range(sharded.num_shards):
+            if not len(shards[s]):
+                continue
+            for t in range(s, sharded.num_shards):
+                if not len(shards[t]):
+                    continue
+                ea, eb = self._engines[s], self._engines[t]
+                tasks[(s, t)] = (
+                    lambda ea=ea, eb=eb: _pair_scan(ea, eb, k,
+                                                    absolute=absolute))
+        results, lost = self._fan_out(tasks)
+        # a cross-shard scan emits (shard-s name, shard-t name):
+        # canonicalise to global insertion order
+        pos = {name: i for i, name in enumerate(sharded._names)}
+        merged: list = []
+        for r in results.values():
+            for a, b, est in r.items:
+                if pos[a] > pos[b]:
+                    a, b = b, a
+                merged.append((a, b, est))
+        score = (lambda it: -abs(it[2])) if absolute else (lambda it: -it[2])
+        merged.sort(key=lambda it: (score(it), pos[it[0]], pos[it[1]]))
+        stats = _merge_stats([r.stats for r in results.values()])
+        # pair counts in Python ints: exact at any corpus size
+        total = covered = 0
+        sizes = [len(s) for s in shards]
+        for s in range(sharded.num_shards):
+            for t in range(s, sharded.num_shards):
+                n = sizes[s] * (sizes[s] - 1) // 2 if s == t \
+                    else sizes[s] * sizes[t]
+                total += n
+                if (s, t) in results or (s, t) not in lost:
+                    covered += n
+        res = DiscoveryResult(
+            items=merged[:k], stats=stats, degraded=bool(lost),
+            coverage=covered / total if total else 1.0,
+            lost_pairs=tuple(sorted(lost)),
+            lost_shards=tuple(sorted(self.health.down_shards())))
+        self._publish_result(res, "pairs", publish_stats=True)
+        return res
+
+    def top_k_for_query(self, vector, k: int = 10, *,
+                        absolute: bool = False) -> DiscoveryResult:
+        """Top-k rows for one query: one pruned query scan a shard, merged
+        by score, ties by global insertion position."""
+        sharded = self.sharded
+        if not sharded._names:
+            raise ValueError("discovery on an empty index: add vectors "
+                             "first")
+        shards = sharded._shards
+        tasks = {}
+        for s in range(sharded.num_shards):
+            if not len(shards[s]):
+                continue
+            e = self._engines[s]
+            tasks[(s,)] = (lambda e=e: e.top_k_for_query(vector, k,
+                                                         absolute=absolute))
+        results, lost = self._fan_out(tasks)
+        pos = {name: i for i, name in enumerate(sharded._names)}
+        merged: list = []
+        for r in results.values():
+            merged.extend(r.items)
+        score = (lambda it: -abs(it[1])) if absolute else (lambda it: -it[1])
+        merged.sort(key=lambda it: (score(it), pos[it[0]]))
+        stats = _merge_stats([r.stats for r in results.values()])
+        lost_rows = sum(len(shards[key[0]]) for key in lost)
+        D = len(sharded)
+        res = DiscoveryResult(
+            items=merged[:k], stats=stats, degraded=bool(lost),
+            coverage=(D - lost_rows) / D if D else 1.0,
+            lost_pairs=tuple(sorted(lost)),
+            lost_shards=tuple(sorted(self.health.down_shards())))
+        self._publish_result(res, "query", publish_stats=False)
+        return res
+
+    def _publish_result(self, res: DiscoveryResult, scan: str,
+                        *, publish_stats: bool) -> None:
+        """Coverage and shard-health metrics of one fan-out.  Query tasks
+        publish their own scan statistics through the shard engines; pair
+        tasks bypass them, so their merged statistics are published
+        here."""
+        if not obs.enabled():
+            return
+        if publish_stats:
+            _publish_scan(res.stats, scan)
+        obs.quality_monitor().observe_coverage(res.coverage,
+                                               "discovery." + scan)
+        obs.gauge("repro_shards_down", "shards currently marked down",
+                  "discovery").set(len(res.lost_shards))
+        if res.degraded:
+            obs.counter("repro_degraded_results_total", "discovery." + scan)

@@ -24,6 +24,11 @@ against the whole library with one launch of the matrix-product kernel.
 scan of :mod:`repro_torch.serve.discovery` (one all-pairs kernel launch
 a visited tile pair), on a lazy engine that keeps its tile summaries
 between calls.
+
+:class:`ShardedSketchIndex` scatters rows round-robin over several
+``SketchIndex`` shards and serves the same reads over the merged view:
+a query launch a shard, shard-pair all-pairs launches, and discovery
+fanned out over shard pairs under a retry policy.
 """
 from __future__ import annotations
 
@@ -740,3 +745,146 @@ class MatrixSketchStore:
                 est = estimate_matrix_product(sq, self._corpus())
             est = _host(est)
         return [(name, est[i]) for i, name in enumerate(self._names)]
+
+
+class ShardedSketchIndex:
+    """Corpus-dim sharded serving: rows scatter round-robin over per-shard
+    :class:`SketchIndex` block sets (one per device or host in a real
+    deployment), and reads run over the merged view: ``query`` launches
+    the query kernel once a shard and reassembles, ``all_pairs`` tiles the
+    global (D, D) estimate matrix from shard-pair launches of the
+    all-pairs kernel, and ``top_pairs`` / ``top_k_for_query`` fan
+    bound-pruned scans out over shard pairs under a retry policy
+    (:class:`~repro_torch.serve.discovery.ShardedDiscoveryEngine`).  Each
+    shard keeps its own power-of-two blocks, so ingest stays shard-local.
+    ``index_kwargs`` (``device`` included) go to every shard.
+    """
+
+    def __init__(self, num_shards: int = 2, **index_kwargs):
+        if num_shards < 1:
+            raise ValueError("need at least one shard")
+        self.num_shards = num_shards
+        self._shards = [SketchIndex(**index_kwargs)
+                        for _ in range(num_shards)]
+        self._names: list = []
+        self._name_set: set = set()
+        self._homes: list = []   # global row -> (shard, row in shard)
+        self._discovery = None   # lazy ShardedDiscoveryEngine
+
+    def __len__(self):
+        return len(self._names)
+
+    @property
+    def total_dropped(self) -> int:
+        return sum(s.total_dropped for s in self._shards)
+
+    def _route(self) -> int:
+        return len(self._names) % self.num_shards
+
+    def add(self, name, vector: Optional[np.ndarray] = None, *,
+            indices: Optional[np.ndarray] = None,
+            values: Optional[np.ndarray] = None) -> None:
+        # names are global: a per-shard check alone would miss a duplicate
+        # routed to another shard
+        check_unique_name(name, self._name_set)
+        s = self._route()
+        # delegate first: a rejected add must not leave a dangling home
+        self._shards[s].add(name, vector, indices=indices, values=values)
+        self._homes.append((s, len(self._shards[s]) - 1))
+        self._names.append(name)
+        self._name_set.add(name)
+
+    def add_many(self, names: Sequence, matrix: np.ndarray) -> None:
+        """Scatter a (D, n) block round-robin: one batched ``add_many`` a
+        shard, keeping the global insertion order for reads."""
+        matrix = np.asarray(matrix, np.float32)
+        if matrix.ndim != 2 or matrix.shape[0] != len(names):
+            raise ValueError("matrix must be (len(names), n)")
+        check_unique_names(names, self._name_set)
+        # validate before touching the global name and home lists: a
+        # shard-level rejection after partial routing would desynchronise
+        # reads
+        dim = next((s._dim for s in self._shards if s._dim is not None),
+                   None)
+        if dim is not None and matrix.shape[1] != dim:
+            raise ValueError(f"matrix has {matrix.shape[1]} coordinates but "
+                             f"this index was built over {dim}")
+        matrix = check_finite(matrix, "ingest matrix",
+                              nonfinite=self._shards[0].nonfinite)
+        rows_of = [[] for _ in range(self.num_shards)]
+        for k, name in enumerate(names):
+            s = self._route()
+            self._homes.append((s, len(self._shards[s]) + len(rows_of[s])))
+            self._names.append(name)
+            rows_of[s].append(k)
+        self._name_set.update(names)
+        for s, rows in enumerate(rows_of):
+            if rows:
+                self._shards[s].add_many([names[k] for k in rows],
+                                         matrix[rows])
+
+    def query(self, vector: np.ndarray, top_k: Optional[int] = None, *,
+              mode: str = "plain"):
+        """One launch of the query kernel a shard (shards 0..P-1 in
+        order), reassembled in global order.  ``mode`` goes to each shard;
+        each charges its *own* accountant for a private release (its rows
+        are disjoint)."""
+        if not self._names:
+            raise ValueError("query on an empty index: add vectors before "
+                             "querying")
+        with obs.op("serve.sharded.query") as sp:
+            sp.set("shards", self.num_shards)
+            per = [s.query(vector, mode=mode) if len(s) else []
+                   for s in self._shards]
+            est = np.empty(len(self._names), np.float32)
+            for g, (s, r) in enumerate(self._homes):
+                est[g] = per[s][r][1]
+            if top_k is None:
+                return list(zip(self._names, est.tolist()))
+            order = _top_k_desc(est, top_k)
+            return [(self._names[i], float(est[i])) for i in order]
+
+    def all_pairs(self, *, use_kernel: bool = True) -> np.ndarray:
+        """Global (D, D) estimates assembled from shard-pair launches of
+        the all-pairs kernel (``use_kernel=False``: its plain version)."""
+        with obs.op("serve.sharded.all_pairs") as sp:
+            sp.set("shards", self.num_shards)
+            D = len(self._names)
+            out = np.zeros((D, D), np.float32)
+            gids = [[] for _ in range(self.num_shards)]
+            for g, (s, _) in enumerate(self._homes):
+                gids[s].append(g)
+            for i in range(self.num_shards):
+                if not gids[i]:
+                    continue
+                ci = self._shards[i]._corpus()
+                for j in range(self.num_shards):
+                    if not gids[j]:
+                        continue
+                    cj = self._shards[j]._corpus()
+                    # a shard's corpus is padded to a power of two: keep
+                    # its live rows
+                    blk = _host(estimate_all_pairs_bucketized(
+                        ci, cj, ref_chunk=64, use_kernel=use_kernel))
+                    out[np.ix_(gids[i], gids[j])] = \
+                        blk[: len(gids[i]), : len(gids[j])]
+            return out
+
+    def top_pairs(self, k: int = 10, **kw):
+        """Global top-k pairs by the guarded fan-out of bound-pruned scans
+        over shard pairs, partial heaps merged at the coordinator; a shard
+        that fails its retries degrades the answer instead of stalling
+        it.  Returns a
+        :class:`~repro_torch.serve.discovery.DiscoveryResult`."""
+        return self._engine().top_pairs(k, **kw)
+
+    def top_k_for_query(self, vector: np.ndarray, k: int = 10, **kw):
+        """Top-k estimates for one query by per-shard pruned scans merged
+        at the coordinator."""
+        return self._engine().top_k_for_query(vector, k, **kw)
+
+    def _engine(self):
+        from .discovery import ShardedDiscoveryEngine  # it imports this
+        if self._discovery is None:
+            self._discovery = ShardedDiscoveryEngine(self)
+        return self._discovery

@@ -1333,3 +1333,98 @@ def test_discovery_after_add_many_equals_fresh_engine(cuda_device):
         assert got.items == want.items == _sorted_pairs(
             ix.all_pairs(), ix._names, 10, False)
         assert got.audit == want.audit
+
+
+def _skewed_sharded(device, D, shards=4, seed=0, m=64, n=4096):
+    """The rows of ``_skewed_index`` in a ``ShardedSketchIndex`` of
+    ``shards`` shards, and the global index over them."""
+    from repro_torch.serve import ShardedSketchIndex
+    ix, X = _skewed_index(device, D, seed=seed, m=m, n=n)
+    sh = ShardedSketchIndex(num_shards=shards, m=m, n_buckets=128, slots=4,
+                            device=device)
+    sh.add_many(ix._names, X)
+    return sh, ix, X
+
+
+def test_sharded_all_pairs_and_query_equal_global(cuda_device):
+    """A cell of B5 depends on its two rows, a row of B4 on the row and
+    the query: the sharded ``all_pairs`` and ``query`` are bit-equal to
+    the global index's on the same rows, each shard one launch."""
+    sh, ix, X = _skewed_sharded(cuda_device, 300)
+    before = tk.allpairs_estimate.launches
+    assert_bits(sh.all_pairs(), ix.all_pairs())
+    assert tk.allpairs_estimate.launches - before == 16 + 1
+    for q in (X[3], 0.5 * X[0] - X[7]):
+        before = tk.intersect_estimate.launches
+        got = sh.query(q)
+        assert tk.intersect_estimate.launches - before == 4
+        assert [n for n, _ in got] == [n for n, _ in ix.query(q)]
+        assert_bits(np.array([e for _, e in got], np.float32),
+                    np.array([e for _, e in ix.query(q)], np.float32))
+
+
+@pytest.mark.parametrize("absolute", [False, True])
+def test_sharded_fanout_counts_every_launch(cuda_device, absolute):
+    """A 4-shard fan-out in 8 threads: B5's launch count rises by the
+    merged ``kernel_launches`` exactly (the counter is taken under a
+    lock), and the answer is bit-equal to the global scan's and to
+    ``all_pairs()`` plus the sort."""
+    from repro_torch.serve import ShardedDiscoveryEngine
+    sh, ix, _ = _skewed_sharded(cuda_device, 700, seed=4)
+    want = _sorted_pairs(ix.all_pairs(), ix._names, 10, absolute)
+    eng = ShardedDiscoveryEngine(sh, tile=16, max_workers=8)
+    for _ in range(3):
+        before = tk.allpairs_estimate.launches
+        res = eng.top_pairs(k=10, absolute=absolute)
+        s = res.stats
+        assert tk.allpairs_estimate.launches - before == s.kernel_launches
+        assert s.kernel_launches == s.tiles_launched > 10
+        assert res.items == want
+        assert res.items == ix.top_pairs(k=10, absolute=absolute).items
+        assert not res.degraded and res.coverage == 1.0
+
+
+def test_concurrent_first_loads_run_one_nvcc_a_source(cuda_device,
+                                                      tmp_path, monkeypatch):
+    """8 threads' first launches into an empty build directory: one
+    ``nvcc`` a source, every launch right."""
+    import subprocess
+    import threading
+    from repro_torch.kernels import _build
+    runs = []
+    popen = subprocess.Popen
+
+    def counting(cmd, *a, **kw):
+        runs.append(str(cmd[-1]))
+        return popen(cmd, *a, **kw)
+
+    monkeypatch.setattr(_build, "_build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_BOUND", set())
+    monkeypatch.setattr(_build.subprocess, "Popen", counting)
+    rng = np.random.default_rng(12)
+    A = torch.as_tensor(sparse_block(rng, 16, 4096, 300), device=cuda_device)
+    want = build_priority_corpus_ref(A, 64, 11)
+    got = [None] * 8
+    errors = []
+    barrier = threading.Barrier(8)
+
+    def first(i):
+        try:
+            barrier.wait(timeout=60)
+            got[i] = tk.build_priority_corpus(A, 64, 11)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    pool = [threading.Thread(target=first, args=(i,)) for i in range(8)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in pool)
+    assert errors == []
+    assert sorted(runs) == sorted(str(_build.CSRC / f"{s}.cu")
+                                  for s in _build.SOURCES)
+    for sk in got:
+        for g, w in zip(sk, want):
+            assert_bits(g, w)

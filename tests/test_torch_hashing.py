@@ -113,7 +113,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.data, repro_torch.data.tables, "
         "repro_torch.data.synthetic, repro_torch.core.join_correlation, "
         "repro_torch.kernels.sketch_build.combined, "
-        "repro_torch.serve.discovery\n"
+        "repro_torch.serve.discovery, repro_torch.serve.resilience, "
+        "repro_torch.train, repro_torch.train.fault_tolerance\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
