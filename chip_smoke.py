@@ -100,7 +100,9 @@ exits nonzero with no result line):
                  against the CPU's merge;
 10. ``discovery_path`` bound-pruned top-k discovery over one index
                  (``DiscoveryEngine``, ``SketchIndex.top_pairs`` /
-                 ``top_k_for_query``, one B5 launch a visited tile pair) at
+                 ``top_k_for_query``: the corpus compacted once an index
+                 change, the visited tile pairs in batches, one launch of
+                 B5's tile-list join a batch) at
                  ``benchmarks/topk_discovery.py``'s FULL widths: 8192
                  Zipf(1.5)-scaled Gaussian columns over n = 16384 with 12
                  planted pairs (its generator, rng seed 8192), m = 256,
@@ -117,8 +119,18 @@ exits nonzero with no result line):
                  (estimates within rtol) to ``query(top_k=10)``; a copy
                  of the skewed index (``index_from_arrays``) appends 512
                  low-norm rows and its next scan refreshes only trailing
-                 tiles and still equals ``all_pairs()`` plus the sort; B5's
-                 launches rise by each scan's kernel launches;
+                 tiles and still equals ``all_pairs()`` plus the sort;
+                 each scan launches the tile-list join once a batch of
+                 its schedule, computes every visited tile pair and at
+                 most 2 x visited + the first batch - 2 tiles, and no
+                 plain B5 tile; its batches, tiles and device peak
+                 (``torch.cuda.max_memory_allocated``) are printed beside
+                 the reckoned peak bytes;
+    ``join_tiles`` B5's tile-list join on both discovery corpora's scan
+                 layouts: 133 tile pairs in one launch (the skewed
+                 corpus's heaviest first), each tile bit-equal to
+                 ``estimate_tile_rows``, every groups setting (1 to 16)
+                 bit-equal, and within tolerance of the plain version;
 11. ``sharded_path`` sharded serving (``ShardedSketchIndex`` in 4
                  shards, ``ShardedDiscoveryEngine``'s guarded fan-out in
                  worker threads on the card's stream,
@@ -170,7 +182,14 @@ exits nonzero with no result line):
                  (p50 of 5) with the share of it the tiles' device time
                  explains, B5's tile launch at (64, 64, 256, 2) and (64,
                  64, 512, 4) through ``estimate_tile_rows``, with its copy
-                 to the host and device-only, beside its bound,
+                 to the host and device-only, beside its bound, and the
+                 tile-list join at both shapes on the first 1, 8, 132 and
+                 528 pairs of the scan order (device ms a launch and a
+                 tile, the batch's wall time through ``scan_tile_batch``,
+                 the bound), the heaviest tile at each groups setting and
+                 the plain version at 132 pairs; one scan of each corpus
+                 under ``torch.profiler`` (its kernels' device time
+                 against its wall time);
                  ``top_k_for_query`` and ``query`` p50, ``all_pairs`` plus
                  the sort at D = 8192; sharded beside global on the same
                  rows (``top_pairs`` p50 with the fan-out in 8 threads
@@ -179,8 +198,9 @@ exits nonzero with no result line):
                  8 threads and in 1);
 13. ``kernels``  one line per the port's kernel table.
 
-Each path (4-11) zeroes every kernel's launch counter before it runs and
-reads them after; each of its kernels must have launched.  Each path's
+Each path (4-11) zeroes every kernel's launch counter (and the tile-list
+join's tile count) before it runs and reads them after; each of its
+kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
 
 The last lines are ``nvidia-smi``'s name and power limit and then
@@ -571,16 +591,35 @@ def b4_needed_bytes(q_idx, c_idx) -> int:
 
 
 def run_path(kernels, fn):
-    """Zero every launch counter, run one path, read the counters; the
-    path's output gets its wall seconds under ``"seconds"``."""
+    """Zero every launch counter (and the tile-list join's tile count),
+    run one path, read the counters; the path's output gets its wall
+    seconds under ``"seconds"``."""
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "tiles"):
+            k.tiles = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
-    return out, {k.__name__: k.launches for k in kernels}
+    counts = {k.__name__: k.launches for k in kernels}
+    counts.update({f"{k.__name__}.tiles": k.tiles for k in kernels
+                   if hasattr(k, "tiles")})
+    return out, counts
+
+
+def schedule_batches(n_tiles: int, first: int, cap: int) -> int:
+    """Batches of the discovery scans' schedule (``first`` pairs, then
+    twice the last up to ``cap``) that cover ``n_tiles`` tile pairs: a
+    scan's batches, the last perhaps cut short at the k-th score."""
+    batches = total = 0
+    size = first
+    while total < n_tiles:
+        total += size
+        batches += 1
+        size = min(2 * size, cap)
+    return batches
 
 
 def graph_ms(launch, reps: int = 50, replays: int = 5) -> float:
@@ -696,9 +735,9 @@ def main() -> None:
     from repro_torch.kernels.hash_rank.hash_rank import spread_route
     from repro_torch.kernels.intersect_estimate import (
         MOMENT_CHANNELS, allpairs_compact_ref, allpairs_estimate_ref,
-        intersect_estimate_ref)
+        allpairs_join_tiles_ref, intersect_estimate_ref)
     from repro_torch.kernels.intersect_estimate.intersect_estimate import (
-        moments_join_shape)
+        auto_groups, moments_join_shape)
     from repro_torch.kernels.sketch_build import (hash_rank_hist_ref,
                                                   kth_smallest_ranks_ref,
                                                   union_positions)
@@ -707,6 +746,7 @@ def main() -> None:
                                    RetryPolicy, ShardedDiscoveryEngine,
                                    ShardedSketchIndex, SketchIndex,
                                    index_from_arrays)
+    from repro_torch.serve import discovery as disc_mod
     from repro_torch.serve.validation import check_finite, check_vector
 
     dev = torch.device("cuda")
@@ -2062,19 +2102,50 @@ def main() -> None:
             tk.slot_inclusion_probs(c), [0],
             np.arange(len(ix))).cpu().numpy()[0]
 
-    def counted(scan, what):
-        """Run one scan: B5's launches rise by its kernel launches, one a
-        visited tile pair, and every tile pair is launched or pruned."""
-        before = tk.allpairs_estimate.launches
+    first_batch, max_batch = disc_mod._FIRST_BATCH, disc_mod._MAX_BATCH
+    scan_meta = {}
+
+    def counted(scan, what, tasks=None):
+        """Run one scan (of ``tasks`` shard tasks when it is a fan-out):
+        every visited tile pair was computed, one tile-list join launch a
+        batch of the schedule (exactly, for one scan), at most 2 x visited
+        + the first batch - 2 tiles a scan (the doubling's bound), no
+        tile through the plain join, every tile pair launched or pruned.
+        ``scan_meta[what]``: the batches, tiles computed and the device
+        peak of the scan (its own allocations above what was allocated
+        before it: the layout when the scan built it, the batches'
+        tiles) beside the reckoned ``peak_bytes``."""
+        jt = tk.allpairs_join_tiles
+        b0, t0, p0 = jt.launches, jt.tiles, tk.allpairs_estimate.launches
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         res = scan()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         st = res.stats
-        check(tk.allpairs_estimate.launches - before == st.kernel_launches
-              == st.tiles_launched > 0,
-              f"{what}: {tk.allpairs_estimate.launches - before} B5 "
-              f"launches for {st.kernel_launches} kernel launches, "
-              f"{st.tiles_launched} tiles")
+        batches, tiles, n = jt.launches - b0, jt.tiles - t0, st.tiles_launched
+        n_tasks = 1 if tasks is None else tasks
+        check(tk.allpairs_estimate.launches == p0,
+              f"{what}: {tk.allpairs_estimate.launches - p0} plain B5 "
+              "launches in a scan")
+        check(st.kernel_launches == n > 0 and n <= tiles
+              <= 2 * n + n_tasks * (first_batch - 2)
+              and (tasks is not None or tiles <= st.tiles_total),
+              f"{what}: {tiles} tiles computed for {n} visited "
+              f"({st.kernel_launches} kernel launches)")
+        check(batches == schedule_batches(tiles, first_batch, max_batch)
+              if tasks is None else 0 < batches <= tiles,
+              f"{what}: {batches} tile-list launches for {tiles} tiles")
         check(st.tiles_launched + st.tiles_pruned == st.tiles_total,
               f"{what}: launched + pruned != total ({st})")
+        scan_meta[what] = {
+            "tiles_launched": n, "batches": batches, "tiles_computed": tiles,
+            "within_visited_plus_first_batch":
+                tiles <= n + n_tasks * first_batch,
+            "device_peak_bytes": peak - base,
+            "device_peak_bytes_with_resident": peak,
+            "reckoned_peak_bytes": st.peak_bytes}
         return res
 
     def scan_gates(ix, est, what):
@@ -2084,7 +2155,8 @@ def main() -> None:
         out = {}
         for absolute in (False, True):
             res = counted(lambda: eng.top_pairs(TOPK_K, absolute=absolute),
-                          f"{what} top_pairs")
+                          f"{what} top_pairs" + (" absolute" if absolute
+                                                 else ""))
             check(res.items == true_top_pairs(est, ix._names, TOPK_K,
                                               absolute),
                   f"{what}: top_pairs(absolute={absolute}) differs from "
@@ -2197,7 +2269,7 @@ def main() -> None:
 
     dp, launches["discovery_path"] = run_path(kernels, discovery_path)
     need = ("hash_rank_hist", "radix_select", "intersect_estimate",
-            "allpairs_compact", "allpairs_estimate")
+            "allpairs_compact", "allpairs_estimate", "allpairs_join_tiles")
     check(all(launches["discovery_path"][k] > 0 for k in need),
           f"a kernel of the discovery path never launched: {launches}")
     emit({"phase": "discovery_path",
@@ -2230,8 +2302,66 @@ def main() -> None:
           "gates": dp["gates"],
           "bit_equal_to_all_pairs_sort": "skewed and flat, both modes, "
                                          "and after the append",
+          "batch_schedule": {"first": first_batch, "max": max_batch},
+          "scans": {k: v for k, v in scan_meta.items()
+                    if not k.startswith("sharded")},
           "seconds": dp["seconds"],
           "launches": launches["discovery_path"]})
+
+    # ------------------------------------------------ tile-list join parity
+    def scan_order(eng):
+        """An engine's pair-scan visit order: the tile pairs u <= v by
+        descending ceiling, as ``_pair_scan`` orders them."""
+        ceil = eng._ceiling_matrix(eng)
+        uu, vv = np.triu_indices(eng._summaries.n_tiles)
+        order = np.argsort(-ceil[uu, vv], kind="stable")
+        return uu[order], vv[order]
+
+    def join_tiles_parity():
+        """B5's tile-list join on both discovery corpora's scan layouts:
+        the first 132 tile pairs of the scan order (the skewed corpus's
+        heaviest first) and the last tile with itself in one launch, each
+        tile bit-equal to ``estimate_tile_rows`` on the pair's rows; the
+        first 8 at each groups setting bit-equal to the launch; all within
+        tolerance of the plain version (in chunks of 16 pairs)."""
+        out, e = {}, 0.0
+        for what, eng in (("skewed", dp["eng"]), ("flat", dp["feng"])):
+            lay = eng._prepare()
+            c, p = eng._dev, eng._probs
+            uu, vv = scan_order(eng)
+            nt = eng._summaries.n_tiles
+            pairs = np.concatenate([np.stack([uu[:132], vv[:132]], 1),
+                                    [[nt - 1, nt - 1]]]).astype(np.int32)
+            pt = torch.as_tensor(pairs, device=dev)
+            side = (lay.entries, lay.counts)
+            got = tk.allpairs_join_tiles(*side, *side, pt)
+            for n, (u, v) in enumerate(pairs):
+                ru, rv = eng.tile_members(int(u)), eng.tile_members(int(v))
+                assert_bits(got[n, :ru.size, :rv.size],
+                            tk.estimate_tile_rows(c.idx, c.val, p, c.idx,
+                                                  c.val, p, ru, rv),
+                            f"{what} tile-list join pair {n} ({u}, {v}) vs "
+                            "estimate_tile_rows")
+            for g in (1, 2, 4, 8, 16):
+                assert_bits(tk.allpairs_join_tiles(*side, *side, pt[:8],
+                                                   groups=g), got[:8],
+                            f"{what} tile-list join at {g} groups")
+            plain = torch.cat([allpairs_join_tiles_ref(
+                *side, *side, pt[i:i + 16]) for i in range(0, len(pt), 16)])
+            err_w = assert_close(got, plain, f"{what} tile-list join vs "
+                                             "its plain version")
+            e = max(e, err_w)
+            out[what] = {"pairs": len(pairs), "shape": [64, 64, *c.idx.shape[1:]],
+                         "max_abs_err_vs_plain": err_w,
+                         "groups_bit_equal": [1, 2, 4, 8, 16]}
+        return out, e
+
+    jt_parity, err["allpairs_join_tiles"] = join_tiles_parity()
+    emit({"phase": "join_tiles", "corpora": jt_parity,
+          "gates_passed": [
+              "each tile bit-equal to estimate_tile_rows on its rows",
+              "each groups setting bit-equal to the launch",
+              f"within rtol={RTOL} of the plain version"]})
 
     # ---------------------------------------------------------- sharded path
     def same_up_to_ties(got: list, want: list, what: str) -> None:
@@ -2373,8 +2503,11 @@ def main() -> None:
         check(np.array_equal(homes_of(sh), np.stack(
             [np.arange(TOPK_D) % SHARDS, np.arange(TOPK_D) // SHARDS], 1)),
               "skewed: the homes are not round-robin")
-        scans = {mode: sh.top_pairs(TOPK_K, absolute=absolute)
-                 for mode, absolute in (("plain", False), ("absolute", True))}
+        n_tasks = SHARDS * (SHARDS + 1) // 2
+        scans = {mode: counted(
+            lambda: sh.top_pairs(TOPK_K, absolute=absolute),
+            f"sharded skewed top_pairs {mode}", tasks=n_tasks)
+            for mode, absolute in (("plain", False), ("absolute", True))}
         cheb = ShardedDiscoveryEngine(sh, tile=TOPK_TILE,
                                       ceiling="chebyshev").top_pairs(TOPK_K)
         for res in (*scans.values(), cheb):
@@ -2400,7 +2533,8 @@ def main() -> None:
         for d in range(D_BATCH, D):
             fsh.add(names[d], indices=vidx[d], values=vval[d])
         t0 = time.perf_counter()
-        fscan = fsh.top_pairs(TOPK_K)
+        fscan = counted(lambda: fsh.top_pairs(TOPK_K),
+                        "sharded flat top_pairs", tasks=n_tasks)
         fscan_ms = (time.perf_counter() - t0) * 1e3
         fq = [planted(qi, sources[qi]) for qi in range(FLAT_QUERIES)]
         f_answers = [fsh.query(q) for q in fq]
@@ -2416,7 +2550,7 @@ def main() -> None:
     shp, launches["sharded_path"] = run_path(kernels, sharded_path)
     # the query sketches are priority sketches: B1 and B2, not B3
     need = ("hash_rank_hist", "radix_select", "intersect_estimate",
-            "allpairs_compact", "allpairs_estimate")
+            "allpairs_compact", "allpairs_estimate", "allpairs_join_tiles")
     check(all(launches["sharded_path"][k] > 0 for k in need),
           f"a kernel of the sharded path never launched: {launches}")
     # the gates against the global index (its launches outside the path)
@@ -2464,7 +2598,9 @@ def main() -> None:
     # B5 on one cross-shard tile (the first tiles of shards 0 and 1)
     # against its plain version and the global matrix's block
     e0, e1 = sh._discovery._engines[:2]
-    (c0, p0), (c1, p1) = e0._prepare(), e1._prepare()
+    e0._prepare()
+    e1._prepare()
+    (c0, p0), (c1, p1) = (e0._dev, e0._probs), (e1._dev, e1._probs)
     r0, r1 = e0.tile_members(0), e1.tile_members(0)
     cross_args = (c0.idx, c0.val, p0, c1.idx, c1.val, p1, r0, r1)
     cross = tk.estimate_tile_rows(*cross_args)
@@ -2498,6 +2634,8 @@ def main() -> None:
                    "top_pairs_ms": shp["fscan_ms"],
                    "queries_bit_equal": FLAT_QUERIES},
           "faults": shp["faults"],
+          "scans": {k: v for k, v in scan_meta.items()
+                    if k.startswith("sharded")},
           "nccl_build": {"backend": nccl["backend"], "world": nccl["world"],
                          "shape": list(shp["nccl_A"].shape),
                          "first_call_ms": nccl["first_call_ms"],
@@ -3145,8 +3283,9 @@ def main() -> None:
     cm_o = (torch.empty_like(cm[0]), torch.empty_like(cm[1]))
     mom_compact = raw("intersect_estimate.intersect_estimate", "_lib",
                       "repro_allpairs_compact", mi[0].data_ptr(),
-                      mi[1].data_ptr(), mi[2].data_ptr(), cm_o[0].data_ptr(),
-                      cm_o[1].data_ptr(), DISC_D, DISC_BUCKETS, DISC_SLOTS)
+                      mi[1].data_ptr(), mi[2].data_ptr(), None,
+                      cm_o[0].data_ptr(), cm_o[1].data_ptr(),
+                      cm_o[1].shape[0], DISC_D, DISC_BUCKETS, DISC_SLOTS)
     def moments_bound(a_idx, b_idx, out_numel):
         """The moments join's bound: both corpora read once and the
         output written once, or the compares its buckets need."""
@@ -3211,8 +3350,9 @@ def main() -> None:
         _, Bt, St = c.idx.shape
         steps = [raw("intersect_estimate.intersect_estimate", "_lib",
                      "repro_allpairs_compact",
-                     *(x.data_ptr() for x in side), o[0].data_ptr(),
-                     o[1].data_ptr(), side[0].shape[0], Bt, St)
+                     *(x.data_ptr() for x in side), None, o[0].data_ptr(),
+                     o[1].data_ptr(), o[1].shape[0], side[0].shape[0], Bt,
+                     St)
                  for side, o in zip(sides, outs)]
         steps.append(raw("intersect_estimate.intersect_estimate", "_lib",
                          "repro_allpairs_join", outs[0][0].data_ptr(),
@@ -3244,8 +3384,106 @@ def main() -> None:
                     *args, use_kernel=False), iters=5),
                 **moments_bound(sides[0][0], sides[1][0], tile_o.numel())}
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def batch_bound(lay, pairs):
+        """The tile-list join's bound on these pairs: its inputs read once
+        (the occupied entries of the distinct compacted tiles, 16 B each,
+        their counts and the pair list), the (N, 64, 64) tiles written
+        once; or the compares their buckets need."""
+        Bt = lay.entries.shape[1]
+        tiles = torch.as_tensor(np.unique(pairs), device=dev).long()
+        nbytes = (int(lay.counts[tiles].sum()) * 16 + tiles.numel() * Bt * 4
+                  + len(pairs) * (2 * 4 + 64 * 64 * 4))
+        cnt = lay.counts.double()
+        pt = torch.as_tensor(pairs, device=dev).long()
+        compares = float((cnt[pt[:, 0]] * cnt[pt[:, 1]]).sum())
+        ms = max(nbytes / HBM_BYTES_PER_S, compares / FP32_OPS_PER_S) * 1e3
+        return {"bytes": nbytes, "compares": compares, "bound_ms": ms,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= compares / FP32_OPS_PER_S else "operations"}
+
+    def batch_launch(eng):
+        """The tile-list join at this corpus's scan layout: the first N
+        tile pairs of the scan order (the skewed corpus's heaviest first)
+        in one raw launch at the default groups, device-only (a CUDA
+        graph), per launch and per tile, beside the bound, at N = 1, 8,
+        132 and 528; the wall time of the batch through
+        ``scan_tile_batch`` (pair list up, launch, pinned copy back, host
+        tiles; p50 of 20); the first pair (the heaviest tile) at each
+        groups setting; the plain version at N = 132."""
+        lay = eng._prepare()
+        Tc, Bt, cap, _ = lay.entries.shape
+        uu, vv = scan_order(eng)
+        rec = {"shape": [64, 64, Bt, cap // 64], "sms": sms}
+
+        def launch_of(pairs, groups):
+            pt = torch.as_tensor(pairs.astype(np.int32), device=dev)
+            o = torch.empty((len(pairs), 64, 64), device=dev)
+            f = raw("intersect_estimate.intersect_estimate", "_lib",
+                    "repro_allpairs_join_tiles", lay.entries.data_ptr(),
+                    lay.counts.data_ptr(), lay.entries.data_ptr(),
+                    lay.counts.data_ptr(), pt.data_ptr(), o.data_ptr(),
+                    len(pairs), Tc, Tc, Bt, cap // 64, groups)
+            f.keep = (pt, o)
+            return f
+
+        for n in (1, 8, 132, 528):
+            pairs = np.stack([uu[:n], vv[:n]], 1)
+            g = auto_groups(n, sms)
+            ms = graph_ms(launch_of(pairs, g), reps=max(2, min(50, 400 // n)))
+            rec[f"n{n}"] = {
+                "groups": g, "device_ms": ms, "device_ms_per_tile": ms / n,
+                "batch_wall_ms": p50_ms(
+                    [lambda p=pairs: tk.scan_tile_batch(lay, lay, p)] * 20),
+                **batch_bound(lay, pairs)}
+        heavy = np.stack([uu[:1], vv[:1]], 1)
+        rec["heavy_tile"] = {
+            "pair": heavy[0].tolist(), **batch_bound(lay, heavy),
+            "device_ms_by_groups": {g: graph_ms(launch_of(heavy, g))
+                                    for g in (1, 2, 4, 8, 16)}}
+        p132 = torch.as_tensor(np.stack([uu[:132], vv[:132]], 1).astype(
+            np.int32), device=dev)
+        side = (lay.entries, lay.counts)
+        rec["n132"]["plain_ms"] = cuda_ms(
+            lambda: allpairs_join_tiles_ref(*side, *side, p132), warmup=1,
+            iters=3)
+        rec["n132"]["wrapper_ms"] = cuda_ms(
+            lambda: tk.allpairs_join_tiles(*side, *side, p132))
+        rec["layout_bytes"] = lay.nbytes
+        return rec
+
     def p50_ms(calls) -> float:
         return float(np.median([step_ms(f)[1] for f in calls]))
+
+    def trace_scan(fn) -> dict:
+        """One call (after a warm one) under ``torch.profiler``: its wall
+        ms there, the summed device time of its kernels and their share
+        of the wall time, and the ops with the most device and the most
+        host time (the profiler's own overhead is in the wall time)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = step_ms(fn)
+        evs = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        kernels_ = [e for e in evs if str(e.device_type).endswith("CUDA")]
+        busy = sum(dev_us(e) for e in kernels_) / 1e3
+        return {
+            "wall_ms_profiled": wall, "device_kernel_ms": busy,
+            "device_busy_share": busy / wall if wall else 0.0,
+            "kernels": {e.key: {"ms": dev_us(e) / 1e3, "calls": e.count}
+                        for e in sorted(kernels_, key=dev_us)[::-1][:6]},
+            "host_ops": {e.key: {"self_cpu_ms": e.self_cpu_time_total / 1e3,
+                                 "calls": e.count}
+                         for e in sorted(evs, key=lambda e:
+                                         e.self_cpu_time_total)[::-1][:8]}}
 
     disc_t = {}
     for what, eng, ix, scans, qs in (
@@ -3253,17 +3491,13 @@ def main() -> None:
             ("flat", dp["feng"], index, dp["fscans"],
              [planted(qi, sources[qi]) for qi in range(TOPK_QUERIES)])):
         tl = tile_launch(ix, eng)
-        rec = {"tile_launch": tl}
+        rec = {"tile_launch": tl, "batch_launch": batch_launch(eng)}
         for mode, absolute in (("plain", False), ("absolute", True)):
             ms = p50_ms([lambda: eng.top_pairs(TOPK_K, absolute=absolute)]
                         * TOPK_REPS)
             n_t = scans[mode].stats.tiles_launched
-            # an estimate, not a trace: the device time of the first two
-            # tiles' launch taken for every launched tile
             rec[mode] = {"scan_p50_ms": ms, "tiles_launched": n_t,
-                         "ms_per_tile": ms / n_t,
-                         "host_share_estimate":
-                             1.0 - n_t * tl["device_ms"] / ms}
+                         "ms_per_tile": ms / n_t}
         rec["top_k_for_query_p50_ms"] = p50_ms(
             [lambda q=q: eng.top_k_for_query(q, TOPK_K) for q in qs])
         rec["query_p50_ms"] = p50_ms(
@@ -3281,6 +3515,16 @@ def main() -> None:
         est_t, dp["index"]._names, TOPK_K))
     disc_t["skewed"]["all_pairs_ms"] = ap_t_ms
     disc_t["skewed"]["all_pairs_sort_ms"] = sort_t_ms
+    # where a scan's time goes: one scan of each corpus under
+    # torch.profiler (the device's kernels against the wall time)
+    for what, eng in (("skewed", dp["eng"]), ("flat", dp["feng"])):
+        disc_t[what]["trace"] = trace_scan(lambda: eng.top_pairs(TOPK_K))
+    # the tile-list join's row of the kernel table: the flat corpus's
+    # batch of 132 tile pairs (one block an SM at one group)
+    bl = disc_t["flat"]["batch_launch"]["n132"]
+    t["allpairs_join_tiles"] = (bl["wrapper_ms"], bl["plain_ms"], None,
+                                bl["bytes"], "ops")
+    bounds["allpairs_join_tiles"] = (bl["bound_ms"], bl["bound_by"])
     del est_t
     # sharded serving beside the global index on the same rows, the calls
     # alternated (global, fan-out in 8 threads, fan-out in 1): top_pairs
@@ -3450,6 +3694,11 @@ def main() -> None:
             "src/repro_torch/csrc/intersect_estimate.cu",
             "src/repro/kernels/intersect_estimate/intersect_estimate.py:150",
             f"rtol={RTOL}"),
+        "allpairs_join_tiles": (
+            "src/repro_torch/csrc/intersect_estimate.cu",
+            "src/repro/kernels/intersect_estimate/intersect_estimate.py:150",
+            f"bit-equal to estimate_tile_rows; rtol={RTOL} to its plain "
+            "version"),
         "merge_bucketized": (
             "src/repro_torch/csrc/sketch_merge.cu",
             "src/repro/kernels/sketch_merge/sketch_merge.py:84",
@@ -3509,6 +3758,11 @@ def main() -> None:
             "sass_loop": jl_sass},
         "radix_select": {"library_ms_at_one_vector": kth_d1,
                          "union_positions_shape": b2_union},
+        "allpairs_join_tiles": {
+            "device_ms": bl["device_ms"], "groups": bl["groups"],
+            "pairs": 132, "corpus": "flat",
+            "batches": {w: r["batch_launch"] for w, r in disc_t.items()},
+            "parity": jt_parity},
         "allpairs_estimate": {
             "moments_shape": b5_moments,
             "discovery_tiles": {w: r["tile_launch"]

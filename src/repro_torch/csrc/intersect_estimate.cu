@@ -70,6 +70,19 @@
 //   order, the warps' sums are added in warp order, so a cell's bits
 //   depend on its two rows alone (the same on every launch, and whatever
 //   other rows the corpora hold).
+// - allpairs_join_tiles, the discovery scans' batches: the same join on
+//   a list of (A tile, B tile) pairs, one launch a batch.  The scan
+//   compacts each corpus once, with a row list that lays its scan tiles
+//   (rows in descending-norm order) into the compacted tiles, and then
+//   joins the visited tile pairs in batches.  A tile alone is one block
+//   on one of 132 SMs, and a tile of the heaviest columns, whose samples
+//   share most ids, deals out thousands of matches a bucket; so each
+//   pair runs as `groups` blocks, block g joining only the A entries of
+//   its 64 / groups rows into sums of its own.  A cell's adds stay the
+//   plain join's, in its order (its row's group sees all of its pairs):
+//   a tile's bits are the plain join's whatever the list, the batch and
+//   the groups are.  B lists are staged up to 128 entries (the plain
+//   join: 64), so a heavy tile's lists at S = 2 stay in shared memory.
 // - allpairs_join, moments mode (six sums a cell): one block of 16 warps a
 //   64 x 64 tile, and each cell owned by one warp.  Warp w owns the A rows
 //   w, w + 16, w + 32, w + 48 of the tile and keeps their cells' sums in
@@ -442,16 +455,21 @@ constexpr int TILE = 64;                  // output tile and compaction tile
 constexpr int AP_WARPS = 8;               // compaction: a warp a bucket
 constexpr int AP_THREADS = 32 * AP_WARPS;
 constexpr int SB = 64;                    // B entries staged a bucket
+constexpr int SB_TILES = 128;             // ... by the tile-list join
 constexpr int MAX_S = 16;
+constexpr int MAX_GROUPS = 16;            // A-row groups of a listed pair
 
 // entries (T, B, TILE*S) int4, counts (T, B): grid (ceil(B / 8), T);
-// dynamic shared memory TILE*S entries a warp.  A warp gathers one
-// bucket's occupied slots of the tile's rows in (row, slot) order, then
-// writes each to its place in (id, row, slot) order: its rank among the
-// bucket's entries.
+// dynamic shared memory TILE*S entries a warp.  Row rl of tile t is the
+// corpus row t * TILE + rl, or rows[t * TILE + rl] when a row list is
+// given (the discovery scan's tiles in scan order; -1, or any id outside
+// [0, D), is an empty row).  A warp gathers one bucket's occupied slots
+// of the tile's rows in (row, slot) order, then writes each to its place
+// in (id, row, slot) order: its rank among the bucket's entries.
 __global__ void __launch_bounds__(AP_THREADS)
 allpairs_compact_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                        const float* __restrict__ p, int4* __restrict__ entries,
+                        const float* __restrict__ p,
+                        const int* __restrict__ rows, int4* __restrict__ entries,
                         int* __restrict__ counts, int64_t D, int B, int S) {
   extern __shared__ int4 cp_smem[];
   const int lane = threadIdx.x & 31;
@@ -462,10 +480,10 @@ allpairs_compact_kernel(const int* __restrict__ idx, const float* __restrict__ v
   int n = 0;
   for (int r0 = 0; r0 < TILE; r0 += 32) {
     const int rl = r0 + lane;
-    const int64_t row = t * TILE + rl;
+    const int64_t row = rows ? (int64_t)rows[t * TILE + rl] : t * TILE + rl;
     const int64_t o = (row * B + b) * S;
     int cnt = 0;
-    if (row < D)
+    if (row >= 0 && row < D)
       for (int s = 0; s < S; ++s) cnt += idx[o + s] != INVALID;
     int incl = cnt;
 #pragma unroll
@@ -517,10 +535,12 @@ __device__ __forceinline__ void add_pair(float* a, int4 e, int4 f) {
 // binary search over them for each pair's lane), so the adds keep every
 // lane busy however the runs are spread.  Pairs of one batch that fall on
 // one cell add one at a time, in pair order.  A cell's pairs in a bucket
-// are thus added in ascending id order whatever else the tiles hold.
-__device__ __forceinline__ void join_windows(float* acc, int4 x0, bool v0,
-                                             int4 x1, bool v1, const int4* bl,
-                                             int nb) {
+// are thus added in ascending id order whatever else the tiles hold.  The
+// cells are acc[(A row - row0) * TILE + B row]: the valid entries' rows
+// are row0 and after.
+__device__ __forceinline__ void join_windows(float* acc, int row0, int4 x0,
+                                             bool v0, int4 x1, bool v1,
+                                             const int4* bl, int nb) {
   const int lane = threadIdx.x & 31;
   const int* ids = reinterpret_cast<const int*>(bl);
   const int pw = 1 << (31 - __clz(nb));     // largest power of two <= nb
@@ -571,7 +591,7 @@ __device__ __forceinline__ void join_windows(float* acc, int4 x0, bool v0,
     const int4 f = act ? bl[(second ? b1 : b0) + u] : make_int4(0, 0, 0, 0);
     // the active lanes whose cell equals this lane's: one vote a bit of
     // the 12-bit cell (cheaper than a match instruction)
-    const int cell = (a.y & 0xFF) * TILE + (f.y & 0xFF);
+    const int cell = ((a.y & 0xFF) - row0) * TILE + (f.y & 0xFF);
     unsigned peers = __ballot_sync(FULL, act);
 #pragma unroll
     for (int k = 0; k < 12; ++k) {
@@ -599,38 +619,38 @@ constexpr int J_WARPS = 4;                // plain join: buckets in parallel
 constexpr size_t J_SMEM = (size_t)J_WARPS * 2 * SB * sizeof(int4) +
                           (size_t)J_WARPS * TILE * TILE * sizeof(float);
 
-// The plain join.  grid (ceil(D2 / TILE), ceil(D1 / TILE)), one block of
-// J_WARPS warps a TILE x TILE output tile; dynamic shared memory: each
-// warp's ring of two staged B lists (SB entries each), then each warp's
-// sums [A row][B row].
-__global__ void __launch_bounds__(32 * J_WARPS)
-allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
-                     const int4* __restrict__ eb, const int* __restrict__ cb,
-                     float* __restrict__ out, int64_t D1, int64_t D2, int B,
-                     int S) {
+// Dynamic shared memory of the tile-list join at `groups` A-row groups:
+// the warps' rings of two SB_TILES-entry B lists, then each warp's sums
+// for TILE / groups A rows.
+__host__ __device__ constexpr size_t tiles_smem(int groups) {
+  return (size_t)J_WARPS * 2 * SB_TILES * sizeof(int4) +
+         (size_t)J_WARPS * (TILE / groups) * TILE * sizeof(float);
+}
+
+// One output tile of the plain join, a warp's part: the buckets warp,
+// warp + J_WARPS, ... of the A lists at ga (bucket b's at ga + b * cap,
+// na_of[b] entries) against the B lists at gb, into the warp's sums
+// acc[(A row - row0) * TILE + B row], joining, when ROW_GROUP, only the
+// A entries of rows row0 .. row0 + rows - 1 (otherwise all of them, row0
+// 0: the plain join's body as it was, with no filter).  ring: the warp's
+// two staged B lists of SBN entries.  A cell's adds are those of the
+// whole tile's join, in the same order, whatever row0 and rows are.
+template <int SBN, bool ROW_GROUP>
+__device__ __forceinline__ void join_buckets(float* acc, int4* ring,
+                                             const int4* ga, const int* na_of,
+                                             const int4* gb, const int* nb_of,
+                                             int B, int cap, int row0,
+                                             int rows) {
   constexpr int W = J_WARPS;
-  constexpr int SUMS = TILE * TILE;         // floats of one warp's sums
-  extern __shared__ int4 ap_smem[];
-  float* sums = reinterpret_cast<float*>(ap_smem + W * 2 * SB);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < W * SUMS; i += 32 * W) sums[i] = 0.0f;
-  __syncthreads();
-  float* acc = sums + warp * SUMS;
-  int4* ring = ap_smem + warp * 2 * SB;
-  const int64_t ta = blockIdx.y, tb = blockIdx.x;
-  const int cap = TILE * S;
-  const int4* ga = ea + ta * B * (int64_t)cap;
-  const int4* gb = eb + tb * B * (int64_t)cap;
-  const int* na_of = ca + ta * B;
-  const int* nb_of = cb + tb * B;
   const int4 none = make_int4(0, 0, 0, 0);
 
-  // the B list's first SB entries into ring slot `slot`, one commit group
+  // the B list's first SBN entries into ring slot `slot`, one commit group
   auto stage = [&](int b, int slot, int nb) {
     if (b < B) {
       const int4* src = gb + (int64_t)b * cap;
-      for (int i = lane; i < min(nb, SB); i += 32)
-        sketch::cp_async16(ring + slot * SB + i, src + i);
+      for (int i = lane; i < min(nb, SBN); i += 32)
+        sketch::cp_async16(ring + slot * SBN + i, src + i);
     }
     sketch::cp_async_commit();
   };
@@ -643,6 +663,10 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
   auto load_counts = [&](int b, Lists& l) {
     l.na2 = b < B ? na_of[b] : 0;
     l.nb2 = b < B ? nb_of[b] : 0;
+  };
+  // an A entry this call joins: its row in row0 .. row0 + rows - 1
+  auto mine = [&](int4 x) {
+    return (unsigned)((x.y & 0xFF) - row0) < (unsigned)rows;
   };
   // One bucket b of this warp (buckets warp, warp + W, ...), its lists in
   // `cur`.  Meanwhile the next bucket's A entries load into `nxt` and its
@@ -658,17 +682,24 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
     sketch::cp_async_wait_one();            // this bucket's B list landed
     __syncwarp();
     const int na = cur.na, nb = cur.nb;
-    const int4* sbk = ring + (it & 1) * SB;
+    const int4* sbk = ring + (it & 1) * SBN;
     const int4* gbk = gb + (int64_t)b * cap;
     const int4* gak = ga + (int64_t)b * cap;
     for (int ia = 0; nb && ia < na; ia += 64) {
-      const bool v0 = ia + lane < na, v1 = ia + 32 + lane < na;
-      const int4 x0 = ia == 0 ? cur.e0 : (v0 ? gak[ia + lane] : none);
-      const int4 x1 = ia == 0 ? cur.e1 : (v1 ? gak[ia + 32 + lane] : none);
-      if (nb <= SB)   // the common case: the whole B list is staged
-        join_windows(acc, x0, v0, x1, v1, sbk, nb);
+      const bool in0 = ia + lane < na, in1 = ia + 32 + lane < na;
+      const int4 x0 = ia == 0 ? cur.e0 : (in0 ? gak[ia + lane] : none);
+      const int4 x1 = ia == 0 ? cur.e1 : (in1 ? gak[ia + 32 + lane] : none);
+      bool v0 = in0, v1 = in1;
+      if constexpr (ROW_GROUP) {
+        v0 = v0 && mine(x0);
+        v1 = v1 && mine(x1);
+        if (!__any_sync(FULL, v0 || v1)) continue;   // none of these rows
+      }
+      const int r0 = ROW_GROUP ? row0 : 0;
+      if (nb <= SBN)  // the common case: the whole B list is staged
+        join_windows(acc, r0, x0, v0, x1, v1, sbk, nb);
       else
-        join_windows(acc, x0, v0, x1, v1, gbk, nb);
+        join_windows(acc, r0, x0, v0, x1, v1, gbk, nb);
     }
     __syncwarp();                           // the slot is refilled next
   };
@@ -684,6 +715,30 @@ allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
     bucket(b, it++, Y, X);
     b += W;
   }
+}
+
+// The plain join.  grid (ceil(D2 / TILE), ceil(D1 / TILE)), one block of
+// J_WARPS warps a TILE x TILE output tile; dynamic shared memory: each
+// warp's ring of two staged B lists (SB entries each), then each warp's
+// sums [A row][B row].
+__global__ void __launch_bounds__(32 * J_WARPS)
+allpairs_join_kernel(const int4* __restrict__ ea, const int* __restrict__ ca,
+                     const int4* __restrict__ eb, const int* __restrict__ cb,
+                     float* __restrict__ out, int64_t D1, int64_t D2, int B,
+                     int S) {
+  constexpr int W = J_WARPS;
+  constexpr int SUMS = TILE * TILE;         // floats of one warp's sums
+  extern __shared__ int4 ap_smem[];
+  float* sums = reinterpret_cast<float*>(ap_smem + W * 2 * SB);
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < W * SUMS; i += 32 * W) sums[i] = 0.0f;
+  __syncthreads();
+  const int64_t ta = blockIdx.y, tb = blockIdx.x;
+  const int cap = TILE * S;
+  join_buckets<SB, false>(sums + warp * SUMS, ap_smem + warp * 2 * SB,
+                          ea + ta * B * (int64_t)cap, ca + ta * B,
+                          eb + tb * B * (int64_t)cap, cb + tb * B, B, cap, 0,
+                          TILE);
   __syncthreads();
   // each cell: the warps' sums added in warp order
   const int64_t a0 = ta * TILE, b0 = tb * TILE;
@@ -709,6 +764,64 @@ int launch_join(const int4* ea, const int* ca, const int4* eb, const int* cb,
                   (unsigned)((D1 + TILE - 1) / TILE));
   allpairs_join_kernel<<<grid, 32 * J_WARPS, J_SMEM, s>>>(ea, ca, eb, cb,
                                                           out, D1, D2, B, S);
+  return (int)cudaGetLastError();
+}
+
+// The tile-list join (the discovery scans' batches).  Block x = n *
+// groups + g joins listed pair n (pairs[2n]: a tile of the A lists,
+// pairs[2n + 1]: a tile of the B lists) on the A rows g R .. g R + R - 1,
+// R = TILE / groups, into those rows of out[n] (TILE x TILE); a pair
+// outside [0, Ta) x [0, Tb) gives zeros.  A cell's adds are the plain
+// join's, in its order, so each out[n] is bit-equal to the plain join's
+// tile whatever the list and the groups are: a heavy tile spreads over
+// `groups` SMs, and a batch of tiles fills the card in one launch.
+__global__ void __launch_bounds__(32 * J_WARPS)
+allpairs_join_tiles_kernel(const int4* __restrict__ ea,
+                           const int* __restrict__ ca,
+                           const int4* __restrict__ eb,
+                           const int* __restrict__ cb,
+                           const int* __restrict__ pairs,
+                           float* __restrict__ out, int64_t Ta, int64_t Tb,
+                           int B, int S, int groups) {
+  constexpr int W = J_WARPS;
+  extern __shared__ int4 ap_smem[];
+  const int R = TILE / groups, n_sums = R * TILE;
+  float* sums = reinterpret_cast<float*>(ap_smem + W * 2 * SB_TILES);
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < W * n_sums; i += 32 * W) sums[i] = 0.0f;
+  __syncthreads();
+  const int64_t n = blockIdx.x / groups;
+  const int g = (int)(blockIdx.x - n * groups);
+  const int64_t ta = pairs[2 * n], tb = pairs[2 * n + 1];
+  const int cap = TILE * S;
+  if (ta >= 0 && ta < Ta && tb >= 0 && tb < Tb)
+    join_buckets<SB_TILES, true>(sums + warp * n_sums,
+                                 ap_smem + warp * 2 * SB_TILES,
+                                 ea + ta * B * (int64_t)cap, ca + ta * B,
+                                 eb + tb * B * (int64_t)cap, cb + tb * B, B,
+                                 cap, g * R, R);
+  __syncthreads();
+  // each cell: the warps' sums added in warp order
+  float* o = out + (n * TILE + (int64_t)g * R) * TILE;
+  for (int x = threadIdx.x; x < n_sums; x += 32 * W) {
+    float v = sums[x];
+#pragma unroll
+    for (int w = 1; w < W; ++w) v = __fadd_rn(v, sums[w * n_sums + x]);
+    o[x] = v;
+  }
+}
+
+int launch_join_tiles(const int4* ea, const int* ca, const int4* eb,
+                      const int* cb, const int* pairs, float* out,
+                      int64_t N, int64_t Ta, int64_t Tb, int B, int S,
+                      int groups, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      allpairs_join_tiles_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tiles_smem(1));
+  if (e != cudaSuccess) return (int)e;
+  allpairs_join_tiles_kernel<<<(unsigned)(N * groups), 32 * J_WARPS,
+                               tiles_smem(groups), s>>>(
+      ea, ca, eb, cb, pairs, out, Ta, Tb, B, S, groups);
   return (int)cudaGetLastError();
 }
 
@@ -1117,22 +1230,25 @@ int repro_intersect_estimate(const int* q_idx, const float* q_val,
 }
 
 // Compact one corpus (D, B, S) idx/val/p for the join: entries (T, B,
-// 64*S, 4) int32, each tile's bucket in (id, row, slot) order, and counts
-// (T, B) int32, T = ceil(D / 64).  S <= 16.
+// 64*S, 4) int32 and counts (T, B) int32.  Without a row list (rows
+// null) tile t holds rows 64 t .. 64 t + 63, T = ceil(D / 64); with one
+// (rows: T * 64 int32 row ids, -1 an empty row) tile t holds rows[64 t ..
+// 64 t + 63].
 int repro_allpairs_compact(const int* idx, const float* val, const float* p,
-                           void* entries, int* counts, int64_t D, int B, int S,
-                           void* stream) {
-  if (D <= 0) return 0;
-  if (B <= 0 || S <= 0 || S > MAX_S) return (int)cudaErrorInvalidValue;
+                           const int* rows, void* entries, int* counts,
+                           int64_t T, int64_t D, int B, int S, void* stream) {
+  if (T <= 0) return 0;
+  if (B <= 0 || S <= 0 || S > MAX_S || T > 65535)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)AP_WARPS * TILE * S * sizeof(int4);
   const cudaError_t e = cudaFuncSetAttribute(
       allpairs_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((B + AP_WARPS - 1) / AP_WARPS),
-                  (unsigned)((D + TILE - 1) / TILE));
+  const dim3 grid((unsigned)((B + AP_WARPS - 1) / AP_WARPS), (unsigned)T);
   allpairs_compact_kernel<<<grid, AP_THREADS, smem, (cudaStream_t)stream>>>(
-      idx, val, p, static_cast<int4*>(entries), counts, D, B, S);
+      idx, val, p, rows, static_cast<int4*>(entries), counts,
+      D < 0 ? 0 : D, B, S);
   return (int)cudaGetLastError();
 }
 
@@ -1157,6 +1273,26 @@ int repro_allpairs_join(const void* a_entries, const int* a_counts,
                                 S, s);
   return launch_moments<false>(ea, a_counts, eb, b_counts, out, D1, D2, B, S,
                                s);
+}
+
+// Join listed tile pairs of two compacted corpora (Ta and Tb tiles):
+// pairs (N, 2) int32 (a tile of the A side, a tile of the B side) -> out
+// (N, 64, 64) f32, each the plain join's tile of the two, bit for bit; a
+// pair outside the tiles gives zeros.  groups (1, 2, 4, 8 or 16): blocks
+// a pair, each joining 64 / groups of the A rows.
+int repro_allpairs_join_tiles(const void* a_entries, const int* a_counts,
+                              const void* b_entries, const int* b_counts,
+                              const int* pairs, float* out, int64_t N,
+                              int64_t Ta, int64_t Tb, int B, int S,
+                              int groups, void* stream) {
+  if (N <= 0) return 0;
+  if (B <= 0 || S <= 0 || S > MAX_S || groups < 1 || groups > MAX_GROUPS ||
+      (groups & (groups - 1)) || N * groups > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  return launch_join_tiles(static_cast<const int4*>(a_entries), a_counts,
+                           static_cast<const int4*>(b_entries), b_counts,
+                           pairs, out, N, Ta, Tb, B, S, groups,
+                           (cudaStream_t)stream);
 }
 
 // The moments join's launch shape at S slots on the current device: its

@@ -9,7 +9,9 @@ version.  ``csrc/`` holds the sources; ``_build`` compiles them with
   without the histogram: the threshold build's front end);
 - ``intersect_estimate``: ``intersect_estimate`` (query vs corpus),
   ``allpairs_compact`` and ``allpairs_estimate`` (the all-pairs matrix and
-  its moments: each corpus compacted to its occupied slots, then joined);
+  its moments: each corpus compacted to its occupied slots, then joined),
+  ``allpairs_join_tiles`` (listed tiles of that join in one launch: the
+  discovery scans' batches);
 - ``sketch_merge``: ``merge_bucketized`` (the partition merge of two
   bucketized corpora);
 - ``matrix_sketch``: ``matrix_products`` (the batched ``A^T B`` estimates
@@ -20,14 +22,16 @@ version.  ``csrc/`` holds the sources; ``_build`` compiles them with
   under given row seeds: ``jl_project`` and the JL baseline).
 """
 from .hash_rank import hash_rank, hash_rank_batched
-from .intersect_estimate import (BucketizedSketch, allpairs_compact,
-                                 allpairs_estimate, allpairs_moments,
+from .intersect_estimate import (BucketizedSketch, ScanTiles,
+                                 allpairs_compact, allpairs_estimate,
+                                 allpairs_join_tiles, allpairs_moments,
                                  bucketize,
                                  bucketize_corpus, bucketize_payloads,
                                  estimate_all_pairs_bucketized,
                                  estimate_tile_rows,
                                  intersect_estimate, query_corpus,
-                                 round_up_pow2, slot_inclusion_probs)
+                                 round_up_pow2, scan_tile_batch, scan_tiles,
+                                 slot_inclusion_probs)
 from .sketch_build import (adaptive_tau_batched,
                            build_combined_priority_corpus,
                            build_combined_threshold_corpus,
@@ -45,15 +49,17 @@ from .matrix_sketch import (BucketizedMatrixSketch, bucketize_matrix_sketches,
 
 KERNELS = (hash_rank_hist, radix_select, hash_rank_batched, hash_rank,
            intersect_estimate, allpairs_compact, allpairs_estimate,
-           merge_bucketized, matrix_products, countsketch_scatter,
+           allpairs_join_tiles, merge_bucketized, matrix_products, countsketch_scatter,
            jl_rademacher)
 
 __all__ = ["hash_rank", "hash_rank_batched", "BucketizedSketch",
-           "allpairs_compact", "allpairs_estimate", "allpairs_moments",
+           "ScanTiles", "allpairs_compact", "allpairs_estimate",
+           "allpairs_join_tiles", "allpairs_moments",
            "bucketize", "bucketize_corpus", "bucketize_payloads",
            "estimate_all_pairs_bucketized", "estimate_tile_rows",
            "intersect_estimate",
-           "query_corpus", "round_up_pow2", "slot_inclusion_probs",
+           "query_corpus", "round_up_pow2", "scan_tile_batch", "scan_tiles",
+           "slot_inclusion_probs",
            "adaptive_tau_batched", "build_combined_priority_corpus",
            "build_combined_threshold_corpus", "build_priority_corpus",
            "build_threshold_corpus", "hash_rank_hist", "kth_smallest_ranks",

@@ -126,11 +126,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (a read-modify-write, so under a
-    lock: wrappers launch from the fan-out's worker threads)."""
+def count_launch(wrapper, **more) -> None:
+    """Add one to ``wrapper.launches``, and each of ``more`` to the
+    wrapper's count of that name (read-modify-writes, so under a lock:
+    wrappers launch from the fan-out's worker threads)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        for name, n in more.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 def launch_on(dev, launch):

@@ -13,9 +13,16 @@
   count covers the join launch).  The moments join of a corpus with
   itself computes the tiles on and above the diagonal and mirrors them
   (the same bits as a join with a copy of the corpus).
+- :func:`allpairs_join_tiles` (the discovery scans' batches of the same
+  kernel's join): listed (A tile, B tile) pairs of two compacted corpora
+  -> their (64, 64) tiles in one launch, each bit-equal to the plain
+  join's tile; a pair runs as several blocks, each on a group of the A
+  rows.  :func:`allpairs_compact` takes a row list for it (the scan's
+  tiles laid into the compacted tiles).
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  Each wrapper counts its launches in ``.launches``.
+the kernel or raises.  Each wrapper counts its launches in ``.launches``
+(and the tile-list join the tiles it computed in ``.tiles``).
 """
 from __future__ import annotations
 
@@ -25,13 +32,17 @@ import torch
 
 from .. import _build
 from .ref import (COMPACT_TILE, MOMENT_CHANNELS, allpairs_compact_ref,
-                  allpairs_estimate_ref, intersect_estimate_ref)
+                  allpairs_estimate_ref, allpairs_join_tiles_ref,
+                  intersect_estimate_ref)
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "repro_intersect_estimate": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                                  _INT, _INT, _P],
-    "repro_allpairs_compact": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _P],
+    "repro_allpairs_compact": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
+                               _P],
+    "repro_allpairs_join_tiles": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                  _INT, _INT, _INT, _P],
     "repro_allpairs_join": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                             _P],
     "repro_allpairs_moments_shape": [_INT, _P, _P, _P, _P],
@@ -41,6 +52,8 @@ _SIGNATURES = {
 MAX_SLOTS = 16
 # shared memory a block may take on Hopper (227 KiB)
 MAX_SHARED = 232448
+# blocks a listed pair of the tile-list join may take (A-row groups)
+MAX_GROUPS = 16
 
 
 def query_shared_bytes(B: int, S: int) -> int:
@@ -94,16 +107,18 @@ def intersect_estimate(q_idx, q_val, q_tau, c_idx, c_val, c_tau
     return out
 
 
-def allpairs_compact(idx, val, p):
+def allpairs_compact(idx, val, p, rows=None):
     """One (D, B, S) corpus (int32 ids, float32 values and inclusion
     probabilities) -> its compacted all-pairs layout ``(entries (T, B,
     64*S, 4) int32, counts (T, B) int32)``: per tile of 64 rows and
     bucket, the occupied slots in (id, row, slot) order as (id, row in
     tile + 256 x the entries with this id, bits of v, bits of 1/p).
-    Entries past a count are unspecified on the card (zeros in the plain
-    version)."""
+    Tile t holds rows 64 t .. 64 t + 63, T = ceil(D / 64); with ``rows``
+    (a (T * 64,) int32 row list on the corpus's device) it holds
+    ``rows[64 t:64 t + 64]``, -1 an empty row.  Entries past a count are
+    unspecified on the card (zeros in the plain version)."""
     if idx.device.type == "cpu":
-        return allpairs_compact_ref(idx, val, p)
+        return allpairs_compact_ref(idx, val, p, rows=rows)
     dev = idx.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -113,17 +128,90 @@ def allpairs_compact(idx, val, p):
     for t, what, dt in ((idx, "idx", torch.int32), (val, "val", torch.float32),
                         (p, "p", torch.float32)):
         _check(t, what, dt, (D, B, S), dev)
-    T = -(-D // COMPACT_TILE)
+    if rows is None:
+        T = -(-D // COMPACT_TILE)
+    else:
+        T = rows.shape[0] // COMPACT_TILE
+        _check(rows, "rows", torch.int32, (T * COMPACT_TILE,), dev)
     entries = torch.empty((T, B, COMPACT_TILE * S, 4), dtype=torch.int32,
                           device=dev)
     counts = torch.empty((T, B), dtype=torch.int32, device=dev)
     lib = _lib()
     err = _build.launch_on(dev, lambda stream: lib.repro_allpairs_compact(
-        idx.data_ptr(), val.data_ptr(), p.data_ptr(), entries.data_ptr(),
-        counts.data_ptr(), D, B, S, stream))
+        idx.data_ptr(), val.data_ptr(), p.data_ptr(),
+        None if rows is None else rows.data_ptr(), entries.data_ptr(),
+        counts.data_ptr(), T, D, B, S, stream))
     _build.check(err, "allpairs_compact")
     _build.count_launch(allpairs_compact)
     return entries, counts
+
+
+def auto_groups(n_pairs: int, sms: int) -> int:
+    """Blocks a pair of an ``n_pairs``-pair tile-list join takes by
+    default: the fewest (a power of two, at most ``MAX_GROUPS``) that give
+    the launch two blocks an SM."""
+    g = 1
+    while g < MAX_GROUPS and n_pairs * g < 2 * sms:
+        g *= 2
+    return g
+
+
+def allpairs_join_tiles(a_entries, a_counts, b_entries, b_counts, pairs, *,
+                        groups: int | None = None) -> torch.Tensor:
+    """Listed tile pairs of two compacted corpora (:func:`allpairs_compact`
+    layouts) -> (N, 64, 64) float32 in one launch: ``pairs`` (N, 2) int32
+    (a tile of the A side, a tile of the B side), each output the plain
+    join's tile of the two bit for bit (zeros for a pair outside the
+    tiles).  ``groups`` (1, 2, 4, 8 or 16): blocks a pair, each joining
+    64 / groups of the A rows; by default :func:`auto_groups`.  It sets
+    the blocks, not the bits."""
+    if a_entries.device.type == "cpu":
+        return allpairs_join_tiles_ref(a_entries, a_counts, b_entries,
+                                       b_counts, pairs)
+    dev = a_entries.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    Ta, B, cap, _ = a_entries.shape
+    Tb = b_entries.shape[0]
+    S = cap // COMPACT_TILE
+    N = pairs.shape[0]
+    if S > MAX_SLOTS or cap != S * COMPACT_TILE:
+        raise ValueError(f"entries of {cap} a bucket: not a compacted "
+                         f"layout of at most {MAX_SLOTS} slots")
+    for t, what, shape in (
+            (a_entries, "a_entries", (Ta, B, cap, 4)),
+            (a_counts, "a_counts", (Ta, B)),
+            (b_entries, "b_entries", (Tb, B, cap, 4)),
+            (b_counts, "b_counts", (Tb, B)),
+            (pairs, "pairs", (N, 2))):
+        _check(t, what, torch.int32, shape, dev)
+    if groups is None:
+        groups = auto_groups(N, _sm_count(dev))
+    if groups not in (1, 2, 4, 8, 16):
+        raise ValueError(f"groups must be 1, 2, 4, 8 or 16, got {groups}")
+    out = torch.empty((N, COMPACT_TILE, COMPACT_TILE), dtype=torch.float32,
+                      device=dev)
+    if N == 0:
+        return out
+    lib = _lib()
+    err = _build.launch_on(dev, lambda stream: lib.repro_allpairs_join_tiles(
+        a_entries.data_ptr(), a_counts.data_ptr(), b_entries.data_ptr(),
+        b_counts.data_ptr(), pairs.data_ptr(), out.data_ptr(), N, Ta, Tb, B,
+        S, groups, stream))
+    _build.check(err, "allpairs_join_tiles")
+    _build.count_launch(allpairs_join_tiles, tiles=N)
+    return out
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, asked once a device."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
 
 
 def allpairs_estimate(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
@@ -179,3 +267,5 @@ def moments_join_shape(slots: int) -> dict:
 intersect_estimate.launches = 0
 allpairs_estimate.launches = 0
 allpairs_compact.launches = 0
+allpairs_join_tiles.launches = 0
+allpairs_join_tiles.tiles = 0

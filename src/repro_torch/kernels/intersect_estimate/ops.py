@@ -11,6 +11,9 @@ Estimation entry points:
 - ``query_corpus``                   one query vs a corpus (serving path)
 - ``estimate_all_pairs_bucketized``  the (D1, D2) estimate matrix
 - ``estimate_tile_rows``             one tile of it from gathered rows
+- ``scan_tiles`` / ``scan_tile_batch`` a corpus laid out once for the
+                                     discovery scans, and a batch of its
+                                     tile pairs in one launch
 - ``allpairs_moments``               (D1, D2, 6) co-moment channels
 
 Each launches its CUDA kernel for CUDA tensors and the plain version for
@@ -18,16 +21,18 @@ CPU tensors; ``use_kernel=False`` asks for the plain version explicitly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.core.hashing import hash_bucket
 from repro_torch.core.sketches import INVALID_IDX, Sketch
 
-from .intersect_estimate import allpairs_estimate, intersect_estimate
-from .ref import allpairs_estimate_ref, intersect_estimate_ref
+from .intersect_estimate import (allpairs_compact, allpairs_estimate,
+                                 allpairs_join_tiles, intersect_estimate)
+from .ref import COMPACT_TILE, allpairs_estimate_ref, intersect_estimate_ref
 
 DEFAULT_BUCKET_SEED = 0xB0C4
 
@@ -149,7 +154,9 @@ def estimate_tile_rows(a_idx, a_val, a_p, b_idx, b_val, b_p, rows_a, rows_b,
                        *, use_kernel: bool = True) -> torch.Tensor:
     """One (tq, tc) tile of the all-pairs matrix from gathered row subsets
     of two bucketized corpora (idx/val/inclusion-probability triples) —
-    the discovery engine's tile launch (DESIGN.md §17 of the reference).
+    the reference's discovery tile launch (DESIGN.md §17 of the
+    reference), kept as the oracle of the scans' batches
+    (:func:`scan_tile_batch`).
 
     ``rows_a`` (tq,) / ``rows_b`` (tc,) are row ids into the (D, B, S)
     arrays; out-of-range ids clamp, as the reference's gather does
@@ -168,6 +175,118 @@ def estimate_tile_rows(a_idx, a_val, a_p, b_idx, b_val, b_p, rows_a, rows_b,
     if not use_kernel:
         return allpairs_estimate_ref(*a, *b)
     return allpairs_estimate(*a, *b)
+
+
+class ScanTiles(NamedTuple):
+    """A corpus laid out once for the discovery scans' tile batches
+    (:func:`scan_tiles`): scan tile ``u`` holds ``sizes[u]`` rows (at most
+    ``tile``).  On the card, ``entries`` / ``counts`` are the compaction
+    of the rows in scan order through a row list: a tile of T >= 64 rows
+    is T / 64 compacted tiles, a tile of T < 64 rows a slice of one.  On
+    the CPU, ``gathered`` holds each tile's (idx, val, p) rows."""
+    tile: int
+    sizes: np.ndarray
+    entries: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
+    gathered: Optional[list] = None
+
+    @property
+    def join_tiles(self) -> int:
+        """Compacted tiles a scan tile spans on each side (1 below 64
+        rows): a tile pair is ``a.join_tiles * b.join_tiles`` join
+        tiles."""
+        return max(self.tile // COMPACT_TILE, 1)
+
+    @property
+    def nbytes(self) -> int:
+        if self.entries is not None:
+            return int(self.entries.nbytes + self.counts.nbytes)
+        return int(sum(x.nbytes for g in self.gathered for x in g))
+
+
+def scan_tiles(idx, val, p, rows: list, tile: int) -> ScanTiles:
+    """Lay a (D, B, S) corpus (idx/val/inclusion-probability triple) out
+    for tile scans: ``rows[u]`` are the row ids of scan tile ``u`` (a
+    power-of-two ``tile`` of them, the last tile possibly short).  On the
+    card one compaction launch; on the CPU each tile's rows gathered."""
+    sizes = np.array([r.size for r in rows], np.int64)
+    if idx.device.type == "cpu":
+        gathered = [tuple(x.index_select(0, torch.as_tensor(r).to(
+            torch.int64)) for x in (idx, val, p)) for r in rows]
+        return ScanTiles(tile, sizes, gathered=gathered)
+    entries, counts = allpairs_compact(
+        idx, val, p, rows=torch.as_tensor(scan_row_list(rows, tile),
+                                          device=idx.device))
+    return ScanTiles(tile, sizes, entries, counts)
+
+
+def scan_row_list(rows: list, tile: int) -> np.ndarray:
+    """The compaction's row list of scan tiles ``rows`` (``tile`` rows
+    each, at most): tile u's rows from slot u * tile on, -1 in the short
+    tail and after, to whole compacted tiles of 64 rows (int32)."""
+    n = len(rows) * tile
+    flat = np.full((-(-n // COMPACT_TILE) * COMPACT_TILE,), -1, np.int32)
+    for u, r in enumerate(rows):
+        flat[u * tile:u * tile + r.size] = r
+    return flat
+
+
+def _join_pairs(a: ScanTiles, b: ScanTiles, pairs: np.ndarray) -> np.ndarray:
+    """Tile pairs ``(u, v)`` of two compacted layouts -> the (n * kk, 2)
+    int32 list of the join tiles they span (kk = ``a.join_tiles *
+    b.join_tiles``), pair by pair, A tiles major."""
+    ka, kb = a.join_tiles, b.join_tiles
+    jt = np.empty((pairs.shape[0], ka, kb, 2), np.int32)
+    jt[..., 0] = (pairs[:, 0] * a.tile // COMPACT_TILE)[:, None, None] \
+        + np.arange(ka)[None, :, None]
+    jt[..., 1] = (pairs[:, 1] * b.tile // COMPACT_TILE)[:, None, None] \
+        + np.arange(kb)[None, None, :]
+    return jt.reshape(-1, 2)
+
+
+def _cut_tiles(host: np.ndarray, a: ScanTiles, b: ScanTiles,
+               pairs: np.ndarray) -> list:
+    """The (n * kk, 64, 64) join tiles of :func:`_join_pairs` on the host
+    -> each pair's (sizes[u], sizes[v]) tile: its kk join tiles put
+    together, then the scan tiles' rows cut out (a scan tile below 64
+    rows sits at row ``u * tile % 64`` of its join tile)."""
+    ka, kb = a.join_tiles, b.join_tiles
+    tiles = []
+    for i, (u, v) in enumerate(pairs):
+        blk = host[i * ka * kb:(i + 1) * ka * kb].reshape(
+            ka, kb, COMPACT_TILE, COMPACT_TILE).transpose(0, 2, 1, 3).reshape(
+            ka * COMPACT_TILE, kb * COMPACT_TILE)
+        ra = u * a.tile % COMPACT_TILE if a.tile < COMPACT_TILE else 0
+        rb = v * b.tile % COMPACT_TILE if b.tile < COMPACT_TILE else 0
+        tiles.append(blk[ra:ra + a.sizes[u], rb:rb + b.sizes[v]])
+    return tiles
+
+
+def scan_tile_batch(a: ScanTiles, b: ScanTiles, pairs: np.ndarray) -> list:
+    """Tile pairs ``(u, v)`` (an (n, 2) integer array) of two laid-out
+    corpora -> the n (sizes[u], sizes[v]) float32 tiles of estimates on
+    the host.  On the card one :func:`allpairs_join_tiles` launch on the
+    join tiles the pairs span and one copy into a pinned buffer of this
+    call, each tile bit-equal to :func:`estimate_tile_rows` on its rows;
+    on the CPU :func:`allpairs_estimate_ref` on each pair's gathered rows
+    (the bits ``estimate_tile_rows`` gives there).  A pair runs as
+    :func:`allpairs_join_tiles`' default groups of blocks, one block for
+    a one-row A side (a query)."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if a.entries is None:
+        return [allpairs_estimate_ref(*a.gathered[u], *b.gathered[v])
+                .numpy() for u, v in pairs]
+    dev = a.entries.device
+    jt = torch.from_numpy(_join_pairs(a, b, pairs)).pin_memory()
+    out = allpairs_join_tiles(a.entries, a.counts, b.entries, b.counts,
+                              jt.to(dev, non_blocking=True),
+                              groups=1 if a.tile == 1 else None)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    done.synchronize()
+    return _cut_tiles(host.numpy(), a, b, pairs)
 
 
 def allpairs_moments(a_idx, a_val, a_p, b_idx, b_val, b_p, *,

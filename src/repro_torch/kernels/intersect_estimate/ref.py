@@ -89,14 +89,24 @@ def allpairs_estimate_ref(a_idx, a_val, a_p, b_idx, b_val, b_p, *,
 COMPACT_TILE = 64
 
 
-def allpairs_compact_ref(idx, val, p):
+def allpairs_compact_ref(idx, val, p, rows=None):
     """The all-pairs kernel's compacted layout of one (D, B, S) corpus.
 
     For each tile of ``COMPACT_TILE`` rows and each bucket, the occupied
     slots (``idx != INVALID_IDX``) of those rows in (id, row, slot) order,
     as int32 quadruples (id, row in the tile + 256 x the number of entries
     with this id in the list, bits of v, bits of 1/p), then zeros.  Returns (entries (T, B, tile*S, 4) int32, counts (T, B)
-    int32), T = ceil(D / tile)."""
+    int32), T = ceil(D / tile).  With ``rows`` (a (T * tile,) integer row
+    list) tile t holds the rows ``rows[t * tile:(t + 1) * tile]`` instead,
+    an id outside [0, D) (-1) an empty row: the compaction of those rows
+    gathered."""
+    if rows is not None:
+        D, B, S = idx.shape
+        r = torch.as_tensor(rows, device=idx.device).to(torch.int64)
+        r = torch.where((r >= 0) & (r < D), r, D)     # D: the empty row
+        idx = torch.cat([idx, idx.new_full((1, B, S), INVALID_IDX)])[r]
+        val = torch.cat([val, val.new_zeros((1, B, S))])[r]
+        p = torch.cat([p, p.new_ones((1, B, S))])[r]
     tile = COMPACT_TILE
     D, B, S = idx.shape
     T = -(-D // tile)
@@ -171,3 +181,43 @@ def allpairs_join_ref(a_entries, a_counts, b_entries, b_counts, D1: int,
                       device=terms.device)
     out.index_add_(0, (ra[ia] * D2 + rb[ib]).to(torch.int64), terms)
     return out.reshape(D1, D2, -1) if moments else out.reshape(D1, D2)
+
+
+def allpairs_join_tiles_ref(a_entries, a_counts, b_entries, b_counts, pairs
+                            ) -> torch.Tensor:
+    """The tile-list join: for each listed pair ``(ta, tb)`` (an (N, 2)
+    integer tensor) the (64, 64) tile of the join of compacted tile ``ta``
+    of the A side with tile ``tb`` of the B side (zeros for a pair outside
+    the tiles) -> (N, 64, 64).  A sort-merge join of (pair, bucket, id)
+    keys: each A entry's run of equal keys on the B side, its pairs added
+    to their cells with ``index_add_``."""
+    tile = COMPACT_TILE
+    dev = a_entries.device
+    pairs = torch.as_tensor(pairs, device=dev).to(torch.int64).reshape(-1, 2)
+    N = pairs.shape[0]
+    out = torch.zeros((N * tile * tile,), dtype=torch.float32, device=dev)
+
+    def flat(entries, counts, t):
+        T, B, cap, _ = entries.shape
+        ok = (t >= 0) & (t < T)
+        tt = torch.where(ok, t, 0)
+        used = ((torch.arange(cap, device=dev)[None, None, :]
+                 < counts[tt][..., None]) & ok[:, None, None])
+        n, b, j = used.nonzero(as_tuple=True)
+        e = entries[tt[n], b, j]
+        # keys ascend: (pair, bucket) major, each bucket's ids sorted
+        key = (n * B + b) * (1 << 31) + e[:, 0].to(torch.int64)
+        return (key, n, e[:, 1] % 256, e[:, 2].contiguous().view(torch.float32),
+                e[:, 3].contiguous().view(torch.float32))
+
+    ka, na, ra, va, rca = flat(a_entries, a_counts, pairs[:, 0])
+    kb, _, rb, vb, rcb = flat(b_entries, b_counts, pairs[:, 1])
+    lo = torch.searchsorted(kb, ka, side="left")
+    run = torch.searchsorted(kb, ka, side="right") - lo
+    ia = torch.repeat_interleave(torch.arange(ka.numel(), device=dev), run)
+    start = torch.cumsum(run, 0) - run
+    ib = lo[ia] + torch.arange(ia.numel(), device=dev) - start[ia]
+    terms = va[ia] * vb[ib] * torch.maximum(rca[ia], rcb[ib])
+    cell = (na[ia] * tile + ra[ia]) * tile + rb[ib]
+    out.index_add_(0, cell.to(torch.int64), terms)
+    return out.reshape(N, tile, tile)

@@ -16,9 +16,19 @@ streams instead:
    (:class:`TileSummaries`), tile pairs are visited in descending ceiling
    order, and once a streaming top-k heap is full and the next ceiling is
    below its k-th score, no later tile can hold a top-k pair: the scan
-   stops.  Each visited tile pair is one launch of the all-pairs kernel on
-   the tile's rows (``kernels.estimate_tile_rows``); only the (tq, tc)
-   tile comes to the host.  The working set is O(D m), never O(D^2).
+   stops.  The corpus is laid out for the scans once per index change
+   (``kernels.scan_tiles``: on the card one compaction launch, rows in
+   scan-tile order), and the visit order is walked in batches of tile
+   pairs, each batch one launch of the all-pairs join on the listed
+   tiles and one copy to the host (``kernels.scan_tile_batch``): a
+   first batch of ``_FIRST_BATCH`` pairs, each later one twice as many
+   up to ``_MAX_BATCH`` join tiles of 64 x 64, each cut before the first pair whose ceiling is
+   already below the full heap's k-th score.  The host then takes the
+   tiles strictly in scan order with the stop test pair by pair, so what
+   a scan visits (its answer, statistics and audit) does not depend on
+   the batches; tiles computed past the stop are dropped unread.  Only
+   (tq, tc) tiles come to the host; the working set is O(D m), never
+   O(D^2).
 3. **Sharded fan-out.**  :class:`ShardedDiscoveryEngine` scans the shard
    pairs of a :class:`~repro_torch.serve.sketch_service.ShardedSketchIndex`
    concurrently (worker threads launching on the card's current stream),
@@ -50,8 +60,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import priority_sketch
 from repro_torch.core.variance import chebyshev_estimate_ceiling
-from repro_torch.kernels import (BucketizedSketch, bucketize,
-                                 estimate_tile_rows, round_up_pow2,
+from repro_torch.kernels import (BucketizedSketch, ScanTiles, bucketize,
+                                 round_up_pow2, scan_tile_batch, scan_tiles,
                                  slot_inclusion_probs)
 
 from .resilience import RetryPolicy, ShardDownError, ShardHealth
@@ -59,6 +69,14 @@ from .sketch_service import _host, _row_summaries
 from .validation import check_vector
 
 DEFAULT_TILE = 64
+# tile pairs of a scan's first batch, and the most join tiles (64 x 64)
+# a batch takes (each batch doubles the last): a few pairs first, since a
+# pruned scan visits few; then batches that fill the card.  A tile pair
+# of T > 64 rows a side is (T / 64)^2 join tiles, so a batch holds at
+# most max(1, _MAX_BATCH / (T / 64)^2) pairs (its device tiles and pinned
+# copy at most _MAX_BATCH x 16 KiB, whatever the tile)
+_FIRST_BATCH = 4
+_MAX_BATCH = 512
 
 
 def _pair_ceiling_np(ga, na, gb, nb):
@@ -220,12 +238,35 @@ def _drain(heap) -> list:
     return sorted(heap, key=lambda it: (-it[0],) + it[1:-1])
 
 
-def _tile(a, pa, b, pb, rows_a, rows_b) -> np.ndarray:
-    """One (rows_a, rows_b) tile of estimates on the host: one launch of
-    the all-pairs kernel on the corpora's device (its plain version on the
-    CPU)."""
-    return _host(estimate_tile_rows(a.idx, a.val, pa, b.idx, b.val, pb,
-                                    rows_a, rows_b))
+def _tile_stream(a: ScanTiles, b: ScanTiles, uu: np.ndarray,
+                 vv: np.ndarray, ceil: np.ndarray, heap: list, k: int):
+    """The tiles of the tile pairs ``(uu[i], vv[i])``, in scan order, in
+    batches (one :func:`~repro_torch.kernels.scan_tile_batch` each):
+    ``_FIRST_BATCH`` pairs, then twice the last batch, up to the pairs of
+    ``_MAX_BATCH`` join tiles (:func:`_batch_cap`).  The caller asks for
+    pair i's tile only once pair i passed the stop test; a batch ends
+    before the first pair whose ceiling is below the k-th score of the
+    full ``heap`` (that score only rises, so the scan stops there or
+    earlier)."""
+    cap = _batch_cap(a, b)
+    i, size = 0, min(_FIRST_BATCH, cap)
+    while i < uu.size:
+        end = min(uu.size, i + size)
+        if len(heap) == k:
+            below = np.flatnonzero(ceil[i:end].astype(np.float64)
+                                   < heap[0][0])
+            if below.size:
+                end = i + max(int(below[0]), 1)
+        yield from scan_tile_batch(a, b, np.stack([uu[i:end], vv[i:end]],
+                                                  axis=1))
+        i = end
+        size = min(2 * size, cap)
+
+
+def _batch_cap(a: ScanTiles, b: ScanTiles) -> int:
+    """The most tile pairs of ``a`` x ``b`` a batch takes: those of
+    ``_MAX_BATCH`` join tiles, and at least one."""
+    return max(1, _MAX_BATCH // (a.join_tiles * b.join_tiles))
 
 
 class DiscoveryEngine:
@@ -254,18 +295,24 @@ class DiscoveryEngine:
         self._dev_epoch = -1
         self._dev: Optional[BucketizedSketch] = None
         self._probs: Optional[torch.Tensor] = None
+        self._scan: Optional[ScanTiles] = None
 
-    def _prepare(self):
-        """Refresh the tile summaries, and the device corpus and its slot
-        probabilities when the index changed."""
+    def _prepare(self) -> ScanTiles:
+        """Refresh the tile summaries, and when the index changed the
+        device corpus, its slot probabilities and its scan layout (one
+        compaction launch on the card); -> the scan layout."""
         with self._lock:
             self._summaries.refresh()
             ep = self.index.summary_epoch
             if self._dev_epoch != ep:
                 self._dev = self.index._corpus()
                 self._probs = slot_inclusion_probs(self._dev)
+                s = self._summaries
+                self._scan = scan_tiles(
+                    self._dev.idx, self._dev.val, self._probs,
+                    [s.tile_rows(t) for t in range(s.n_tiles)], self.tile)
                 self._dev_epoch = ep
-        return self._dev, self._probs
+            return self._scan
 
     def _corpus_nbytes(self) -> int:
         return int(self._dev.idx.nbytes + self._dev.val.nbytes +
@@ -322,7 +369,7 @@ class DiscoveryEngine:
                              index.m, index.seed)
         q = bucketize(sq, n_buckets=index.n_buckets, slots=index.slots)
         gq, nq = _row_summaries(_host(q.val)[None], _host(q.tau).reshape(1))
-        cb, pb = self._prepare()
+        cb = self._prepare()
         s = self._summaries
         stats = ScanStats(tiles_total=s.n_tiles,
                           summary_tiles_refreshed=s.refreshes)
@@ -335,16 +382,19 @@ class DiscoveryEngine:
         qb = BucketizedSketch(q.idx[None], q.val[None], q.tau.reshape(1),
                               torch.zeros((1,), dtype=torch.int32,
                                           device=q.idx.device))
-        qp = slot_inclusion_probs(qb)
-        rows_q = np.zeros((1,), np.int64)
+        # the query's one row, laid out once a call
+        qt = scan_tiles(qb.idx, qb.val, slot_inclusion_probs(qb),
+                        [np.zeros((1,), np.int64)], 1)
         heap: list = []
         launched = 0
+        tiles = _tile_stream(qt, cb, np.zeros_like(order), order,
+                             ceil[order], heap, k)
         for t in order:
             c = float(ceil[t])
             if len(heap) == k and c < heap[0][0]:
                 break
             rows = s.tile_rows(int(t))
-            est = _tile(qb, qp, cb, pb, rows_q, rows)[0]
+            est = next(tiles)[0]
             launched += 1
             score = np.abs(est) if absolute else est
             sel = np.arange(rows.size)
@@ -352,6 +402,7 @@ class DiscoveryEngine:
                 sel = np.argpartition(-score, k - 1)[:k]
             _push_candidates(heap, k, score[sel],
                              [(int(rows[i]), float(est[i])) for i in sel])
+        obs.kernel_launch("intersect_estimate.tile", launched)
         stats.kernel_launches = stats.tiles_launched = launched
         stats.tiles_pruned = stats.tiles_total - launched
         stats.threshold = heap[0][0] if len(heap) == k else float("-inf")
@@ -378,8 +429,8 @@ def _pair_scan(ea: DiscoveryEngine, eb: DiscoveryEngine, k: int, *,
         raise ValueError(f"k must be >= 1, got {k}")
     if not ea.index._names or not eb.index._names:
         raise ValueError("discovery on an empty index: add vectors first")
-    ca, pa = ea._prepare()
-    cb, pb = eb._prepare()
+    ta = ea._prepare()
+    tb = ta if symmetric else eb._prepare()
     sa, sb = ea._summaries, eb._summaries
     T = ea.tile
 
@@ -398,13 +449,14 @@ def _pair_scan(ea: DiscoveryEngine, eb: DiscoveryEngine, k: int, *,
     heap: list = []
     audit_log: Optional[list] = [] if audit else None
     n_visited = 0
+    tiles = _tile_stream(ta, tb, uu, vv, ceil[uu, vv], heap, k)
     for u, v, c in zip(uu, vv, ceil[uu, vv]):
         c = float(c)
         if len(heap) == k and c < heap[0][0]:
             break
         n_visited += 1
         rows_u, rows_v = sa.tile_rows(int(u)), sb.tile_rows(int(v))
-        est = _tile(ca, pa, cb, pb, rows_u, rows_v)
+        est = next(tiles)
         score = np.abs(est) if absolute else est
         if symmetric and u == v:
             # the same tile on both sides: strict original-id order drops
@@ -434,6 +486,7 @@ def _pair_scan(ea: DiscoveryEngine, eb: DiscoveryEngine, k: int, *,
                            ceil[uu[n_visited:], vv[n_visited:]]):
             audit_log.append({"u": int(u), "v": int(v), "ceiling": float(c),
                               "launched": False})
+    obs.kernel_launch("intersect_estimate.tile", n_visited)
     stats.kernel_launches = stats.tiles_launched = n_visited
     stats.tiles_pruned = stats.tiles_total - n_visited
     stats.threshold = heap[0][0] if len(heap) == k else float("-inf")

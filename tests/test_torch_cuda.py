@@ -16,7 +16,9 @@ from _torch_common import (assert_bits, assert_close, cuda_device,  # noqa: F401
 import repro_torch.kernels as tk
 from repro_torch.kernels.intersect_estimate import (allpairs_compact_ref,
                                                     allpairs_estimate_ref,
+                                                    allpairs_join_tiles_ref,
                                                     intersect_estimate_ref)
+from repro_torch.kernels.intersect_estimate.ops import scan_row_list
 from repro_torch.kernels.hash_rank import (hash_rank_batched_ref,
                                            hash_rank_ref)
 from repro_torch.kernels.hash_rank.hash_rank import spread_route
@@ -1265,28 +1267,60 @@ def _sorted_pairs(est, names, k, absolute):
     return [(names[iu[o]], names[ju[o]], float(v[o])) for o in order]
 
 
+def _counted_batches(monkeypatch):
+    """Record the size of each batch the discovery scans take (a list
+    append: the fan-out's threads may share it)."""
+    import repro_torch.serve.discovery as disc
+    sizes = []
+    real = disc.scan_tile_batch
+
+    def counting(a, b, pairs, **kw):
+        sizes.append(len(pairs))
+        return real(a, b, pairs, **kw)
+
+    monkeypatch.setattr(disc, "scan_tile_batch", counting)
+    return sizes
+
+
+def _launch_counts():
+    return (tk.allpairs_join_tiles.launches, tk.allpairs_join_tiles.tiles,
+            tk.allpairs_compact.launches, tk.allpairs_estimate.launches)
+
+
 @pytest.mark.parametrize("absolute", [False, True])
 @pytest.mark.parametrize("tile", [8, 64, 128])
-def test_discovery_scan_equals_all_pairs_sort(cuda_device, tile, absolute):
+def test_discovery_scan_equals_all_pairs_sort(cuda_device, tile, absolute,
+                                              monkeypatch):
     """The pruned scan on the card: bit-equal to ``all_pairs()`` plus the
-    sort (a tile's cells equal all_pairs' blocks), every visited tile one
-    launch of B5's kernel, and the tiles accounted for."""
+    sort (a tile's cells equal all_pairs' blocks), one compaction launch
+    for the engine's layout (none on a second scan), one launch of the
+    tile-list join a batch computing (tile / 64)^2 join tiles (at least
+    one) a listed pair, every visited tile pair in a batch, and the tiles
+    accounted for."""
     from repro_torch.serve import DiscoveryEngine
     ix, _ = _skewed_index(cuda_device, 600)
     want = _sorted_pairs(ix.all_pairs(), ix._names, 10, absolute)
     eng = DiscoveryEngine(ix, tile=tile)
-    before = tk.allpairs_estimate.launches
-    res = eng.top_pairs(k=10, absolute=absolute)
-    s = res.stats
-    assert tk.allpairs_estimate.launches - before == s.kernel_launches
-    assert s.kernel_launches == s.tiles_launched > 0
-    assert s.tiles_launched + s.tiles_pruned == s.tiles_total
-    assert res.items == want
+    for scan in range(2):
+        batches = _counted_batches(monkeypatch)
+        before = _launch_counts()
+        res = eng.top_pairs(k=10, absolute=absolute)
+        launches, tiles, compactions, plain = (
+            x - y for x, y in zip(_launch_counts(), before))
+        s = res.stats
+        assert launches == len(batches) > 0
+        assert tiles == sum(batches) * max(tile // 64, 1) ** 2
+        assert compactions == (1 if scan == 0 else 0) and plain == 0
+        assert sum(batches) >= s.kernel_launches == s.tiles_launched > 0
+        assert s.tiles_launched + s.tiles_pruned == s.tiles_total
+        assert res.items == want
 
 
-def test_discovery_query_scan_equals_one_row_launch(cuda_device):
+def test_discovery_query_scan_equals_one_row_launch(cuda_device,
+                                                    monkeypatch):
     """The query scan against one one-row launch of B5 over every row plus
-    the sort, bit for bit, and its launches counted."""
+    the sort, bit for bit, and its launches counted: a compaction of the
+    query row a call, one tile-list join launch a batch."""
     from repro_torch.core import priority_sketch
     ix, X = _skewed_index(cuda_device, 600, seed=1)
     q = 0.7 * X[4] + 0.2 * X[9]
@@ -1300,13 +1334,18 @@ def test_discovery_query_scan_equals_one_row_launch(cuda_device):
     est = tk.estimate_tile_rows(
         qc.idx, qc.val, tk.slot_inclusion_probs(qc), c.idx, c.val,
         tk.slot_inclusion_probs(c), [0], np.arange(len(ix))).cpu().numpy()[0]
-    for absolute in (False, True):
+    for scan, absolute in enumerate((False, True)):
         score = np.abs(est) if absolute else est
         order = np.lexsort((np.arange(est.size), -score))[:10]
-        before = tk.allpairs_estimate.launches
+        batches = _counted_batches(monkeypatch)
+        before = _launch_counts()
         res = ix.top_k_for_query(q, k=10, absolute=absolute)
-        assert tk.allpairs_estimate.launches - before == \
-            res.stats.kernel_launches > 0
+        launches, tiles, compactions, plain = (
+            x - y for x, y in zip(_launch_counts(), before))
+        # the query's row compacted each call, the index's layout once
+        assert compactions == (2 if scan == 0 else 1) and plain == 0
+        assert launches == len(batches) > 0 and tiles == sum(batches)
+        assert tiles >= res.stats.kernel_launches > 0
         assert res.items == [(ix._names[i], float(est[i])) for i in order]
 
 
@@ -1333,6 +1372,115 @@ def test_discovery_after_add_many_equals_fresh_engine(cuda_device):
         assert got.items == want.items == _sorted_pairs(
             ix.all_pairs(), ix._names, 10, False)
         assert got.audit == want.audit
+
+
+def _shared_id_inputs(device, D, n_buckets, slots, seed):
+    """(idx, val, p) of D rows that share most ids: each bucket's ids
+    drawn from a pool of ``slots + 1``, each row taking ``slots`` of them,
+    so a 64-row tile's bucket lists hold 64 x ``slots`` entries in runs of
+    up to 64 equal ids (128 at S = 2: longer than the 64 the plain join
+    stages; 256 at S = 4: longer than the 128 the tile-list join
+    stages)."""
+    rng = np.random.default_rng(seed)
+    idx = np.empty((D, n_buckets, slots), dtype=np.int32)
+    for b in range(n_buckets):
+        pool = np.sort(rng.choice(1 << 24, slots + 1, replace=False))
+        for r in range(D):
+            idx[r, b] = np.sort(rng.choice(pool, slots, replace=False))
+    val = rng.standard_normal(idx.shape).astype(np.float32)
+    p = rng.uniform(0.05, 1.0, idx.shape).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (idx, val, p))
+
+
+def _tile_rows(u, D, tile=64):
+    return np.arange(u * tile, min(u * tile + tile, D))
+
+
+@pytest.mark.parametrize("groups", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("slots", [2, 4])
+def test_join_tiles_heavy_rows_equal_tile_rows(cuda_device, slots, groups):
+    """Rows sharing most ids, D = 150 (a ragged last tile): each listed
+    pair of the tile-list join (repeats, both orders, the diagonal)
+    bit-equal to ``estimate_tile_rows`` on its rows and to ``all_pairs``'
+    block, zeros in the padding, whatever the groups; one launch, its
+    tiles counted; within tolerance of the plain version."""
+    a = _shared_id_inputs(cuda_device, 150, 24, slots, 5)
+    ent, cnt = tk.allpairs_compact(*a)
+    assert int(cnt[:2].min()) == 64 * slots
+    full = tk.allpairs_estimate(*a, *a).cpu()
+    pairs = [(0, 0), (0, 1), (1, 0), (2, 2), (1, 2), (2, 0), (0, 0)]
+    pt = torch.tensor(pairs, dtype=torch.int32, device=cuda_device)
+    before = _launch_counts()
+    got = tk.allpairs_join_tiles(ent, cnt, ent, cnt, pt, groups=groups)
+    after = _launch_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, len(pairs))
+    got = got.cpu()
+    for n, (u, v) in enumerate(pairs):
+        ru, rv = _tile_rows(u, 150), _tile_rows(v, 150)
+        tile = got[n, :ru.size, :rv.size]
+        assert_bits(tile, tk.estimate_tile_rows(*a, *a, ru, rv).cpu())
+        assert_bits(tile, full[np.ix_(ru, rv)])
+        assert not got[n, ru.size:].any() and not got[n, :, rv.size:].any()
+    assert_close(got, allpairs_join_tiles_ref(ent, cnt, ent, cnt, pt).cpu())
+
+
+def test_join_tiles_two_sides_and_out_of_range(cuda_device):
+    """Two corpora (70 and 333 rows: ragged tiles, more on one side): a
+    batch of every tile pair bit-equal to their blocks of the two-corpus
+    ``all_pairs``, pairs outside the tiles zeros."""
+    a = _card_corpus(cuda_device, 70, seed=13)
+    b = _card_corpus(cuda_device, 333, seed=14)
+    pa, pb = tk.slot_inclusion_probs(a), tk.slot_inclusion_probs(b)
+    full = tk.allpairs_estimate(a.idx, a.val, pa, b.idx, b.val, pb).cpu()
+    ca = tk.allpairs_compact(a.idx, a.val, pa)
+    cb = tk.allpairs_compact(b.idx, b.val, pb)
+    pairs = [(u, v) for u in range(2) for v in range(6)] + [(2, 0), (0, 6),
+                                                            (-1, 0)]
+    got = tk.allpairs_join_tiles(*ca, *cb, torch.tensor(
+        pairs, dtype=torch.int32, device=cuda_device)).cpu()
+    for n, (u, v) in enumerate(pairs):
+        if not (0 <= u < 2 and 0 <= v < 6):
+            assert not got[n].any()
+            continue
+        ru, rv = _tile_rows(u, 70), _tile_rows(v, 333)
+        assert_bits(got[n, :ru.size, :rv.size], full[np.ix_(ru, rv)])
+
+
+@pytest.mark.parametrize("tile", [8, 64, 128])
+def test_scan_layout_and_batch_equal_tile_rows(cuda_device, tile):
+    """The scan's layout of 300 rows in a random order (one compaction
+    through a row list; a ragged last tile), bit-equal to the compaction
+    of the rows gathered, and one batch of tile pairs (T = 8: slices of
+    a join tile; T = 128: four join tiles a pair) bit-equal to
+    ``estimate_tile_rows`` on each pair's rows."""
+    c = _card_corpus(cuda_device, 300, seed=15)
+    p = tk.slot_inclusion_probs(c)
+    order = np.random.default_rng(16).permutation(300)
+    rows = [order[i:i + tile] for i in range(0, 300, tile)]
+    before = _launch_counts()
+    lay = tk.scan_tiles(c.idx, c.val, p, rows, tile)
+    assert _launch_counts()[2] - before[2] == 1
+    flat = scan_row_list(rows, tile)
+    take = torch.as_tensor(np.where(flat >= 0, flat, 0), device=cuda_device)
+    live = torch.as_tensor(flat >= 0, device=cuda_device)[:, None, None]
+    want = tk.allpairs_compact(
+        torch.where(live, c.idx[take], 0x7FFFFFFF),
+        torch.where(live, c.val[take], 0.0),
+        torch.where(live, p[take], 1.0))
+    assert_bits(lay.counts, want[1])
+    used = torch.arange(lay.entries.shape[2], device=cuda_device) \
+        < lay.counts[..., None]
+    assert_bits(lay.entries[used], want[0][used])
+    rng = np.random.default_rng(17)
+    pairs = np.stack([rng.integers(0, len(rows), 40),
+                      rng.integers(0, len(rows), 40)], 1)
+    pairs[:2] = [[len(rows) - 1, len(rows) - 1], [0, len(rows) - 1]]
+    before = _launch_counts()
+    got = tk.scan_tile_batch(lay, lay, pairs)
+    assert _launch_counts()[0] - before[0] == 1
+    for (u, v), g in zip(pairs, got):
+        assert_bits(g, tk.estimate_tile_rows(c.idx, c.val, p, c.idx, c.val,
+                                             p, rows[u], rows[v]).cpu())
 
 
 def _skewed_sharded(device, D, shards=4, seed=0, m=64, n=4096):
@@ -1364,20 +1512,26 @@ def test_sharded_all_pairs_and_query_equal_global(cuda_device):
 
 
 @pytest.mark.parametrize("absolute", [False, True])
-def test_sharded_fanout_counts_every_launch(cuda_device, absolute):
-    """A 4-shard fan-out in 8 threads: B5's launch count rises by the
-    merged ``kernel_launches`` exactly (the counter is taken under a
-    lock), and the answer is bit-equal to the global scan's and to
+def test_sharded_fanout_counts_every_launch(cuda_device, absolute,
+                                            monkeypatch):
+    """A 4-shard fan-out in 8 threads: the tile-list join's launch and
+    tile counts rise by the tasks' batches and their tiles exactly (the
+    counters are taken under a lock), every visited tile pair in a batch,
+    and the answer is bit-equal to the global scan's and to
     ``all_pairs()`` plus the sort."""
     from repro_torch.serve import ShardedDiscoveryEngine
     sh, ix, _ = _skewed_sharded(cuda_device, 700, seed=4)
     want = _sorted_pairs(ix.all_pairs(), ix._names, 10, absolute)
     eng = ShardedDiscoveryEngine(sh, tile=16, max_workers=8)
     for _ in range(3):
-        before = tk.allpairs_estimate.launches
+        batches = _counted_batches(monkeypatch)
+        before = _launch_counts()
         res = eng.top_pairs(k=10, absolute=absolute)
+        launches, tiles, _, plain = (
+            x - y for x, y in zip(_launch_counts(), before))
         s = res.stats
-        assert tk.allpairs_estimate.launches - before == s.kernel_launches
+        assert launches == len(batches) and tiles == sum(batches)
+        assert plain == 0 and tiles >= s.kernel_launches
         assert s.kernel_launches == s.tiles_launched > 10
         assert res.items == want
         assert res.items == ix.top_pairs(k=10, absolute=absolute).items
