@@ -154,7 +154,36 @@ exits nonzero with no result line):
                  build as a one-rank NCCL group over a 512 x 65536 block
                  (priority bit-equal to the one-shot build, threshold
                  idx bit-equal and tau within rtol 1e-5);
-12. ``timing``   end-to-end and per-kernel CUDA-event times with each
+12. ``resilience_path`` fault-tolerant serving and observability
+                 (``repro_torch.obs`` enabled for the path, reset after):
+                 ``ResilientSketchIndex`` over 4 coordinate shards at the
+                 main path's widths (its 4096 vectors densified in
+                 512-row blocks, its 256 planted queries) with 0, 1 and 2
+                 shards down: coverage equal to the surviving share of
+                 each query's energy (rtol 1e-6), at most delta = 0.05 of
+                 the estimates beyond their widened bound; the degraded
+                 4096 x 4096 ``all_pairs`` bit-equal to the surviving
+                 shards' own sum and its bound held; strict mode
+                 refusing, all shards down raising, a hung shard marked
+                 down and counted; ``benchmarks/degraded_serving.py``'s
+                 FULL_POINT sweep (max error over bound <= 1, coverage
+                 monotone); ``DurableSketchIndex`` on the main path's data
+                 (7 blocks, a snapshot, the last 448 rows, 64 sparse adds,
+                 a torn journal tail) recovered bit-equal (blocks, row
+                 summaries, 256 queries, ``top_pairs(10)``), again past a
+                 quarantined snapshot, its time beside a rebuild's; the
+                 reference's >= 3x recovery-over-rebuild gate at the
+                 benchmark's recovery point; a durable index merging
+                 three coordinate partitions' indexes, recovered through
+                 B6 bit-equal; ``ResilientMatrixStore`` at the matrix
+                 path's widths over 4 row shards (products of 256 pairs
+                 and 64 queries, healthy and with a shard down: the
+                 surviving shards' sum, the Frobenius bound held, healthy
+                 within rtol of the CPU run); a canary inside its budget
+                 healthy and outside it with 2 shards down; the
+                 Prometheus text's counts equal to what the path did and
+                 one Chrome trace event a finished span;
+13. ``timing``   end-to-end and per-kernel CUDA-event times with each
                  kernel's bound, the per-step split of ``add_many``,
                  ``query``, ``all_pairs``, ``merge_from`` and the store's
                  ``query``, B5's compaction and join apart, and the
@@ -196,9 +225,9 @@ exits nonzero with no result line):
                  and in 1, ``top_k_for_query`` p50, tiles launched and
                  pruned, peak bytes, ``all_pairs``, and the flat scan in
                  8 threads and in 1);
-13. ``kernels``  one line per the port's kernel table.
+14. ``kernels``  one line per the port's kernel table.
 
-Each path (4-11) zeroes every kernel's launch counter (and the tile-list
+Each path (4-12) zeroes every kernel's launch counter (and the tile-list
 join's tile count) before it runs and reads them after; each of its
 kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
@@ -215,6 +244,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -284,6 +314,14 @@ TOPK_REPS, TOPK_QUERIES = 5, 20
 # the sharded path: the discovery corpus and the main path's index in 4
 # shards; planted queries of the skewed corpus, queries of the flat one
 SHARDS, SHARD_QUERIES, FLAT_QUERIES = 4, 16, 64
+# the resilience path: 4 coordinate (row) shards at the main path's (the
+# matrix path's) widths; benchmarks/degraded_serving.py's FULL_POINT
+# sweep (D, n, m, P), its losses and queries, and its recovery gate at
+# FULL_RECOVERY_POINT (D, n, m) in 8 batches, the snapshot after 7
+RES_SHARDS, RES_DELTA = 4, 0.05
+DEG_POINT, DEG_QUERIES = (256, 1 << 15, 128, 8), 8
+DEG_LOSSES = (0.0, 0.125, 0.25, 0.375, 0.5)
+REC_POINT, REC_BATCHES, REC_SPEEDUP, REC_REPS = (512, 1 << 15, 128), 8, 3.0, 7
 
 
 def emit(obj) -> None:
@@ -472,6 +510,28 @@ def topk_corpus() -> np.ndarray:
         X[b] = 0.9 * X[a] + \
             0.3 * scales[b] * rng.standard_normal(TOPK_N).astype(np.float32)
     return X
+
+
+def recovery_point(directory: str, dev):
+    """``benchmarks/degraded_serving.py``'s FULL_RECOVERY_POINT as a
+    crashed durable index in ``directory``: REC_POINT's (D, n) standard
+    normal rows ingested through ``add_many`` in REC_BATCHES batches, a
+    snapshot after the last but one, the journal closed.  Returns the
+    names, the rows and the index's keyword arguments (a rebuild is one
+    ``SketchIndex(**kw).add_many(names, rows)``)."""
+    from repro_torch.serve import DurableSketchIndex
+    D, n, m = REC_POINT
+    V = np.random.default_rng(23).standard_normal((D, n)).astype(np.float32)
+    names = [f"v{d}" for d in range(D)]
+    batch = D // REC_BATCHES
+    kw = dict(m=m, n_buckets=2 * m, seed=SEED, device=dev)
+    dur = DurableSketchIndex(directory, **kw)
+    for bi, lo in enumerate(range(0, D, batch)):
+        dur.add_many(names[lo:lo + batch], V[lo:lo + batch])
+        if bi == REC_BATCHES - 2:
+            dur.snapshot()
+    dur.journal.close()
+    return names, V, kw
 
 
 def true_top_pairs(est: np.ndarray, names, k: int,
@@ -742,12 +802,20 @@ def main() -> None:
                                                   kth_smallest_ranks_ref,
                                                   union_positions)
     from repro_torch.kernels.sketch_merge import merge_bucketized_ref
-    from repro_torch.serve import (DiscoveryEngine, MatrixSketchStore,
-                                   RetryPolicy, ShardedDiscoveryEngine,
+    from repro_torch.serve import (DegradedServiceError, DiscoveryEngine,
+                                   DurableSketchIndex, MatrixSketchStore,
+                                   ResilientMatrixStore, ResilientSketchIndex,
+                                   RetryPolicy, ShardDownError,
+                                   ShardedDiscoveryEngine,
                                    ShardedSketchIndex, SketchIndex,
-                                   index_from_arrays)
+                                   index_from_arrays, list_snapshots,
+                                   load_snapshot, save_snapshot)
+    from repro_torch import obs
+    from repro_torch.obs import CanaryMonitor
+    from repro_torch.distributed import partition_bounds
     from repro_torch.serve import discovery as disc_mod
     from repro_torch.serve.validation import check_finite, check_vector
+    RES_RETRY = RetryPolicy(attempts=1, deadline=None)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2656,6 +2724,657 @@ def main() -> None:
               "bit-equal and tau within rtol 1e-5"],
           "seconds": shp["seconds"],
           "launches": launches["sharded_path"]})
+
+    # ------------------------------------------------------- resilience path
+    def dir_bytes(path) -> int:
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+
+    def shard_energy(v, bounds) -> np.ndarray:
+        return np.array([float(np.sum(v[lo:hi].astype(np.float64) ** 2))
+                         for lo, hi in bounds])
+
+    def median_s(fn, n_rep: int, warmup: int = 1) -> float:
+        """Median host seconds of ``fn`` after ``warmup`` calls, as
+        ``benchmarks/common.py::time_callable``."""
+        for _ in range(warmup):
+            fn()
+        ts = []
+        for _ in range(n_rep):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    def gate_share(err, bound, what) -> dict:
+        """The share of estimates beyond their bound (the Chebyshev
+        guarantee: at most delta) and the largest error over bound."""
+        ratio = np.asarray(err, np.float64) / np.asarray(bound, np.float64)
+        share = float(np.mean(ratio > 1.0))
+        check(share <= RES_DELTA, f"{what}: {share} of the estimates beyond "
+              f"their bound (delta {RES_DELTA})")
+        return {"beyond_bound_share": share, "max_err_over_bound":
+                float(ratio.max())}
+
+    res_tmp = os.path.join(ROOT, "build", f"resilience-{os.getpid()}")
+    res_queries = [planted(qi, src) for qi, src in enumerate(sources)]
+
+    def resilience_path():
+        """Degraded reads, the degraded-serving sweep, durability, the
+        resilient store and the canaries, observability on throughout;
+        the durable indexes' directory is removed however it ends."""
+        try:
+            return resilience_run()
+        finally:
+            obs.disable()
+            obs.reset()
+            shutil.rmtree(res_tmp, ignore_errors=True)
+
+    def resilience_run():
+        obs.reset()
+        obs.enable()
+        want = collections.Counter()   # what the registry must count
+        shutil.rmtree(res_tmp, ignore_errors=True)
+        os.makedirs(res_tmp)
+
+        def read(fanout, call, surface):
+            """One guarded read: its shard attempts (one a shard up) and,
+            served degraded, the surface's count."""
+            want["attempts"] += fanout.num_shards - len(fanout.down_shards())
+            res = call()
+            want[f"degraded {surface}"] += res.degraded
+            want[f"coverage {surface}"] = res.coverage
+            return res
+
+        out = {}
+        # -- degraded serving at the main path's widths ------------------
+        rix = ResilientSketchIndex(N, num_shards=RES_SHARDS, m=M,
+                                   n_buckets=N_BUCKETS, slots=SLOTS,
+                                   seed=SEED, retry=RES_RETRY, device=dev)
+        V = torch.empty((D, N), dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        for lo in range(0, D, BLOCK_ROWS):
+            rows = list(range(lo, min(lo + BLOCK_ROWS, D)))
+            blk = dense_rows(vidx, vval, rows)
+            rix.add_many([names[r] for r in rows], blk)
+            V[lo:lo + len(rows)] = torch.as_tensor(blk, device=dev)
+        ingest_s = time.perf_counter() - t0
+        V64 = V.double()
+        del V
+        Q64 = torch.as_tensor(np.stack(res_queries), device=dev).double()
+        exact = (Q64 @ V64.T).cpu().numpy()
+        gram = (V64 @ V64.T).cpu().numpy()
+        del V64, Q64
+        levels = {}
+        for kills in ((), (1,), (1, 3)):
+            for p in range(RES_SHARDS):
+                rix.revive_shard(p)
+            for p in kills:
+                rix.kill_shard(p, "resilience path")
+            surv = [p for p in range(RES_SHARDS) if p not in kills]
+            est = np.empty((N_QUERIES, D), np.float32)
+            bnd = np.empty((N_QUERIES, D), np.float64)
+            q_ms, cov_err, cov_min = [], 0.0, 1.0
+            for qi, qv in enumerate(res_queries):
+                t0 = time.perf_counter()
+                r = read(rix, lambda: rix.query(qv), "serve.query")
+                q_ms.append((time.perf_counter() - t0) * 1e3)
+                check(r.down_shards == kills, f"down shards {r.down_shards}")
+                e2 = shard_energy(qv, rix.bounds)
+                share = e2[surv].sum() / e2.sum()
+                cov_err = max(cov_err, abs(r.coverage - share) / share)
+                cov_min = min(cov_min, r.coverage)
+                check(abs(r.coverage - share) <= 1e-6 * share,
+                      f"query {qi}, {len(kills)} down: coverage {r.coverage}"
+                      f" vs the surviving energy share {share}")
+                if not kills:
+                    check(r.coverage == 1.0 and not r.degraded,
+                          f"healthy query {qi}: coverage {r.coverage}")
+                est[qi], bnd[qi] = r.estimates, r.bound
+            levels[len(kills)] = {
+                "down": list(kills), **gate_share(
+                    np.abs(est.astype(np.float64) - exact), bnd,
+                    f"{len(kills)} shards down: query"),
+                "coverage_min": cov_min,
+                "coverage_max_rel_err": cov_err,
+                "query_p50_ms": float(np.percentile(q_ms, 50)),
+                "query_p99_ms": float(np.percentile(q_ms, 99))}
+        # all_pairs with shard 1 down: the surviving shards' own sum
+        for p in range(RES_SHARDS):
+            rix.revive_shard(p)
+        rix.kill_shard(1, "resilience path")
+        t0 = time.perf_counter()
+        ap_d = read(rix, rix.all_pairs, "serve.all_pairs")
+        ap_ms = (time.perf_counter() - t0) * 1e3
+        check(ap_d.down_shards == (1,) and ap_d.estimates.shape == (D, D),
+              "degraded all_pairs shape or down shards")
+        own = np.zeros((D, D), np.float64)
+        for p in (0, 2, 3):
+            own += rix._shards[p].all_pairs()
+        assert_bits(torch.as_tensor(ap_d.estimates),
+                    torch.as_tensor(own.astype(np.float32)),
+                    "degraded all_pairs vs the surviving shards' sum")
+        ap_gate = gate_share(np.abs(ap_d.estimates.astype(np.float64) - gram),
+                             ap_d.bound, "1 shard down: all_pairs")
+        del own, gram
+        q0 = res_queries[0]
+        try:
+            read(rix, lambda: rix.query(q0, strict=True), "serve.query")
+            check(False, "strict mode served a degraded answer")
+        except DegradedServiceError:
+            pass
+        for p in range(RES_SHARDS):
+            rix.kill_shard(p, "resilience path")
+        try:
+            read(rix, lambda: rix.query(q0), "serve.query")
+            check(False, "a query with every shard down was answered")
+        except ShardDownError:
+            pass
+        for p in range(RES_SHARDS):
+            rix.revive_shard(p)
+
+        def hang(shard, fn):
+            if shard == 2:
+                raise TimeoutError("injected hang")
+            return fn()
+        rix._call_wrapper = hang
+        r = read(rix, lambda: rix.query(q0), "serve.query")
+        check(r.down_shards == (2,) and "TimeoutError" in
+              rix.down_shards()[2], "the hung shard was not marked down")
+        want["deadline_hits"] += 1
+        want["shard_down"] += 1
+        rix._call_wrapper = None
+        rix.revive_shard(2)
+        # query p50, observability off and on (not gated)
+        p50 = {}
+        for state in ("disabled", "enabled"):
+            (obs.disable if state == "disabled" else obs.enable)()
+            ms = []
+            for qv in res_queries[:64]:
+                if state == "enabled":
+                    want["attempts"] += RES_SHARDS
+                t0 = time.perf_counter()
+                rix.query(qv)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            p50[state] = float(np.percentile(ms, 50))
+        want["coverage serve.query"] = 1.0
+        out["serving"] = {"D": D, "n": N, "m": M, "shards": RES_SHARDS,
+                          "ingest_s": ingest_s, "levels": levels,
+                          "all_pairs_one_down": {**ap_gate, "ms": ap_ms,
+                                                 "coverage": ap_d.coverage},
+                          "query_p50_ms_obs": p50}
+        del rix, ap_d
+
+        # -- benchmarks/degraded_serving.py's sweep at its FULL_POINT ----
+        Dd, nd, md, Pd = DEG_POINT
+        srng = np.random.default_rng(17)
+        six = ResilientSketchIndex(nd, num_shards=Pd, m=md, n_buckets=2 * md,
+                                   seed=SEED, retry=RES_RETRY, device=dev)
+        Vd = srng.standard_normal((Dd, nd)).astype(np.float32)
+        six.add_many([f"v{d}" for d in range(Dd)], Vd)
+        Qd = srng.standard_normal((DEG_QUERIES, nd)).astype(np.float32)
+        true = Vd.astype(np.float64) @ Qd.astype(np.float64).T
+        sweep = []
+        for frac in DEG_LOSSES:
+            k = int(round(frac * Pd))
+            for p in range(Pd):
+                six.revive_shard(p)
+            for p in range(k):
+                six.kill_shard(p, "chaos sweep")
+            worst, covs = 0.0, []
+            for qi in range(DEG_QUERIES):
+                r = read(six, lambda: six.query(Qd[qi]), "serve.query")
+                err = np.abs(np.asarray(r.estimates, np.float64) - true[:, qi])
+                worst = max(worst, float(np.max(err / np.asarray(r.bound))))
+                covs.append(r.coverage)
+
+            def one():
+                read(six, lambda: six.query(Qd[0]), "serve.query")
+            sweep.append({"loss_fraction": frac, "shards_down": k,
+                          "ms_query": median_s(one, 3) * 1e3,
+                          "coverage": float(np.mean(covs)),
+                          "max_err_over_bound": worst})
+            check(worst <= 1.0, f"sweep loss {frac}: max error over bound "
+                  f"{worst}")
+        covs = [s["coverage"] for s in sweep]
+        check(covs[0] == 1.0 and all(a >= b - 1e-6
+                                     for a, b in zip(covs, covs[1:])),
+              f"sweep coverage not monotone: {covs}")
+        out["sweep"] = {"D": Dd, "n": nd, "m": md, "P": Pd, "points": sweep}
+        del six, Vd
+
+        # -- durability at the main path's widths -------------------------
+        kw = dict(m=M, n_buckets=N_BUCKETS, slots=SLOTS, seed=SEED,
+                  device=dev)
+        ddir = os.path.join(res_tmp, "main")
+        dur = DurableSketchIndex(ddir, **kw)
+        t0 = time.perf_counter()
+        for lo in range(0, 7 * BLOCK_ROWS, BLOCK_ROWS):
+            rows = list(range(lo, lo + BLOCK_ROWS))
+            dur.add_many([names[r] for r in rows],
+                         dense_rows(vidx, vval, rows))
+        snap7 = dur.snapshot()
+        rows = list(range(7 * BLOCK_ROWS, D_BATCH))
+        dur.add_many([names[r] for r in rows], dense_rows(vidx, vval, rows))
+        for d in range(D_BATCH, D):
+            dur.add(names[d], indices=vidx[d], values=vval[d])
+        durable_ingest_s = time.perf_counter() - t0
+        want["wal add_many"] += 8
+        want["wal add"] += D_SPARSE
+        want["snapshots"] += 1
+        pre = dur.index
+        pre_answers = [pre.query(q) for q in res_queries]
+        pre_top = pre.top_pairs(10).items
+        dur.journal.close()
+        with open(dur.journal.path) as f:
+            last = f.readlines()[-1]
+        with open(dur.journal.path, "a") as f:      # a torn tail
+            f.write(last[: len(last) // 2])
+        journal_bytes = sum(os.path.getsize(os.path.join(ddir, f))
+                            for f in os.listdir(ddir) if f.endswith(".wal"))
+        snapshot_bytes = dir_bytes(snap7)
+
+        def recovered_gates(rec, what, replayed, dropped):
+            check((rec.replayed_ops, rec.dropped_tail) == (replayed, dropped),
+                  f"{what}: replayed {rec.replayed_ops} ops, dropped "
+                  f"{rec.dropped_tail}; expected {replayed}, {dropped}")
+            check(rec.index._names == pre._names, f"{what}: names differ")
+            for k in ("_idx", "_val", "_tau", "_dropped", "_g", "_kn"):
+                assert_bits(torch.as_tensor(getattr(rec.index, k)[:D]),
+                            torch.as_tensor(getattr(pre, k)[:D]),
+                            f"{what}: {k} vs the pre-crash index")
+            for qi, q in enumerate(res_queries):
+                check(rec.query(q) == pre_answers[qi],
+                      f"{what}: query {qi} differs from the pre-crash one")
+            check(rec.index.top_pairs(10).items == pre_top,
+                  f"{what}: top_pairs(10) differs from the pre-crash one")
+
+        t0 = time.perf_counter()
+        rec = DurableSketchIndex.recover(ddir, **kw)
+        recover_s = time.perf_counter() - t0
+        want["recoveries"] += 1
+        recovered_gates(rec, "recovery", 1 + D_SPARSE, 1)
+
+        def rebuild():
+            fresh = SketchIndex(**kw)
+            for lo in range(0, D_BATCH, BLOCK_ROWS):
+                rows = list(range(lo, min(lo + BLOCK_ROWS, D_BATCH)))
+                fresh.add_many([names[r] for r in rows],
+                               dense_rows(vidx, vval, rows))
+            for d in range(D_BATCH, D):
+                fresh.add(names[d], indices=vidx[d], values=vval[d])
+            return fresh
+        t0 = time.perf_counter()
+        rebuild()
+        rebuild_s = time.perf_counter() - t0
+        # a newer snapshot with a flipped byte: quarantined, the older one
+        # and the archived journal segment serve the recovery
+        newest = rec.snapshot()
+        want["snapshots"] += 1
+        rec.journal.close()
+        with open(os.path.join(newest, "val.npy"), "r+b") as f:
+            f.seek(-11, os.SEEK_END)
+            b = f.read(1)
+            f.seek(-11, os.SEEK_END)
+            f.write(bytes([b[0] ^ 0x10]))
+        t0 = time.perf_counter()
+        rec2 = DurableSketchIndex.recover(ddir, **kw)
+        fallback_s = time.perf_counter() - t0
+        want["recoveries"] += 1
+        want["quarantines"] += 1
+        check(os.path.isdir(newest + ".quarantined")
+              and list_snapshots(os.path.join(ddir, "snapshots")) == [snap7],
+              "the corrupt snapshot was not quarantined")
+        recovered_gates(rec2, "fallback recovery", 1 + D_SPARSE, 0)
+        rec2.journal.close()
+        out["durability"] = {
+            "D": D, "ingest": f"7 x {BLOCK_ROWS} add_many, snapshot, "
+            f"{D_BATCH - 7 * BLOCK_ROWS} add_many, {D_SPARSE} sparse add",
+            "durable_ingest_s": durable_ingest_s,
+            "journal_bytes": journal_bytes, "snapshot_bytes": snapshot_bytes,
+            "recover_s": recover_s, "rebuild_s": rebuild_s,
+            "rebuild_over_recover": rebuild_s / recover_s,
+            "fallback_recover_s": fallback_s,
+            "replayed_ops": rec.replayed_ops,
+            "dropped_tail": rec.dropped_tail}
+        del dur, rec, rec2, pre, pre_answers
+        shutil.rmtree(ddir)
+
+        # -- the recovery gate at degraded_serving.py's recovery point ----
+        Dr, nr, mr = REC_POINT
+        rdir = os.path.join(res_tmp, "recovery")
+        rnames, Vr, rkw = recovery_point(rdir, dev)
+        want["wal add_many"] += REC_BATCHES
+        want["snapshots"] += 1
+
+        def recover_r():
+            want["recoveries"] += 1
+            r = DurableSketchIndex.recover(rdir, **rkw)
+            r.journal.close()
+            return r
+
+        def rebuild_r():
+            fresh = SketchIndex(**rkw)
+            fresh.add_many(rnames, Vr)
+            return fresh
+        s_recover = median_s(recover_r, REC_REPS)
+        s_rebuild = median_s(rebuild_r, REC_REPS)
+        r, f = recover_r(), rebuild_r()
+        exact_r = r.index._names == f._names and all(
+            np.array_equal(getattr(r.index, k)[:Dr], getattr(f, k)[:Dr])
+            for k in ("_idx", "_val", "_tau"))
+        check(exact_r, "recovery point: recovered index not bit-exact")
+        check(s_rebuild / s_recover >= REC_SPEEDUP,
+              f"recovery {s_recover * 1e3:.1f} ms is not {REC_SPEEDUP}x "
+              f"faster than the rebuild's {s_rebuild * 1e3:.1f} ms")
+        out["recovery_point"] = {"D": Dr, "n": nr, "m": mr,
+                                 "batches": REC_BATCHES,
+                                 "recover_ms": s_recover * 1e3,
+                                 "rebuild_ms": s_rebuild * 1e3,
+                                 "speedup": s_rebuild / s_recover,
+                                 "gate": REC_SPEEDUP, "bit_exact": exact_r}
+        del r, f, Vr
+        shutil.rmtree(rdir)
+
+        # -- durable merges on merge_path's partitions (B6 on replay) ----
+        parts = partition_bounds(N, PARTITIONS)
+
+        def ingest_part(ix, p):
+            lo_c, hi_c = parts[p]
+            for lo in range(0, D_BATCH, BLOCK_ROWS):
+                rows = list(range(lo, min(lo + BLOCK_ROWS, D_BATCH)))
+                blk = dense_rows(vidx, vval, rows)
+                blk[:, :lo_c] = 0.0
+                blk[:, hi_c:] = 0.0
+                ix.add_many([names[r] for r in rows], blk)
+            for d in range(D_BATCH, D):
+                side = (vidx[d] >= lo_c) & (vidx[d] < hi_c)
+                ix.add(names[d], indices=vidx[d][side], values=vval[d][side])
+        mdir = os.path.join(res_tmp, "merge")
+        mdur = DurableSketchIndex(mdir, **kw)
+        ingest_part(mdur, 0)
+        mdur.snapshot()
+        want["wal add_many"] += len(range(0, D_BATCH, BLOCK_ROWS))
+        want["wal add"] += D_SPARSE
+        want["snapshots"] += 1
+        for p in range(1, PARTITIONS):
+            peer = SketchIndex(**kw)
+            ingest_part(peer, p)
+            mdur.merge_from(peer)
+            want["wal merge_from"] += 1
+        del peer
+        mpre = mdur.index
+        mq = res_queries[:32]
+        m_answers = [mpre.query(q) for q in mq]
+        mdur.journal.close()
+        merges = tk.merge_bucketized.launches
+        t0 = time.perf_counter()
+        mrec = DurableSketchIndex.recover(mdir, **kw)
+        merge_recover_s = time.perf_counter() - t0
+        want["recoveries"] += 1
+        check(tk.merge_bucketized.launches - merges == PARTITIONS - 1,
+              "the replayed merges did not run the merge kernel once each")
+        check((mrec.replayed_ops, mrec.dropped_tail) == (PARTITIONS - 1, 0),
+              f"merge recovery replayed {mrec.replayed_ops} ops")
+        check(mrec.index._names == mpre._names, "merged names differ")
+        for k in ("_idx", "_val", "_tau", "_dropped", "_g", "_kn"):
+            assert_bits(torch.as_tensor(getattr(mrec.index, k)[:D]),
+                        torch.as_tensor(getattr(mpre, k)[:D]),
+                        f"recovered merged {k} vs the pre-crash index")
+        for qi, q in enumerate(mq):
+            check(mrec.query(q) == m_answers[qi],
+                  f"recovered merged index: query {qi} differs")
+        mrec.journal.close()
+        out["durable_merge"] = {
+            "partitions": PARTITIONS, "merges_replayed": mrec.replayed_ops,
+            "journal_bytes": sum(os.path.getsize(os.path.join(mdir, f))
+                                 for f in os.listdir(mdir)
+                                 if f.endswith(".wal")),
+            "recover_s": merge_recover_s,
+            "clean_rows": int(((mpre._dropped[:D]) == 0).sum())}
+        del mdur, mrec, mpre
+        shutil.rmtree(mdir)
+
+        # -- ResilientMatrixStore at matrix_path's widths -----------------
+        rms = ResilientMatrixStore(MAT_N, MAT_D, num_shards=RES_SHARDS,
+                                   m=MAT_M, seed=SEED, retry=RES_RETRY,
+                                   device=dev)
+        As = torch.empty((MAT_C, MAT_N, MAT_D), dtype=torch.float32,
+                         device=dev)
+        t0 = time.perf_counter()
+        for c in range(MAT_C):
+            As[c] = matrix_pair(c, dev)[0]
+            rms.add(mat_names[c], As[c].cpu().numpy())
+        store_ingest_s = time.perf_counter() - t0
+        pairs = mx["pairs"]
+        ia = torch.as_tensor(pair_ix[:, 0], device=dev)
+        ib = torch.as_tensor(pair_ix[:, 1], device=dev)
+        true_p = torch.einsum("pnd,pne->pde", As[ia].double(),
+                              As[ib].double()).cpu().numpy()
+        Qs = [matrix_pair(int(c), dev)[1] for c in q_src]
+        # every (query, stored) exact product in float64 as one GEMM:
+        # rows (query, d), columns (stored, e)
+        A64 = As.permute(1, 0, 2).reshape(MAT_N, MAT_C * MAT_D).double()
+        Q64 = torch.stack(Qs).double().permute(0, 2, 1).reshape(
+            len(Qs) * MAT_D, MAT_N)
+        true_q = (Q64 @ A64).reshape(len(Qs), MAT_D, MAT_C, MAT_D).permute(
+            0, 2, 1, 3).cpu().numpy()
+        del A64, Q64
+        store = {}
+        for kills in ((), (2,)):
+            for p in range(RES_SHARDS):
+                rms.revive_shard(p)
+            for p in kills:
+                rms.kill_shard(p, "resilience path")
+            t0 = time.perf_counter()
+            prods = read(rms, lambda: rms.products(pairs), "products")
+            prod_ms = (time.perf_counter() - t0) * 1e3
+            q_ms, answers = [], []
+            for Q in Qs:
+                Qh = Q.cpu().numpy()
+                t0 = time.perf_counter()
+                answers.append(read(rms, lambda: rms.query(Qh),
+                                    "serve.matrix_query"))
+                q_ms.append((time.perf_counter() - t0) * 1e3)
+            surv = [p for p in range(RES_SHARDS) if p not in kills]
+            own = sum(rms._shards[p].products(pairs).astype(np.float64)
+                      for p in surv)
+            assert_bits(torch.as_tensor(prods.estimates),
+                        torch.as_tensor(own.astype(np.float32)),
+                        f"{len(kills)} down: products vs the shards' sum")
+            own_q = sum(np.stack([e for _, e in rms._shards[p].query(
+                Qs[0].cpu().numpy()[rms.bounds[p][0]:rms.bounds[p][1]])])
+                .astype(np.float64) for p in surv)
+            assert_bits(torch.as_tensor(answers[0].estimates),
+                        torch.as_tensor(own_q.astype(np.float32)),
+                        f"{len(kills)} down: query vs the shards' sum")
+            frob_p = np.linalg.norm(
+                (prods.estimates.astype(np.float64) - true_p).reshape(
+                    len(pairs), -1), axis=1)
+            gates = {"products": gate_share(
+                frob_p, prods.bound, f"{len(kills)} down: products")}
+            q_err, q_bnd = [], []
+            for qi, ans in enumerate(answers):
+                q_err.append(np.linalg.norm(
+                    (ans.estimates.astype(np.float64) - true_q[qi]).reshape(
+                        MAT_C, -1), axis=1))
+                q_bnd.append(np.asarray(ans.bound))
+            gates["query"] = gate_share(np.concatenate(q_err),
+                                        np.concatenate(q_bnd),
+                                        f"{len(kills)} down: store query")
+            store[len(kills)] = {"down": list(kills), **gates,
+                                 "coverage_products": prods.coverage,
+                                 "products_ms": prod_ms,
+                                 "query_p50_ms": float(np.percentile(q_ms,
+                                                                     50)),
+                                 "prods": prods, "answers": answers}
+        # the port's CPU run on the same inputs: the shards' sketches
+        # through snapshots (a sample re-sketched on the CPU, bit-equal),
+        # the healthy products and 16 queries estimated on the CPU
+        cpu_shards = []
+        for p, sh_p in enumerate(rms._shards):
+            path = save_snapshot(sh_p, os.path.join(res_tmp, f"store{p}"))
+            cpu_shards.append(load_snapshot(path, device="cpu")[0])
+        for c in (0, 1, MAT_C - 1):
+            for p, (lo, hi) in enumerate(rms.bounds):
+                sk = priority_matrix_sketch(As[c, lo:hi].cpu(), MAT_M,
+                                            rms._shards[p].seed)
+                assert_bits(sk.row_idx, torch.as_tensor(
+                    rms._shards[p]._idx[c]), f"CPU sketch {c} shard {p}")
+                assert_bits(sk.rows, torch.as_tensor(
+                    rms._shards[p]._rows[c]), f"CPU rows {c} shard {p}")
+        # the card's layout drops a bucket's overflow (the CPU's sorted
+        # join does not): compare where no shard's layout dropped a row
+        lib_clean = np.ones(MAT_C, bool)
+        for sh_p in rms._shards:
+            lib_clean &= sh_p._buckets()[0].dropped[:MAT_C].cpu().numpy() == 0
+        clean_p = lib_clean[pair_ix[:, 0]] & lib_clean[pair_ix[:, 1]]
+        cpu_p = sum(s.products(pairs).astype(np.float64) for s in cpu_shards)
+        cpu_err = assert_close(
+            torch.as_tensor(store[0]["prods"].estimates[clean_p]),
+            torch.as_tensor(cpu_p.astype(np.float32)[clean_p]),
+            "healthy store products vs the CPU run")
+        q_compared = 0
+        for Q, ans in zip(Qs, store[0]["answers"]):
+            if q_compared == 16:
+                break
+            Qh = Q.cpu().numpy()
+            if any(int(tk.bucketize_matrix_sketches(priority_matrix_sketch(
+                    Q[lo:hi], MAT_M, sh_p.seed)).dropped[0]) > 0
+                   for sh_p, (lo, hi) in zip(rms._shards, rms.bounds)):
+                continue
+            cpu_q = sum(np.stack([e for _, e in s.query(
+                Qh[lo:hi])]).astype(np.float64)
+                for s, (lo, hi) in zip(cpu_shards, rms.bounds))
+            cpu_err = max(cpu_err, assert_close(
+                torch.as_tensor(ans.estimates[lib_clean]),
+                torch.as_tensor(cpu_q.astype(np.float32)[lib_clean]),
+                "healthy store query vs the CPU run"))
+            q_compared += 1
+        check(q_compared >= 8 and clean_p.sum() >= MAT_PAIRS // 4,
+              f"too few drop-free store answers to compare: {q_compared} "
+              f"queries, {int(clean_p.sum())} pairs")
+        for v in store.values():
+            del v["prods"], v["answers"]
+        out["store"] = {"C": MAT_C, "n": MAT_N, "d": MAT_D, "m": MAT_M,
+                        "shards": RES_SHARDS, "ingest_s": store_ingest_s,
+                        "levels": store, "cpu_max_abs_err": cpu_err,
+                        "cpu_compared": {
+                            "pairs": int(clean_p.sum()),
+                            "queries": q_compared,
+                            "stored": int(lib_clean.sum()),
+                            "rule": "no shard's layout dropped a row"}}
+        del rms, As, cpu_shards, true_q, true_p
+
+        # -- canaries -----------------------------------------------------
+        cix = ResilientSketchIndex(N, num_shards=RES_SHARDS, m=M,
+                                   n_buckets=N_BUCKETS, slots=SLOTS,
+                                   seed=SEED, retry=RES_RETRY, device=dev)
+        ones = np.ones(N, np.float32)
+        cix.add("target", ones)
+        mon = CanaryMonitor.from_vectors(
+            cix, [("ones", ones, "target", ones)], registry=obs.registry(),
+            m=M)
+        want["attempts"] += RES_SHARDS
+        healthy = mon.check()[0]
+        reg = obs.registry()
+        check(not healthy.violated and reg.value("repro_canary_slo_ok") == 1,
+              f"healthy canary outside its budget: {healthy}")
+        cix.kill_shard(1)
+        cix.kill_shard(3)
+        want["attempts"] += RES_SHARDS - 2
+        want["degraded serve.query"] += 1
+        degraded = mon.check()[0]
+        want["coverage serve.query"] = 0.5
+        check(degraded.violated and reg.value("repro_canary_slo_ok") == 0,
+              f"2 shards down and the canary stayed inside: {degraded}")
+        out["canary"] = {"healthy_ratio": healthy.budget_ratio,
+                         "degraded_ratio": degraded.budget_ratio,
+                         "degraded_error": degraded.error,
+                         "halfwidth": degraded.halfwidth}
+
+        # -- the exposition: every family the path fed --------------------
+        text = obs.prometheus_text()
+        samples = {}
+        for line in text.splitlines():
+            if not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                samples[key] = float(value)
+
+        def sample(key, expected, what):
+            check(samples.get(key) == expected,
+                  f"{key} = {samples.get(key)}, the path did {expected} "
+                  f"({what})")
+        for op in ("add_many", "add", "merge_from"):
+            sample(f'repro_wal_appends_total{{op="{op}"}}',
+                   want[f"wal {op}"], "journal appends")
+        sample("repro_snapshots_total", want["snapshots"], "snapshots")
+        sample("repro_snapshot_quarantines_total", want["quarantines"],
+               "quarantines")
+        sample("repro_recovery_total", want["recoveries"], "recoveries")
+        sample("repro_recovery_replayed_ops", PARTITIONS - 1,
+               "the last recovery's replay")
+        sample("repro_recovery_dropped_tail", 0, "the last recovery's tail")
+        check(samples.get("repro_recovery_snapshot_age_seconds", -1) >= 0,
+              "recovery snapshot age")
+        for surface in ("serve.query", "serve.all_pairs",
+                        "serve.matrix_query"):
+            sample(f'repro_degraded_results_total{{surface="{surface}"}}',
+                   want[f"degraded {surface}"], "degraded answers")
+            sample(f'repro_quality_coverage{{surface="{surface}"}}',
+                   want[f"coverage {surface}"], "the last coverage")
+        sample('repro_retry_attempts_total{surface="serve"}',
+               want["attempts"], "guarded shard calls")
+        sample('repro_deadline_hits_total{surface="serve"}',
+               want["deadline_hits"], "timeouts")
+        sample('repro_shard_down_total{surface="serve"}', want["shard_down"],
+               "shards given up on")
+        tr = obs.tracer()
+        check(tr.active_depth() == 0, "spans left open")
+        trace_path = os.path.join(res_tmp, "trace.jsonl")
+        n_events = obs.export_chrome(trace_path)
+        with open(trace_path) as f:
+            events = [json.loads(ln) for ln in f]
+        check(n_events == len(events) == len(tr.events())
+              == tr.spans_finished - tr.spans_dropped
+              and all(e["ph"] == "X" for e in events),
+              "the Chrome export is not one event a finished span")
+        out["exposition"] = {
+            "families": len(obs.snapshot()), "lines": len(text.splitlines()),
+            "spans_finished": tr.spans_finished,
+            "spans_exported": n_events,
+            "counts": dict(want)}
+        return out
+
+    rp, launches["resilience_path"] = run_path(kernels, resilience_path)
+    need = ("hash_rank_hist", "radix_select", "intersect_estimate",
+            "allpairs_compact", "allpairs_estimate", "merge_bucketized",
+            "matrix_products")
+    check(all(launches["resilience_path"][k] > 0 for k in need),
+          f"a kernel of the resilience path never launched: {launches}")
+    emit({"phase": "resilience_path", **rp,
+          "gates_passed": [
+              "degraded query at 0, 1, 2 shards down: coverage = the "
+              "surviving energy share (rtol 1e-6), at most delta of the "
+              "estimates beyond their bound; healthy coverage 1.0",
+              "degraded all_pairs = the surviving shards' sum, bit for bit;"
+              " bound held",
+              "strict refuses, all down raises, a hung shard is marked down"
+              " and counted",
+              "degraded_serving.py sweep: max error over bound <= 1, "
+              "coverage monotone",
+              "recovery bit-equal (blocks, summaries, queries, top_pairs) "
+              "after a torn tail and past a quarantined snapshot",
+              f"recovery >= {REC_SPEEDUP}x faster than the rebuild at "
+              "degraded_serving.py's recovery point",
+              "3 durable merges replayed through B6, bit-equal",
+              "resilient store: products and query = the surviving "
+              "shards' sum; Frobenius bound held; healthy within rtol of "
+              "the CPU run",
+              "canary in budget healthy, violated at 2 shards down",
+              "exposition counts = what the path did; one Chrome event a "
+              "finished span"],
+          "launches": launches["resilience_path"]})
 
     # ---------------------------------------------------------------- timing
     corpus = index._corpus()

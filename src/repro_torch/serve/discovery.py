@@ -181,23 +181,31 @@ class ScanStats:
 
 def _publish_scan(stats: ScanStats, scan: str) -> None:
     """Add one scan's :class:`ScanStats` to the ``repro_discovery_*``
-    metrics, labelled by ``scan`` (``"pairs"`` or ``"query"``)."""
+    families, labelled by ``scan`` (``"pairs"`` or ``"query"``)."""
     if not obs.enabled():
         return
-    obs.counter("repro_discovery_scans_total", scan)
-    obs.counter("repro_discovery_tiles_total", scan, stats.tiles_total)
-    obs.counter("repro_discovery_tiles_launched_total", scan,
-                stats.tiles_launched)
-    obs.counter("repro_discovery_tiles_pruned_total", scan,
-                stats.tiles_pruned)
-    obs.counter("repro_discovery_kernel_launches_total", scan,
-                stats.kernel_launches)
-    obs.gauge("repro_discovery_peak_bytes",
-              "peak working-set bytes of the last scan", scan
-              ).set(stats.peak_bytes)
-    obs.gauge("repro_discovery_summary_tiles_refreshed",
-              "cumulative dirty-tile summary refreshes at the last scan",
-              scan).set(stats.summary_tiles_refreshed)
+    r = obs.registry()
+    lab = ("scan",)
+    r.counter("repro_discovery_scans_total",
+              "pruned discovery scans", lab).labels(scan).inc()
+    r.counter("repro_discovery_tiles_total",
+              "candidate tile(-pair)s considered", lab
+              ).labels(scan).inc(stats.tiles_total)
+    r.counter("repro_discovery_tiles_launched_total",
+              "tile kernel launches actually made", lab
+              ).labels(scan).inc(stats.tiles_launched)
+    r.counter("repro_discovery_tiles_pruned_total",
+              "tile(-pair)s skipped by the bound certificate", lab
+              ).labels(scan).inc(stats.tiles_pruned)
+    r.counter("repro_discovery_kernel_launches_total",
+              "estimate_tile_rows dispatches", lab
+              ).labels(scan).inc(stats.kernel_launches)
+    r.gauge("repro_discovery_peak_bytes",
+            "peak working-set bytes of the last scan", lab
+            ).labels(scan).set(stats.peak_bytes)
+    r.gauge("repro_discovery_summary_tiles_refreshed",
+            "cumulative dirty-tile summary refreshes at the last scan",
+            lab).labels(scan).set(stats.summary_tiles_refreshed)
 
 
 @dataclass
@@ -573,7 +581,9 @@ class ShardedDiscoveryEngine:
             tsp.set("shards", list(shards))
             for attempt in range(max(policy.attempts, 1)):
                 try:
-                    obs.counter("repro_retry_attempts_total", "discovery")
+                    obs.counter("repro_retry_attempts_total",
+                                "guarded-call attempts",
+                                ("surface",)).labels("discovery").inc()
                     if self._call_wrapper is not None:
                         out = self._call_wrapper(shards, fn)
                     else:
@@ -587,13 +597,20 @@ class ShardedDiscoveryEngine:
                         policy.deadline is not None
                         and self._clock() - t0 >= policy.deadline)
                     if timed_out:
-                        obs.counter("repro_deadline_hits_total", "discovery")
+                        obs.counter("repro_deadline_hits_total",
+                                    "guarded calls terminated by timeout "
+                                    "or deadline",
+                                    ("surface",)).labels("discovery").inc()
                     if timed_out or attempt >= policy.attempts - 1:
                         break
-                    obs.counter("repro_retry_backoffs_total", "discovery")
+                    obs.counter("repro_retry_backoffs_total",
+                                "backoff sleeps between retries",
+                                ("surface",)).labels("discovery").inc()
                     self._sleep(delay)
                     delay = min(delay * 2.0, policy.max_delay)
-            obs.counter("repro_shard_down_total", "discovery")
+            obs.counter("repro_shard_down_total",
+                        "guarded tasks that exhausted their retries",
+                        ("surface",)).labels("discovery").inc()
             raise ShardDownError(
                 f"discovery task over shards {shards} failed after "
                 f"{attempt + 1} attempt(s): {last}") from last
@@ -721,6 +738,8 @@ class ShardedDiscoveryEngine:
         obs.quality_monitor().observe_coverage(res.coverage,
                                                "discovery." + scan)
         obs.gauge("repro_shards_down", "shards currently marked down",
-                  "discovery").set(len(res.lost_shards))
+                  ("surface",)).labels("discovery").set(len(res.lost_shards))
         if res.degraded:
-            obs.counter("repro_degraded_results_total", "discovery." + scan)
+            obs.counter("repro_degraded_results_total",
+                        "fan-out answers served with coverage < 1",
+                        ("surface",)).labels("discovery." + scan).inc()

@@ -656,17 +656,16 @@ class MatrixSketchStore:
         """Row-sample one (n, dim) matrix and append its sketch in place:
         amortized O(m d) host writes, no re-layout of the stored ones."""
         check_unique_name(name, self._name_set, what="store")
-        with obs.op("serve.store.add"):
-            sk = self._sketch(matrix)
-            if len(self._names) == self._cap:
-                self._grow()
-            c = len(self._names)
-            self._idx[c] = _host(sk.row_idx)
-            self._rows[c] = _host(sk.rows)
-            self._tau[c] = float(sk.tau)
-            self._names.append(name)
-            self._name_set.add(name)
-            self._invalidate()   # re-upload (not re-sketch) lazily
+        sk = self._sketch(matrix)
+        if len(self._names) == self._cap:
+            self._grow()
+        c = len(self._names)
+        self._idx[c] = _host(sk.row_idx)
+        self._rows[c] = _host(sk.rows)
+        self._tau[c] = float(sk.tau)
+        self._names.append(name)
+        self._name_set.add(name)
+        self._invalidate()   # re-upload (not re-sketch) lazily
 
     def _rollback_last(self, k: int) -> None:
         """Undo the last ``k`` appended sketches, restoring padding state
@@ -720,10 +719,8 @@ class MatrixSketchStore:
         pairs, in one kernel launch on the card."""
         ia = np.array([self._pick(a) for a, _ in pairs], np.int64)
         ib = np.array([self._pick(b) for _, b in pairs], np.int64)
-        with obs.op("serve.store.products") as sp:
-            sp.set("pairs", len(pairs))
-            return _host(estimate_matrix_products(self._stored(ia),
-                                                  self._stored(ib)))
+        return _host(estimate_matrix_products(self._stored(ia),
+                                              self._stored(ib)))
 
     def query(self, matrix: np.ndarray) -> list:
         """Estimate ``Q^T A_c`` against every stored matrix; returns
@@ -731,19 +728,17 @@ class MatrixSketchStore:
         if not self._names:
             raise ValueError("query on an empty store: add matrices before "
                              "querying")
-        with obs.op("serve.store.query") as sp:
-            sp.set("rows", len(self._names))
-            sq = self._sketch(matrix)
-            if self.device.type == "cuda":
-                bc, pc = self._buckets()
-                q = bucketize_matrix_sketches(sq)
-                obs.kernel_launch("matrix_sketch.products")
-                est = matrix_products(q.idx, q.rows, matrix_slot_probs(q),
-                                      bc.idx, bc.rows, pc)
-            else:
-                # the sorted join with the query held fixed (no copies)
-                est = estimate_matrix_product(sq, self._corpus())
-            est = _host(est)
+        sq = self._sketch(matrix)
+        if self.device.type == "cuda":
+            bc, pc = self._buckets()
+            q = bucketize_matrix_sketches(sq)
+            obs.kernel_launch("matrix_sketch.products")
+            est = matrix_products(q.idx, q.rows, matrix_slot_probs(q),
+                                  bc.idx, bc.rows, pc)
+        else:
+            # the sorted join with the query held fixed (no copies)
+            est = estimate_matrix_product(sq, self._corpus())
+        est = _host(est)
         return [(name, est[i]) for i, name in enumerate(self._names)]
 
 

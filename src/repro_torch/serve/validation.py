@@ -20,7 +20,10 @@ NONFINITE_POLICIES = ("raise", "sanitize")
 
 def _reject(check: str) -> None:
     """Count a boundary rejection (immediately before the ValueError)."""
-    obs.counter("repro_validation_rejects_total", check)
+    if obs.enabled():
+        obs.counter("repro_validation_rejects_total",
+                    "Inputs rejected at the serving boundary",
+                    ("check",)).labels(check).inc()
 
 
 def check_nonfinite_policy(policy: str) -> str:
@@ -40,8 +43,10 @@ def check_finite(arr, what: str, *, nonfinite: str = "raise") -> np.ndarray:
     bad = ~np.isfinite(arr)
     if bad.any():
         if nonfinite == "sanitize":
-            obs.counter("repro_validation_sanitized_total",
-                        n=int(bad.sum()))
+            if obs.enabled():
+                obs.counter("repro_validation_sanitized_total",
+                            "Non-finite values zeroed at the boundary"
+                            ).inc(int(bad.sum()))
             return np.where(bad, np.float32(0), arr)
         _reject("nonfinite")
         raise ValueError(

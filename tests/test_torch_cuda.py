@@ -1582,3 +1582,128 @@ def test_concurrent_first_loads_run_one_nvcc_a_source(cuda_device,
     for sk in got:
         for g, w in zip(sk, want):
             assert_bits(g, w)
+
+
+# ----------------------------------------------------------- resilience
+
+def _durable_ops(dur, device, V):
+    """add_many, a snapshot, a dense and a sparse add, a batch of left
+    halves and the merge of their right halves (B6) from a peer."""
+    n = V.shape[1]
+    dur.add_many([f"r{d}" for d in range(24)], V[:24])
+    dur.snapshot()
+    dur.add("r24", V[24])
+    nz = np.flatnonzero(V[25])
+    dur.add("r25", indices=nz, values=V[25][nz])
+    left, right = V[26:30].copy(), V[26:30].copy()
+    left[:, n // 2:] = 0.0
+    right[:, : n // 2] = 0.0
+    dur.add_many([f"w{d}" for d in range(4)], left)
+    peer = SketchIndex(64, n_buckets=128, slots=4, seed=5, device=device)
+    peer.add_many([f"r{d}" for d in range(26)],
+                  np.zeros((26, n), np.float32))
+    peer.add_many([f"w{d}" for d in range(4)], right)
+    dur.merge_from(peer)
+
+
+def test_snapshot_of_card_index_loads_on_cpu_bit_equal(cuda_device,
+                                                       tmp_path):
+    """An index and a store built on the card snapshot and load on the
+    CPU with the same bits (and back), and the loaded index's row
+    summaries equal the card index's."""
+    import shutil
+    from repro_torch.serve import load_snapshot, save_snapshot
+    rng = np.random.default_rng(40)
+    V = sparse_block(rng, 40, 4096, 400)
+    ix = SketchIndex(64, n_buckets=128, slots=4, seed=5, device=cuda_device)
+    ix.add_many([f"r{d}" for d in range(32)], V[:32])
+    for d in range(32, 40):
+        nz = np.flatnonzero(V[d])
+        ix.add(f"r{d}", indices=nz, values=V[d][nz])
+    st = MatrixSketchStore(32, dim=8, seed=5, device=cuda_device)
+    for k in range(6):
+        st.add(f"M{k}", rng.normal(size=(300, 8)).astype(np.float32))
+    for src, keys in ((ix, ("_idx", "_val", "_tau", "_dropped")),
+                      (st, ("_idx", "_rows", "_tau"))):
+        path = save_snapshot(src, str(tmp_path / type(src).__name__))
+        cpu, _ = load_snapshot(path, device="cpu")
+        back, _ = load_snapshot(save_snapshot(cpu, str(tmp_path / "back")),
+                                device=cuda_device)
+        for got in (cpu, back):
+            assert got._names == src._names
+            for k in keys:
+                assert_bits(getattr(got, k)[: len(src)],
+                            getattr(src, k)[: len(src)])
+        if src is ix:
+            for g, w in zip(cpu.row_summaries(), ix.row_summaries()):
+                assert_bits(g, w)
+            q = V[3] + 0.1 * rng.normal(size=4096).astype(np.float32)
+            assert back.query(q) == ix.query(q)
+            assert_close(np.array([e for _, e in cpu.query(q)]),
+                         np.array([e for _, e in ix.query(q)]))
+        shutil.rmtree(tmp_path / "back")
+
+
+def test_durable_recover_on_card_is_bit_equal(cuda_device, tmp_path):
+    """A durable index on the card, crashed with a torn journal tail,
+    recovers on the card bit-equal, its queries bit-equal; the replay
+    runs the merge kernel once (B6) and the build kernels."""
+    from repro_torch.serve import DurableSketchIndex
+    rng = np.random.default_rng(41)
+    V = sparse_block(rng, 30, 4096, 400)
+    kw = dict(m=64, n_buckets=128, slots=4, seed=5, device=cuda_device)
+    dur = DurableSketchIndex(str(tmp_path), **kw)
+    _durable_ops(dur, cuda_device, V)
+    dur.journal.close()
+    with open(dur.journal.path) as f:
+        last = f.readlines()[-1]
+    with open(dur.journal.path, "a") as f:
+        f.write(last[: len(last) // 2])
+    merges = tk.merge_bucketized.launches
+    builds = tk.hash_rank_hist.launches
+    rec = DurableSketchIndex.recover(str(tmp_path), **kw)
+    assert tk.merge_bucketized.launches - merges == 1
+    assert tk.hash_rank_hist.launches > builds
+    assert (rec.replayed_ops, rec.dropped_tail) == (4, 1)
+    assert rec.index._names == dur.index._names
+    for k in ("_idx", "_val", "_tau", "_dropped", "_g", "_kn"):
+        assert_bits(getattr(rec.index, k)[: len(dur)],
+                    getattr(dur.index, k)[: len(dur)])
+    for q in (V[1], V[27] - 0.5 * V[3]):
+        assert rec.query(q) == dur.query(q)
+    assert rec.index.top_pairs(5).items == dur.index.top_pairs(5).items
+
+
+@pytest.mark.parametrize("kills", [(), (2,), (0, 3)])
+def test_resilient_index_on_card_equals_cpu(cuda_device, kills):
+    """Degraded reads on the card against the CPU's on the same rows: the
+    same down shards, coverage and bounds (host float64 and float32
+    arithmetic on the same slice norms), estimates within tolerance; the
+    degraded ``all_pairs`` is the sum of the surviving shards' own."""
+    from repro_torch.serve import ResilientSketchIndex, RetryPolicy
+    rng = np.random.default_rng(42)
+    V = sparse_block(rng, 48, 8192, 800)
+    qs = [V[5] + 0.05 * rng.normal(size=8192).astype(np.float32),
+          rng.normal(size=8192).astype(np.float32)]
+    res = {}
+    for dev in (cuda_device, "cpu"):
+        ix = ResilientSketchIndex(8192, num_shards=4, m=64, n_buckets=128,
+                                  seed=11, retry=RetryPolicy(
+                                      attempts=1, deadline=None),
+                                  device=dev)
+        ix.add_many([f"r{d}" for d in range(48)], V)
+        for p in kills:
+            ix.kill_shard(p)
+        res[str(dev)] = [ix.query(q) for q in qs] + [ix.all_pairs()]
+        if dev == cuda_device:
+            surv = [p for p in range(4) if p not in kills]
+            want = sum(ix._shards[p].all_pairs().astype(np.float64)
+                       for p in surv).astype(np.float32)
+            assert_bits(res[str(dev)][-1].estimates, want)
+    for got, want in zip(res[str(cuda_device)], res["cpu"]):
+        assert got.down_shards == want.down_shards == tuple(kills)
+        assert got.coverage == want.coverage
+        for f in ("bound", "sampling_bound", "lost_mass_bound"):
+            assert_bits(np.asarray(getattr(got, f)),
+                        np.asarray(getattr(want, f)))
+        assert_close(got.estimates, want.estimates)

@@ -511,13 +511,13 @@ def test_discovery_metrics_match_reference(corpus):
             eng.top_pairs(k=5)
             eng.top_pairs(k=3, absolute=True)
             eng.top_k_for_query(X[4], k=4)
-        snap = obs.snapshot()
+        got = obs.registry().value
         for scan in ("pairs", "query"):
             for name in DISCOVERY_METRICS:
                 want = jobs.registry().value(name, scan)
                 assert want > 0 or name.endswith("pruned_total"), name
-                assert snap.get((name, scan), 0.0) == want, (name, scan)
-        assert snap[("repro_op_total", "serve.discovery.top_pairs")] == 2
+                assert got(name, scan) == want, (name, scan)
+        assert got("repro_op_total", "serve.discovery.top_pairs") == 2
     finally:
         jobs.disable()
         obs.disable()

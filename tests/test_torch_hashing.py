@@ -115,6 +115,11 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.kernels.sketch_build.combined, "
         "repro_torch.serve.discovery, repro_torch.serve.resilience, "
         "repro_torch.train, repro_torch.train.fault_tolerance\n"
+        "import repro_torch.obs.metrics, repro_torch.obs.tracing, "
+        "repro_torch.obs.quality\n"
+        "from repro_torch.obs import CanaryMonitor, observe_recovery\n"
+        "from repro_torch.serve import (DurableSketchIndex, IngestJournal, "
+        "ResilientSketchIndex, ResilientMatrixStore, save_snapshot)\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -653,6 +653,10 @@ def test_serve_modes_set_their_gauges():
     finally:
         obs.disable()
         obs.reset()
-    assert 0.0 <= snap[("repro_biasaware_head_fraction", "")] <= 1.0
-    assert snap[("repro_dp_epsilon_spent", "")] == 1.5
+    # each gauge must be present with its one series (KeyError otherwise)
+    (head,) = [s["value"] for s in
+               snap["repro_biasaware_head_fraction"]["series"]]
+    (spent,) = [s["value"] for s in snap["repro_dp_epsilon_spent"]["series"]]
+    assert 0.0 <= head <= 1.0
+    assert spent == 1.5
     assert obs.gauge("repro_dp_epsilon_spent") is obs.NOOP_GAUGE

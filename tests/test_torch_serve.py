@@ -232,16 +232,21 @@ def test_obs_counts_ops_and_rejects():
         idx.query(np.ones(64, np.float32))
         with pytest.raises(ValueError):
             idx.add("a", np.ones(64, np.float32))
-        snap = obs.snapshot()
-        spans = [name for name, *_ in obs.spans()]
+        got = obs.registry().value
+        counts = {(name, label): got(name, label) for name, label in (
+            ("repro_op_total", "serve.index.add"),
+            ("repro_op_total", "serve.index.query"),
+            ("repro_kernel_launches_total", "intersect_estimate.query"),
+            ("repro_validation_rejects_total", "duplicate_name"))}
+        spans = [s.name for s in obs.tracer().events()]
     finally:
         obs.disable()
         obs.reset()
-    assert snap[("repro_op_total", "serve.index.add")] == 1
-    assert snap[("repro_op_total", "serve.index.query")] == 1
-    assert snap[("repro_kernel_launches_total",
-                 "intersect_estimate.query")] == 1
-    assert snap[("repro_validation_rejects_total", "duplicate_name")] == 1
+    assert counts[("repro_op_total", "serve.index.add")] == 1
+    assert counts[("repro_op_total", "serve.index.query")] == 1
+    assert counts[("repro_kernel_launches_total",
+                   "intersect_estimate.query")] == 1
+    assert counts[("repro_validation_rejects_total", "duplicate_name")] == 1
     assert spans == ["serve.index.add", "serve.index.query"]
     assert obs.snapshot() == {}          # disabled and reset: nothing kept
 

@@ -493,37 +493,38 @@ def test_fanout_metrics_match_reference(corpus):
             healthy = engine(index, tile=8)
             healthy.top_pairs(k=3, absolute=True)
         snap = obs.snapshot()
+        got = obs.registry().value
         reg = jobs.registry()
         for name in FANOUT_COUNTERS + ("repro_shards_down",):
             want = reg.value(name, "discovery")
-            assert snap.get((name, "discovery"), 0.0) == want, name
-        assert snap[("repro_retry_attempts_total", "discovery")] > 0
+            assert got(name, "discovery") == want, name
+        assert got("repro_retry_attempts_total", "discovery") > 0
         for surface in ("discovery.pairs", "discovery.query"):
             for name in ("repro_quality_coverage",
                          "repro_degraded_results_total"):
                 want = reg.value(name, surface)
-                assert snap.get((name, surface), 0.0) == want, (name,
-                                                               surface)
-        assert snap[("repro_degraded_results_total", "discovery.pairs")] == 1
+                assert got(name, surface) == want, (name, surface)
+        assert got("repro_degraded_results_total", "discovery.pairs") == 1
         for scan in ("pairs", "query"):
             for name in SCAN_METRICS:
                 want = reg.value(name, scan)
-                assert snap.get((name, scan), 0.0) == want, (name, scan)
+                assert got(name, scan) == want, (name, scan)
 
         def tasks(spans):
             return sorted(tuple(sh) for sh in spans)
-        assert tasks(a["shards"] for n, _, _, a in obs.spans()
-                     if n == "serve.discovery.task") == tasks(
+        assert tasks(s.attrs["shards"] for s in obs.tracer().events()
+                     if s.name == "serve.discovery.task") == tasks(
             s.attrs["shards"] for s in jobs.tracer().events()
             if s.name == "serve.discovery.task")
-        assert not any(k[1] == "serve.discovery.task" for k in snap)
+        assert not any(ser["labels"].get("op") == "serve.discovery.task"
+                       for fam in snap.values() for ser in fam["series"])
     finally:
         jobs.disable()
         obs.disable()
         jobs.reset()
         obs.reset()
     ShardedDiscoveryEngine(t, tile=8).top_pairs(k=3)
-    assert obs.snapshot() == {} and obs.spans() == []
+    assert obs.snapshot() == {} and obs.tracer().events() == []
 
 
 # ---------------------------------------------------------------------------
