@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -225,9 +225,40 @@ exits nonzero with no result line):
                  and in 1, ``top_k_for_query`` p50, tiles launched and
                  pruned, peak bytes, ``all_pairs``, and the flat scan in
                  8 threads and in 1);
-14. ``kernels``  one line per the port's kernel table.
+14. ``train_path`` (runs right after ``build``, before ``parity``, on
+                 the empty card) the training slice at gemma2-2b's widths
+                 (d_model 2304, 8 / 4 heads of 256, d_ff 9216, vocab
+                 256000, GeGLU, softcaps 50 / 30, window 4096, tied
+                 embeddings, bfloat16), depth cut to 2 (one local and
+                 one global attention group), SHAPES["train_4k"]'s
+                 sequence of 4096, 2 sequences a step, random init:
+                 4 dense ``train_loop`` steps on one fixed
+                 ``SyntheticLM`` batch (lr 3e-3, no warmup, the
+                 ``StepWatchdog`` on; the first loss within 0.5 of
+                 ln(256000), every loss finite, the last below the
+                 first), a ``Checkpointer`` round trip of the params and
+                 AdamW state (bit-equal); SketchDP on a one-rank NCCL
+                 group (``make_sketchdp_grad_fn``, error feedback,
+                 m = n // 20; 3 threshold steps and 1 priority step;
+                 losses finite, the last below the first, the residual
+                 the flat gradient less the rank's own sketch; each
+                 step's split by CUDA events: forward + backward,
+                 flatten, sketch, gather, densify, optimizer); B3, B2
+                 and B1 launched on the path; telemetry over 4
+                 one-sequence microbatches (``sketch_grads`` at m = 2^16:
+                 a pair's estimate within its Chebyshev half-width of the
+                 exact inner product, ``gradient_noise_scale`` finite and
+                 >= 0 with its gauges set); the reduced config with
+                 m >= n equal to the dense gradient (rtol 3e-3, atol
+                 2e-4).  Then, outside the path's count, B3, B1 and B2 at
+                 the flat gradient's shape (1, n) against their plain
+                 versions (B2 also against torch.kthvalue) and the kernel
+                 route's threshold and priority sketches of the first
+                 SketchDP step's flat gradient against the plain
+                 versions, each kernel's device ms beside its bytes bound;
+15. ``kernels``  one line per the port's kernel table.
 
-Each path (4-12) zeroes every kernel's launch counter (and the tile-list
+Each path (4-12, 14) zeroes every kernel's launch counter (and the tile-list
 join's tile count) before it runs and reads them after; each of its
 kernels must have launched.  Each path's
 line gives its wall time (``seconds``).
@@ -322,6 +353,13 @@ RES_SHARDS, RES_DELTA = 4, 0.05
 DEG_POINT, DEG_QUERIES = (256, 1 << 15, 128, 8), 8
 DEG_LOSSES = (0.0, 0.125, 0.25, 0.375, 0.5)
 REC_POINT, REC_BATCHES, REC_SPEEDUP, REC_REPS = (512, 1 << 15, 128), 8, 3.0, 7
+# the train path: gemma2-2b at its published widths, depth cut to 2 (one
+# local and one global attention group), SHAPES["train_4k"]'s sequence,
+# 2 sequences a step, random init; SketchDP at m = n // 20 (the
+# reference's own convergence test); telemetry at m = 2^16 over 4
+# one-sequence microbatches
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEED, TRAIN_LR = 2, 2, 0, 3e-3
+TRAIN_DENSE_STEPS, TRAIN_MICRO, TRAIN_TELEM_M = 4, 4, 1 << 16
 
 
 def emit(obj) -> None:
@@ -839,6 +877,410 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.BUILD_SECONDS, "ptxas": ptxas})
 
+    # ------------------------------------------------------------ train path
+    # (first of the paths, before the parity phase: it needs most of the
+    # card's memory, and the card is empty here)
+    kernels = tk.KERNELS
+    launches = {}
+    from repro_torch.configs import SHAPES as LM_SHAPES
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import (compression_ratio, init_ef_state,
+                                         make_sketchdp_grad_fn)
+    from repro_torch.distributed.grad_compress import densify_mean, step_seed
+    from repro_torch.kernels.sketch_build import build_threshold_corpus
+    from repro_torch.models import flatten_params, init_params, loss_fn
+    from repro_torch.models import param_leaves as lm_leaves
+    from repro_torch.train import (Checkpointer, StepWatchdog, adamw,
+                                   gradient_noise_scale, grad_inner_product,
+                                   make_train_step, sketch_grads, train_loop,
+                                   value_and_grad)
+
+    lm_cfg = dataclasses.replace(lm_config("gemma2-2b"), n_layers=TRAIN_LAYERS)
+    lm_seq = LM_SHAPES["train_4k"]["seq_len"]
+    train_keep = {}
+
+    def nccl_group(tag: str):
+        """A one-rank NCCL group through a ``file://`` rendezvous under
+        ``build/`` (as ``sharded_path``'s)."""
+        import torch.distributed as dist
+        from datetime import timedelta
+        rdv = os.path.join(ROOT, "build", f"nccl_{tag}.{os.getpid()}")
+        os.makedirs(os.path.dirname(rdv), exist_ok=True)
+        if os.path.exists(rdv):
+            os.remove(rdv)
+        dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                                world_size=1, timeout=timedelta(seconds=120))
+        return rdv
+
+    def sketchdp_step(grad_fn, hook, opt, params, opt_state, batch, ef,
+                      step, split, keep=None):
+        """One SketchDP step with CUDA events at each stage (``hook`` is
+        the grad function's ``on_stage`` slot) and after the optimizer;
+        ``keep`` gets a copy of the flat gradient plus the residual in, and
+        the rank's own sketch."""
+        evs = [("start", torch.cuda.Event(enable_timing=True))]
+        evs[0][1].record()
+
+        def mark(stage, tensors):
+            if keep is not None and stage == "flatten":
+                keep["flat_in"] = tensors["flat"].clone()
+            if keep is not None and stage == "sketch":
+                keep["sketch"] = (tensors["idx"], tensors["val"],
+                                  tensors["tau"])
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append((stage, ev))
+
+        hook["fn"] = mark
+        t0 = time.perf_counter()
+        loss, grads, ef = grad_fn(params, batch, ef, step)
+        params, opt_state, _ = opt.update(grads, opt_state, params)
+        del grads
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        evs.append(("optimizer", ev))
+        torch.cuda.synchronize()
+        split.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                      **{b[0]: a[1].elapsed_time(b[1])
+                         for a, b in zip(evs, evs[1:])}})
+        return float(loss), params, opt_state, ef
+
+    def train_path():
+        import torch.distributed as dist
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"config": lm_cfg.name, "n_layers": lm_cfg.n_layers,
+               "d_model": lm_cfg.d_model, "vocab": lm_cfg.vocab_size,
+               "seq_len": lm_seq, "batch": TRAIN_BATCH,
+               "tokens_per_step": TRAIN_BATCH * lm_seq,
+               "dtype": lm_cfg.dtype}
+        params = init_params(lm_cfg, TRAIN_SEED, device=dev)
+        n = sum(x.numel() for _, x in lm_leaves(params))
+        # param_count() leaves out the norm gains
+        out["params"] = n
+        out["param_count_config"] = lm_cfg.param_count()
+        fixed = SyntheticLM(lm_cfg.vocab_size, lm_seq, TRAIN_BATCH,
+                            seed=TRAIN_SEED, device=dev).batch_at(0)
+        lfn = lambda p, b: loss_fn(lm_cfg, p, b)  # noqa: E731
+
+        # 1. dense train_loop, watchdog on, one checkpoint round trip
+        opt = adamw(TRAIN_LR, weight_decay=0.0)
+        wd = StepWatchdog()
+        params, opt_state, hist = train_loop(
+            lm_cfg, params, opt.init(params), iter(lambda: fixed, None),
+            make_train_step(lm_cfg, opt), n_steps=TRAIN_DENSE_STEPS,
+            watchdog=wd, log_every=1, log_fn=lambda *_: None)
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(v) for v in losses),
+              f"dense losses not finite: {losses}")
+        check(abs(losses[0] - math.log(lm_cfg.vocab_size)) < 0.5,
+              f"first loss {losses[0]} not within 0.5 of ln(V) "
+              f"{math.log(lm_cfg.vocab_size)}")
+        check(losses[-1] < losses[0], f"dense loss did not fall: {losses}")
+        check(wd.observed == TRAIN_DENSE_STEPS, "watchdog missed steps")
+        dense_ms = [h["step_time_s"] * 1e3 for h in hist]
+        out["dense"] = {"losses": losses, "step_ms": dense_ms,
+                        "step_ms_median": float(np.median(dense_ms[1:])),
+                        "stragglers": len(wd.straggler_events)}
+        out["dense"]["tokens_per_s"] = (out["tokens_per_step"] * 1e3
+                                        / out["dense"]["step_ms_median"])
+        ck_dir = os.path.join(ROOT, "build", f"train-ckpt-{os.getpid()}")
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        try:
+            ck = Checkpointer(ck_dir, keep=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(TRAIN_DENSE_STEPS, {"params": params,
+                                        "opt_state": opt_state})
+            host_s = time.perf_counter() - t0
+            ck.wait()
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step, back = ck.restore({"params": params,
+                                     "opt_state": opt_state})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            ck_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                           for dp, _, fs in os.walk(ck_dir) for f in fs)
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        check(step == TRAIN_DENSE_STEPS, f"restored step {step}")
+        check(torch.equal(back["opt_state"].step, opt_state.step),
+              "restored optimizer step differs")
+        check(all(torch.equal(a[1], b[1]) and a[1].dtype == b[1].dtype
+                  for a, b in zip(lm_leaves(back["params"]),
+                                  lm_leaves(params))),
+              "restored params differ")
+        check(all(torch.equal(a[1], b[1]) for tree_a, tree_b in
+                  ((back["opt_state"].mu, opt_state.mu),
+                   (back["opt_state"].nu, opt_state.nu))
+                  for a, b in zip(lm_leaves(tree_a), lm_leaves(tree_b))),
+              "restored AdamW moments differ")
+        del back
+        out["checkpoint"] = {"save_s": save_s, "host_copy_s": host_s,
+                             "restore_s": restore_s, "bytes": ck_bytes,
+                             "bit_equal": True}
+
+        # 2. SketchDP on a one-rank NCCL group, m = n // 20
+        m = n // 20
+        rdv = nccl_group("train")
+        try:
+            ef = init_ef_state(params)
+            split, dp_losses = [], []
+            hook = {}
+            fns = {method: make_sketchdp_grad_fn(
+                lfn, m, method=method,
+                on_stage=lambda s, t: hook["fn"](s, t))
+                for method in ("threshold", "priority")}
+            for i, method in enumerate(["threshold"] * 3 + ["priority"]):
+                keep = train_keep if i == 0 else None
+                loss, params, opt_state, ef = sketchdp_step(
+                    fns[method], hook, opt, params, opt_state, fixed, ef, i,
+                    split, keep)
+                dp_losses.append(loss)
+                if i == 0:
+                    # the residual: the flat gradient less the rank's own
+                    # sketch, densified
+                    idx, val, tau = train_keep["sketch"]
+                    sent = densify_mean(idx[None], val[None], tau[None], n)
+                    res_err = float((ef - (train_keep["flat_in"] - sent))
+                                    .abs().max())
+                    scale = float(train_keep["flat_in"].abs().max())
+                    del sent
+                    # on the host until the parity below: 3 GB of the card
+                    train_keep["flat_in"] = train_keep["flat_in"].cpu()
+                    out["sketch_size"] = int((idx != INVALID_IDX).sum())
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(rdv):
+                os.remove(rdv)
+        check(all(math.isfinite(v) for v in dp_losses),
+              f"SketchDP losses not finite: {dp_losses}")
+        check(dp_losses[-1] < dp_losses[0],
+              f"SketchDP loss did not fall: {dp_losses}")
+        check(res_err <= 1e-6 * scale,
+              f"residual != flat - sent: {res_err} (scale {scale})")
+        stages = ("grad", "flatten", "sketch", "gather", "densify",
+                  "optimizer", "step_ms")
+        med = {s: float(np.median([r[s] for r in split[1:]]))
+               for s in stages}
+        out["sketchdp"] = {
+            "m": m, "methods": ["threshold"] * 3 + ["priority"],
+            "losses": dp_losses, "steps": split,
+            "step_ms_median": med["step_ms"],
+            "split_ms_median": {s: med[s] for s in stages[:-1]},
+            "tokens_per_s": out["tokens_per_step"] * 1e3 / med["step_ms"],
+            "compression_ratio": compression_ratio(params, m),
+            "residual_max_abs_err": res_err, "residual_scale": scale}
+        del opt_state, ef
+        out["peak_bytes_train"] = torch.cuda.max_memory_allocated()
+
+        # 4. telemetry: 4 one-sequence microbatches' gradients
+        mbs = SyntheticLM(lm_cfg.vocab_size, lm_seq, TRAIN_MICRO,
+                          seed=TRAIN_SEED + 1, device=dev).batch_at(0)
+        sketches, flats = [], []
+        t0 = time.perf_counter()
+        for i in range(TRAIN_MICRO):
+            mb = {k: v[i:i + 1] for k, v in mbs.items()}
+            _, g = value_and_grad(lfn, params, mb)
+            sketches.append(sketch_grads(g, TRAIN_TELEM_M, step_seed(100)))
+            if i < 2:
+                flats.append(flatten_params(g)[0])
+            del g
+        torch.cuda.synchronize()
+        telem_s = time.perf_counter() - t0
+        est, half = grad_inner_product(sketches[0], sketches[1])
+        exact = float(torch.dot(flats[0].double(), flats[1].double()))
+        del flats
+        check(abs(float(est) - exact) <= float(half),
+              f"grad_inner_product {float(est)} beyond its half-width "
+              f"{float(half)} of the exact {exact}")
+        was_on = obs.enabled()
+        obs.reset()
+        obs.enable()
+        try:
+            gns = float(gradient_noise_scale(sketches, 1))
+            reg = obs.registry()
+            gauges = {k: reg.value(k) for k in (
+                "repro_train_gns", "repro_train_gns_big_norm2",
+                "repro_train_gns_small_norm2",
+                "repro_train_gns_ci_halfwidth")}
+        finally:
+            obs.reset()
+            if not was_on:
+                obs.disable()
+        check(math.isfinite(gns) and gns >= 0, f"GNS {gns}")
+        check(gauges["repro_train_gns"] == gns
+              and all(math.isfinite(v) for v in gauges.values()),
+              f"GNS gauges {gauges}")
+        out["telemetry"] = {"m": TRAIN_TELEM_M, "microbatches": TRAIN_MICRO,
+                            "seconds": telem_s, "inner_product": float(est),
+                            "exact": exact, "halfwidth": float(half),
+                            "gns": gns, "gauges": gauges}
+        del sketches
+        train_keep["params"] = params
+
+        # 5. exactness at the reduced config: m >= n, dense mean gradient
+        rcfg = lm_config("gemma2-2b").reduced()
+        rparams = init_params(rcfg, TRAIN_SEED, device=dev)
+        rn = sum(x.numel() for _, x in lm_leaves(rparams))
+        g = torch.Generator().manual_seed(TRAIN_SEED)
+        rb = {"tokens": torch.randint(0, rcfg.vocab_size, (8, 32),
+                                      generator=g).to(dev, torch.int32),
+              "labels": torch.randint(0, rcfg.vocab_size, (8, 32),
+                                      generator=g).to(dev, torch.int32),
+              "mask": torch.ones((8, 32), device=dev)}
+        rlfn = lambda p, b: loss_fn(rcfg, p, b)  # noqa: E731
+        rdv = nccl_group("exact")
+        try:
+            rloss, rgrads, ref_ef = make_sketchdp_grad_fn(
+                rlfn, rn + 64, method="threshold")(
+                    rparams, rb, init_ef_state(rparams), 0)
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(rdv):
+                os.remove(rdv)
+        (dloss, _), dgrads = value_and_grad(rlfn, rparams, rb)
+        ex_err = assert_tol(flatten_params(rgrads)[0],
+                            flatten_params(dgrads)[0], 3e-3, 2e-4,
+                            "SketchDP m >= n mean gradient vs dense")
+        check(abs(float(rloss) - float(dloss)) < 1e-4, "exact loss")
+        check(float(ref_ef.abs().max()) < 1e-10, "residual at m >= n")
+        out["exact_reduced"] = {"params": rn, "m": rn + 64,
+                                "max_abs_err": ex_err,
+                                "residual_max": float(ref_ef.abs().max())}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    trp, launches["train_path"] = run_path(kernels, train_path)
+    for kname in ("hash_rank", "radix_select", "hash_rank_hist"):
+        check(launches["train_path"][kname] > 0,
+              f"{kname} never launched on the train path: "
+              f"{launches['train_path']}")
+    params_t = train_keep.pop("params")
+    del params_t
+
+    # 3. the kernels at the flat gradient's shape against their plain
+    # versions on the card (not counted: the path's run is over)
+    flat = train_keep.pop("flat_in").to(dev)
+    del train_keep["sketch"]
+    torch.cuda.empty_cache()
+    n_flat = flat.numel()
+    m_flat = n_flat // 20
+    seed0 = step_seed(0)
+    fg = {"n": n_flat, "m": m_flat}
+
+    def plain_hash_rank_chunks(vals, seed, hist=False):
+        """hash_rank_ref's body over 2^26-coordinate chunks (the plain
+        int64 hash of all n at once does not fit beside the rest)."""
+        h = torch.empty_like(vals)
+        r = torch.empty_like(vals)
+        counts = torch.zeros(256, dtype=torch.int64, device=vals.device)
+        for lo in range(0, vals.numel(), 1 << 26):
+            hi = min(lo + (1 << 26), vals.numel())
+            ids = torch.arange(lo, hi, dtype=torch.int32, device=vals.device)
+            h[lo:hi] = hash_unit(seed, ids)
+            r[lo:hi] = sampling_ranks(weight(vals[lo:hi], "l2"), h[lo:hi])
+            if hist:
+                counts += torch.bincount(
+                    (r[lo:hi].view(torch.int32) >> 24).to(torch.int64),
+                    minlength=256)
+        return h, r, counts.to(torch.int32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kh, kr = tk.hash_rank(flat, seed0)
+    ph, pr, _ = plain_hash_rank_chunks(flat, seed0)
+    fg["hash_rank_max_abs_err"] = max(assert_bits(kh, ph, "B3 h at n"),
+                                      assert_bits(kr, pr, "B3 rank at n"))
+    del kh, kr
+    bh, brk, bhist = tk.hash_rank_hist(flat[None], seed0)
+    ph2, pr2, phist = plain_hash_rank_chunks(flat, seed0, hist=True)
+    fg["hash_rank_hist_max_abs_err"] = max(
+        assert_bits(bh, ph2, "B1 h at n"), assert_bits(brk[0], pr2,
+                                                       "B1 rank at n"),
+        assert_bits(bhist[0], phist, "B1 histogram at n"))
+    del bh, ph, ph2, pr2
+    # B2: priority tau (k = m + 1 over the ranks, level 0 from B1) and the
+    # threshold cutoff (k = n - m + 1 over the weights)
+    wts = weight(flat, "l2")[None]
+    sel = {"priority_tau": (brk, m_flat + 1, bhist),
+           "threshold_cut": (wts, n_flat - m_flat + 1, None)}
+    for what, (keys, k, h0) in sel.items():
+        got = tk.radix_select(keys, k, hist0=h0)
+        lib = torch.kthvalue(keys, k, dim=1).values
+        plain = kth_smallest_ranks_ref(keys, k, hist0=h0)
+        fg[f"radix_select_{what}_max_abs_err"] = max(
+            assert_bits(got, lib, f"B2 {what} vs torch.kthvalue"),
+            assert_bits(got, plain, f"B2 {what} vs the plain descent"))
+        del lib, plain
+    # the whole sketches: kernel route against the plain versions
+    ks = build_threshold_corpus(flat[None], m_flat, seed0, device=dev)
+    ps = build_threshold_corpus(flat[None], m_flat, seed0, device=dev,
+                                use_kernel=False)
+    assert_bits(ks.idx, ps.idx, "threshold sketch idx at n")
+    assert_bits(ks.val, ps.val, "threshold sketch val at n")
+    fg["threshold_tau_rel_err"] = abs(float(ks.tau[0]) / float(ps.tau[0]) - 1)
+    check(fg["threshold_tau_rel_err"] <= 1e-6, "threshold tau at n")
+    fg["threshold_size"] = int((ks.idx != INVALID_IDX).sum())
+    del ks, ps
+    kp = build_payload_corpus(flat[None], m_flat, seed0, method="priority",
+                              device=dev)
+    pp = build_payload_corpus(flat[None], m_flat, seed0, method="priority",
+                              device=dev, use_kernel=False)
+    for f in ("idx", "payload", "tau"):
+        assert_bits(getattr(kp, f), getattr(pp, f), f"priority {f} at n")
+    del kp, pp
+    fg["parity_s"] = time.perf_counter() - t0
+    # device times at the flat gradient's shape, beside the bytes bound
+    nb4 = 4 * n_flat
+    fg["hash_rank"] = {"ms": cuda_ms(lambda: tk.hash_rank(flat, seed0), 1, 3),
+                       "plain_ms": cuda_ms(
+                           lambda: plain_hash_rank_chunks(flat, seed0), 0, 1),
+                       "bytes": 3 * nb4}
+    fg["hash_rank_hist"] = {
+        "ms": cuda_ms(lambda: tk.hash_rank_hist(flat[None], seed0), 1, 3),
+        "plain_ms": cuda_ms(lambda: plain_hash_rank_chunks(
+            flat, seed0, hist=True), 0, 1),
+        "bytes": 3 * nb4 + 1024}
+    for what, (keys, k, h0) in sel.items():
+        fg[f"radix_select_{what}"] = {
+            "k": k, "ms": cuda_ms(lambda: tk.radix_select(keys, k, hist0=h0),
+                                  1, 3),
+            "plain_ms": cuda_ms(lambda: kth_smallest_ranks_ref(
+                keys, k, hist0=h0), 0, 1),
+            "library_ms": cuda_ms(lambda: torch.kthvalue(keys, k, dim=1),
+                                  0, 2),
+            "bytes": nb4 + (1024 if h0 is not None else 0)}
+    for key in ("hash_rank", "hash_rank_hist", "radix_select_priority_tau",
+                "radix_select_threshold_cut"):
+        fg[key]["bound_ms"] = fg[key]["bytes"] / HBM_BYTES_PER_S * 1e3
+        fg[key]["share_of_bound"] = fg[key]["bound_ms"] / fg[key]["ms"]
+    del sel, wts, brk, bhist, flat
+    torch.cuda.empty_cache()
+    emit({"phase": "train_path", **trp, "flat_gradient": fg,
+          "nvidia_smi": smi_line, "gates_passed": [
+              "dense: first loss within 0.5 of ln(V), every loss finite, "
+              "the last below the first; watchdog on every step",
+              "checkpoint of params and AdamW state restored bit-equal",
+              "SketchDP (threshold x3, priority x1, m = n // 20, error "
+              "feedback): losses finite, the last below the first; the "
+              "residual = the flat gradient less the rank's own sketch",
+              "B3, B2, B1 launched on the path",
+              "at the flat gradient's shape: B3, B1 (h, ranks, histogram) "
+              "and B2 (priority tau, threshold cutoff) bit-equal to their "
+              "plain versions (B2 to torch.kthvalue too); the kernel "
+              "route's threshold sketch idx / val bit-equal, tau within "
+              "rtol 1e-6; the priority sketch bit-equal",
+              "telemetry: the pair's estimate within its Chebyshev "
+              "half-width of the exact inner product; GNS finite, >= 0, "
+              "gauges set",
+              "reduced config, m >= n: the SketchDP mean gradient = the "
+              "dense one (rtol 3e-3, atol 2e-4), residual < 1e-10"],
+          "launches": launches["train_path"]})
+
+
     # the discovery corpus's columns (host numpy; the join-correlation
     # path sketches them, the parity phase takes B2's union-position keys
     # from its first block)
@@ -1302,9 +1744,6 @@ def main() -> None:
     sq_norms = (torch.as_tensor(vval, device=dev).double() ** 2).sum(dim=1)
     sources = rng.choice(D, N_QUERIES, replace=False)
     noise = rng.standard_normal((N_QUERIES, NNZ)).astype(np.float32)
-
-    kernels = tk.KERNELS
-    launches = {}
 
     def planted(qi, src):
         qv = np.zeros(N, np.float32)
@@ -4488,6 +4927,11 @@ def main() -> None:
                                 for w, r in disc_t.items()},
             "discovery_heavy_rows_max_abs_err": dp["block_err"],
             "cross_shard_tile_max_abs_err": cross_err}}
+    extra["hash_rank"]["flat_gradient"] = fg["hash_rank"]
+    extra["hash_rank_hist"]["flat_gradient"] = fg["hash_rank_hist"]
+    extra["radix_select"]["flat_gradient"] = {
+        what: fg[f"radix_select_{what}"]
+        for what in ("priority_tau", "threshold_cut")}
     rows = []
     for kname, (source, replaces, parity) in meta.items():
         ms, plain, lib, _, _ = t[kname]

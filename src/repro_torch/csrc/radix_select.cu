@@ -213,10 +213,11 @@ radix_select_kernel(const float* __restrict__ keys, const int* __restrict__ hist
   const int rank = nb > 1 ? (int)cl.block_rank() : 0;
   const int64_t row = blockIdx.x / nb;
   int buf = 0;                            // this level's count buffer
-  // this block's slice of the row, a multiple of four keys long
-  const int chunk = ((n + nb - 1) / nb + 3) & ~3;
-  const int lo0 = min(n, rank * chunk);
-  const int len = min(n - lo0, chunk);
+  // this block's slice of the row, a multiple of four keys long (in
+  // int64: rounding n up can pass INT_MAX when n nears 2^31)
+  const int64_t chunk = (((int64_t)n + nb - 1) / nb + 3) & ~(int64_t)3;
+  const int lo0 = (int)min((int64_t)n, rank * chunk);
+  const int len = (int)min((int64_t)(n - lo0), chunk);
   const uint32_t* r =
       reinterpret_cast<const uint32_t*>(keys) + row * (int64_t)n + lo0;
   const int64_t k = kvec ? kvec[row] : kscalar;

@@ -23,8 +23,11 @@ surfaces:
    WAL replay length, recovery age and snapshot quarantines land in the
    same registry (fed by :mod:`repro_torch.serve.resilience`).
 
-Host numpy at the boundary; the training telemetry (``observe_gns``) is
-not ported yet.
+4. **Training telemetry** (:meth:`QualityMonitor.observe_gns`): the
+   gradient noise scale that ``repro_torch.train.telemetry`` assembles
+   from sketched per-shard gradients.
+
+Host numpy at the boundary.
 """
 from __future__ import annotations
 
@@ -100,6 +103,25 @@ class QualityMonitor:
         """``repro_quality_coverage{surface}``: the share of the answer
         the surviving shards served in the surface's latest read."""
         self._g_coverage.labels(surface).set(float(coverage))
+
+    # -- training telemetry --------------------------------------------
+
+    def observe_gns(self, gns: float, big2: float, small2: float,
+                    mean_halfwidth: float) -> None:
+        """Gradient-noise-scale telemetry (``train.telemetry``): the GNS
+        point estimate plus the mean Chebyshev CI half-width of the
+        pairwise sketch estimates it was assembled from."""
+        r = self.registry
+        r.gauge("repro_train_gns",
+                "gradient noise scale (critical batch size) estimate"
+                ).set(float(gns))
+        r.gauge("repro_train_gns_big_norm2",
+                "estimated ||mean gradient||^2").set(float(big2))
+        r.gauge("repro_train_gns_small_norm2",
+                "mean per-shard ||gradient||^2").set(float(small2))
+        r.gauge("repro_train_gns_ci_halfwidth",
+                "mean Chebyshev half-width of the pairwise inner-product "
+                "estimates feeding the GNS").set(float(mean_halfwidth))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,30 @@ versions) and compare.  Tests that need the card take the ``cuda_device``
 fixture and carry the ``cuda`` marker: the fixture decides whether a card
 is present when the test runs, never when the module is imported.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_executables():
+    """After each module, clear JAX's caches: every executable the
+    process compiled so far, the reference modules' included.
+
+    Every compiled XLA program keeps a few memory mappings of its code
+    until JAX's caches drop it.  A test worker runs hundreds of modules
+    in one process; once its mappings reach the kernel's limit
+    (``vm.max_map_count``, 65530 here) the next compile's mmap fails and
+    XLA segfaults, taking the worker and whichever test it was running
+    with it.  Each port module imports this fixture by name (autouse
+    applies where it is visible); a process that never loaded JAX (the
+    card tests) is left alone."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
+
 
 # estimates are float32 sums over <= B*S^2 matched terms taken in another
 # order than the reference's

@@ -18,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_common import assert_bits, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core as rc
 from repro.core.hashing import fold_seed as j_fold_seed

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_common import (assert_bits, assert_close, sparse_block, to_np)
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core as jc
 import repro.kernels as jk

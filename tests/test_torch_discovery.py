@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from _torch_common import RTOL, assert_bits, atol_for
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core.variance as jv
 import repro.obs as jobs

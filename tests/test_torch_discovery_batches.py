@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from _torch_common import RTOL, assert_bits, atol_for
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.serve import DiscoveryEngine as JEngine
 from repro.serve import ShardedDiscoveryEngine as JSharded

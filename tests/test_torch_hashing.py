@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from _subproc import run_with_devices
 from _torch_common import assert_bits, edge_values, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.core import hashing as jh
 from repro.core import sketches as js
@@ -117,6 +118,16 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.train, repro_torch.train.fault_tolerance\n"
         "import repro_torch.obs.metrics, repro_torch.obs.tracing, "
         "repro_torch.obs.quality\n"
+        "import repro_torch.configs, repro_torch.configs.paper_sketch, "
+        "repro_torch.models, repro_torch.models.layers, "
+        "repro_torch.models.transformer, repro_torch.models.convert, "
+        "repro_torch.train.optimizer, repro_torch.train.loop, "
+        "repro_torch.train.checkpoint, repro_torch.train.telemetry, "
+        "repro_torch.data.pipeline, repro_torch.launch, "
+        "repro_torch.launch.train, "
+        "repro_torch.distributed.grad_compress\n"
+        "from repro_torch.configs import get_config, ARCH_IDS\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
         "from repro_torch.obs import CanaryMonitor, observe_recovery\n"
         "from repro_torch.serve import (DurableSketchIndex, IngestJournal, "
         "ResilientSketchIndex, ResilientMatrixStore, save_snapshot)\n"

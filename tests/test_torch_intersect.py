@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from _torch_common import (assert_bits, assert_close,
                            edge_values, sparse_block, to_np)
+from _torch_common import release_jax_executables  # noqa: F401
 from parity._grid import VECTOR_CASES, make_payloads
 
 import repro.engine as je

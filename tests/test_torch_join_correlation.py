@@ -19,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_common import RTOL, assert_bits, atol_for, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core as jc
 from repro.core.join_correlation import (

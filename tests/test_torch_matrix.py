@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_common import assert_bits, assert_close, edge_values, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.core.merge import PartitionStats as JStats
 from repro.distributed import partitioned_matrix_sketch as j_partitioned

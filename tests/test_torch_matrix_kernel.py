@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_common import assert_bits, assert_close, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.kernels import (bucketize_matrix_sketches as j_bucketize,
                            matrix_products_ref as j_products_ref,

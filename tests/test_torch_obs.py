@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from _torch_common import sparse_block
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.obs as jobs
 import repro.serve as J

@@ -19,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_common import assert_bits, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core as rc
 import repro.private as rp

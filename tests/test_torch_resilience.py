@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_common import assert_bits, assert_close
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.serve as J
 import repro_torch.serve as T

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from _torch_common import (assert_bits, assert_close,
                            sparse_block, to_np)
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.core import estimate_inner_product as j_estimate
 from repro.core import intersection_size as j_intersection

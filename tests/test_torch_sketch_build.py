@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from parity._grid import VECTOR_CASES, MATRIX_CASES, make_payloads
 from _torch_common import (assert_bits, edge_values, selection_cases,
                            sparse_block, to_np)
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.engine import build_payload_corpus as j_build_payload
 from repro.kernels import build_priority_corpus as j_build

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from _torch_common import RTOL, assert_bits
+from _torch_common import release_jax_executables  # noqa: F401
 
 from repro.data import SketchedTableStore as JStore
 from repro.data import column_to_vector as j_column_to_vector

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from parity._grid import Case, MATRIX_CASES, VECTOR_CASES, make_payloads
 from _torch_common import assert_bits, edge_values, sparse_block, to_np
+from _torch_common import release_jax_executables  # noqa: F401
 
 import repro.core as jc
 from repro.engine import build_payload_corpus as j_build_payload
