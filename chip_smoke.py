@@ -256,12 +256,37 @@ exits nonzero with no result line):
                  route's threshold and priority sketches of the first
                  SketchDP step's flat gradient against the plain
                  versions, each kernel's device ms beside its bytes bound;
-15. ``kernels``  one line per the port's kernel table.
+15. ``families_path`` (right after ``train_path``, before ``parity``) every
+                 other model family at its published widths, the train
+                 path's sequence, batch, seed and lr, bfloat16, random
+                 init, each on a freed card: qwen2-moe-a2.7b (MoE, depth
+                 2), mamba2-370m (SSD, full depth 48, chunk 256),
+                 recurrentgemma-2b (RG-LRU, depth 5: one rglru / rglru /
+                 attn_local period and the 2-layer tail), whisper-small
+                 (encoder-decoder, full 12 + 12, frames (2, 1024, 768))
+                 and phi-3-vision-4.2b (VLM, depth 2, 256 image
+                 embeddings), 3 ``train_loop`` steps each on one fixed
+                 batch (the first loss within 0.5 of ln V + 0.02^2 d / 2,
+                 the init's random readout; every loss and every step's
+                 gradient finite, the last loss below the
+                 first, the MoE aux loss finite and > 0; step ms, tokens/s,
+                 peak bytes; a fourth step's split, forward + backward
+                 and AdamW, and one forward + backward under
+                 ``torch.profiler``); SketchDP (threshold, m = n // 20,
+                 one-rank NCCL group, error feedback) on mamba2-370m, the
+                 first step (its collectives set up the group) and a
+                 measured one (their splits; the residual the flat
+                 gradient less the rank's own sketch; B3 and B2
+                 launched); each family's reduced
+                 config in float32 on the card against the CPU from the
+                 same weights (loss within 1e-5, gradients within 1e-4 of
+                 their scale);
+16. ``kernels``  one line per the port's kernel table.
 
-Each path (4-12, 14) zeroes every kernel's launch counter (and the tile-list
-join's tile count) before it runs and reads them after; each of its
-kernels must have launched.  Each path's
-line gives its wall time (``seconds``).
+Each path (4-12, 14, 15) zeroes every kernel's launch counter (and the
+tile-list join's tile count) before it runs and reads them after; each of
+its kernels must have launched.  Each path's line gives its wall time
+(``seconds``).
 
 The last lines are ``nvidia-smi``'s name and power limit and then
 ``{"ok": true, "device": {...}}``.
@@ -360,6 +385,12 @@ REC_POINT, REC_BATCHES, REC_SPEEDUP, REC_REPS = (512, 1 << 15, 128), 8, 3.0, 7
 # one-sequence microbatches
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEED, TRAIN_LR = 2, 2, 0, 3e-3
 TRAIN_DENSE_STEPS, TRAIN_MICRO, TRAIN_TELEM_M = 4, 4, 1 << 16
+# the families path: each other family at its published widths (depth as
+# below), the train path's sequence, batch, seed and lr, 3 steps a family
+FAMILIES = (("qwen2-moe-a2.7b", 2), ("mamba2-370m", 48),
+            ("recurrentgemma-2b", 5), ("whisper-small", 12),
+            ("phi-3-vision-4.2b", 2))
+FAMILY_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -782,6 +813,332 @@ def quiet(fn, *args, **kw):
         return fn(*args, **kw)
 
 
+def nccl_group(tag: str):
+    """A one-rank NCCL group through a ``file://`` rendezvous under
+    ``build/`` (as ``sharded_path``'s)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    rdv = os.path.join(ROOT, "build", f"nccl_{tag}.{os.getpid()}")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=120))
+    return rdv
+
+
+def sketchdp_step(grad_fn, hook, opt, params, opt_state, batch, ef,
+                  step, split, keep=None):
+    """One SketchDP step with CUDA events at each stage (``hook`` is
+    the grad function's ``on_stage`` slot) and after the optimizer;
+    ``keep`` gets a copy of the flat gradient plus the residual in, and
+    the rank's own sketch."""
+    evs = [("start", torch.cuda.Event(enable_timing=True))]
+    evs[0][1].record()
+
+    def mark(stage, tensors):
+        if keep is not None and stage == "flatten":
+            keep["flat_in"] = tensors["flat"].clone()
+        if keep is not None and stage == "sketch":
+            keep["sketch"] = (tensors["idx"], tensors["val"],
+                              tensors["tau"])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        evs.append((stage, ev))
+
+    hook["fn"] = mark
+    t0 = time.perf_counter()
+    loss, grads, ef = grad_fn(params, batch, ef, step)
+    params, opt_state, _ = opt.update(grads, opt_state, params)
+    del grads
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    evs.append(("optimizer", ev))
+    torch.cuda.synchronize()
+    split.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                  **{b[0]: a[1].elapsed_time(b[1])
+                     for a, b in zip(evs, evs[1:])}})
+    return float(loss), params, opt_state, ef
+
+
+def trace_scan(fn, host: bool = True) -> dict:
+    """One call (after a warm one) under ``torch.profiler``: its wall
+    ms there, the summed device time of its kernels and their share
+    of the wall time, and the ops with the most device and (``host``)
+    the most host time (the profiler's own overhead is in the wall
+    time).  Without ``host`` only the device is traced: a training
+    step's ~10^5 host ops take the profiler tens of seconds to sum."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
+    with profile(activities=acts) as prof:
+        _, wall = step_ms(fn)
+    evs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels_ = [e for e in evs if str(e.device_type).endswith("CUDA")]
+    busy = sum(dev_us(e) for e in kernels_) / 1e3
+    out = {
+        "wall_ms_profiled": wall, "device_kernel_ms": busy,
+        "device_busy_share": busy / wall if wall else 0.0,
+        "kernel_launches": sum(e.count for e in kernels_),
+        "kernels": {e.key: {"ms": dev_us(e) / 1e3, "calls": e.count}
+                    for e in sorted(kernels_, key=dev_us)[::-1][:6]}}
+    if host:
+        out["host_ops"] = {
+            e.key: {"self_cpu_ms": e.self_cpu_time_total / 1e3,
+                    "calls": e.count}
+            for e in sorted(evs, key=lambda e:
+                            e.self_cpu_time_total)[::-1][:8]}
+    return out
+
+
+def family_batch(cfg, seq: int, batch: int, seed: int, dev) -> dict:
+    """One fixed ``SyntheticLM`` batch with the frontend stubs
+    (``frames``, ``image_embeds``: seeded N(0, 0.02^2)) where the config
+    has them."""
+    from repro_torch.data import SyntheticLM, frontend_stubs
+    out = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
+                      device=dev).batch_at(0)
+    out.update(frontend_stubs(cfg, batch, seq, seed=seed, device=dev))
+    return out
+
+
+def train_family(cfg, seq: int, dev, keep_params: bool = False) -> dict:
+    """``FAMILY_STEPS`` ``train_loop`` steps of ``cfg`` on one fixed batch
+    of ``TRAIN_BATCH`` sequences (AdamW at ``TRAIN_LR``, no warmup, no
+    decay) on a freed card, with the gates: the first loss within 0.5 of
+    the init's ln V + 0.02^2 d_model / 2, every loss finite, every step's
+    gradient finite (its global norm is), the last loss below the first,
+    and for an MoE the load-balancing loss finite and > 0.  Then a fourth
+    step's split (forward + backward and AdamW, CUDA events) and one
+    forward + backward under ``torch.profiler`` (:func:`trace_scan`, the
+    device only).  -> the family's line (and its parameters and batch
+    under ``"_keep"`` when asked)."""
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import param_leaves as lm_leaves
+    from repro_torch.train import (adamw, make_train_step, train_loop,
+                                   value_and_grad)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, TRAIN_SEED, device=dev)
+    out = {"config": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "seq_len": seq, "batch": TRAIN_BATCH,
+           "tokens_per_step": TRAIN_BATCH * seq, "dtype": cfg.dtype,
+           "params": sum(x.numel() for _, x in lm_leaves(params))}
+    fixed = family_batch(cfg, seq, TRAIN_BATCH, TRAIN_SEED, dev)
+    opt = adamw(TRAIN_LR, weight_decay=0.0)
+    params, opt_state, hist = train_loop(
+        cfg, params, opt.init(params), iter(lambda: fixed, None),
+        make_train_step(cfg, opt), n_steps=FAMILY_STEPS, log_every=1,
+        log_fn=lambda *_: None)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    aux = [h["aux_loss"] for h in hist]
+    lnv = math.log(cfg.vocab_size)
+    # the init's first loss: a unit-RMS hidden state read out by N(0,
+    # 0.02^2) embedding (or head) columns gives N(0, 0.02^2 d) logits,
+    # whose cross-entropy over V classes is ln V + 0.02^2 d / 2
+    want = lnv + 0.02 ** 2 * cfg.d_model / 2
+    check(all(math.isfinite(v) for v in losses),
+          f"{cfg.name}: losses not finite: {losses}")
+    check(all(math.isfinite(v) for v in norms),
+          f"{cfg.name}: a gradient leaf not finite (global norms {norms})")
+    check(abs(losses[0] - want) < 0.5,
+          f"{cfg.name}: first loss {losses[0]} not within 0.5 of ln(V) + "
+          f"0.02^2 d / 2 = {want}")
+    check(losses[-1] < losses[0],
+          f"{cfg.name}: loss did not fall: {losses}")
+    if cfg.n_experts:
+        check(all(math.isfinite(v) and v > 0 for v in aux),
+              f"{cfg.name}: aux_loss {aux}")
+    # a fourth step's split by CUDA events (forward + backward, AdamW),
+    # then one forward + backward under torch.profiler
+    lfn = lambda p, b: loss_fn(cfg, p, b)  # noqa: E731
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    evs[0].record()
+    _, grads = value_and_grad(lfn, params, fixed)
+    evs[1].record()
+    params, opt_state, _ = opt.update(grads, opt_state, params)
+    evs[2].record()
+    torch.cuda.synchronize()
+    del grads, opt_state
+    split = {"forward_backward_ms": evs[0].elapsed_time(evs[1]),
+             "optimizer_ms": evs[1].elapsed_time(evs[2])}
+    split["trace_forward_backward"] = trace_scan(
+        lambda: value_and_grad(lfn, params, fixed), host=False)
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    med = float(np.median(step_ms[1:]))
+    out.update(split=split, losses=losses, ln_vocab=lnv,
+               first_loss_expected=want,
+               first_loss_over_ln_vocab=losses[0] - lnv, grad_norms=norms,
+               aux_losses=aux,
+               step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=out["tokens_per_step"] * 1e3 / med,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if keep_params:
+        out["_keep"] = (params, fixed)
+    return out
+
+
+def reduced_card_vs_cpu(arch: str, dev) -> dict:
+    """``arch``'s reduced config in float32 on the card and on the CPU
+    from the same weights (``init_params`` on the CPU, each attention
+    group's ``wq`` / ``wk`` times 1/4 as the CPU parity tests take them:
+    the scores O(1)) and the same batch (2 x 64, the stubs): the loss
+    within 1e-5 max(1, |loss|) and each gradient leaf within 1e-4 of the
+    CPU leaf's largest magnitude.  -> the errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import param_leaves as lm_leaves
+    from repro_torch.models.tree import tree_map
+    from repro_torch.train import value_and_grad
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, TRAIN_SEED, device="cpu")
+    for g in params["groups"].values():
+        if "wq" in g:
+            g["wq"] = g["wq"] * 0.25
+            g["wk"] = g["wk"] * 0.25
+    batch = family_batch(cfg, 64, 2, TRAIN_SEED, "cpu")
+    lfn = lambda p, b: loss_fn(cfg, p, b)  # noqa: E731
+    (c_loss, c_met), c_grads = value_and_grad(lfn, params, batch)
+    (g_loss, g_met), g_grads = value_and_grad(
+        lfn, tree_map(lambda x: x.to(dev), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    loss_err = abs(float(g_loss) - float(c_loss))
+    check(loss_err <= 1e-5 * max(1.0, abs(float(c_loss))),
+          f"{cfg.name}: card loss {float(g_loss)} vs CPU {float(c_loss)}")
+    worst, worst_path = 0.0, None
+    for (path, c), (_, g) in zip(lm_leaves(c_grads), lm_leaves(g_grads)):
+        scale = max(float(c.abs().max()), 1e-30)
+        e = float((g.cpu() - c).abs().max()) / scale
+        check(math.isfinite(e) and e <= 1e-4,
+              f"{cfg.name}: gradient {'/'.join(path)} {e} of its scale "
+              "from the CPU's")
+        if e >= worst:
+            worst, worst_path = e, "/".join(path)
+    return {"config": cfg.name, "loss": float(c_loss),
+            "loss_abs_err": loss_err,
+            "aux_loss": [float(c_met["aux_loss"]),
+                         float(g_met["aux_loss"])],
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_path}
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The CUDA caching allocator's expandable segments for the block, fixed
+    segments again after it (the cache emptied).  The two training paths
+    run in it: they hold most of the card in a few 8 GB blocks (the fp32
+    logits chunk and its backward), and on fixed segments the train
+    path's SketchDP backward runs out of memory with 28 GiB reserved but
+    free."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def families_path(dev, seq: int) -> dict:
+    """Each family of ``FAMILIES`` at its published widths on sequences of
+    ``seq`` (:func:`train_family`), SketchDP on mamba2-370m, and each
+    family's reduced config on the card against the CPU
+    (:func:`reduced_card_vs_cpu`), on :func:`expandable_segments`."""
+    with expandable_segments():
+        return _families(dev, seq)
+
+
+def _families(dev, seq: int) -> dict:
+    import torch.distributed as dist
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.core import INVALID_IDX
+    from repro_torch.distributed import (compression_ratio, init_ef_state,
+                                         make_sketchdp_grad_fn)
+    from repro_torch.distributed.grad_compress import densify_mean, step_seed
+    from repro_torch.kernels.sketch_build import build_threshold_corpus
+    from repro_torch.models import loss_fn
+    from repro_torch.models import param_leaves as lm_leaves
+    from repro_torch.train import adamw
+    out = {"families": []}
+    for arch, depth in FAMILIES:
+        cfg = dataclasses.replace(lm_config(arch), n_layers=depth)
+        fam = train_family(cfg, seq, dev,
+                           keep_params=arch == "mamba2-370m")
+        out["families"].append(fam)
+        if "_keep" not in fam:
+            continue
+        # SketchDP on the trained model: threshold, m = n // 20, a
+        # one-rank NCCL group, error feedback; the first step (the
+        # group's first collectives) and the measured one
+        params, fixed = fam.pop("_keep")
+        n = sum(x.numel() for _, x in lm_leaves(params))
+        m = n // 20
+        opt = adamw(TRAIN_LR, weight_decay=0.0)
+        opt_state = opt.init(params)
+        hook, keep, split, dp_losses = {}, {}, [], []
+        rdv = nccl_group("families")
+        try:
+            fn = make_sketchdp_grad_fn(
+                lambda p, b: loss_fn(cfg, p, b), m, method="threshold",
+                on_stage=lambda st, t: hook["fn"](st, t))
+            ef = init_ef_state(params)
+            for i in range(2):
+                loss, params, opt_state, ef = sketchdp_step(
+                    fn, hook, opt, params, opt_state, fixed, ef, i,
+                    split, keep if i == 0 else None)
+                dp_losses.append(loss)
+                if i:
+                    continue
+                idx, val, tau = keep.pop("sketch")
+                sent = densify_mean(idx[None], val[None], tau[None], n)
+                res_err = float((ef - (keep["flat_in"] - sent))
+                                .abs().max())
+                del sent
+                # the rank's sketch (B3 and B2) against the plain
+                # threshold build of the same flat gradient
+                ps = build_threshold_corpus(keep["flat_in"][None], m,
+                                            step_seed(0), device=dev,
+                                            use_kernel=False)
+                assert_bits(idx, ps.idx[0], f"{cfg.name} SketchDP idx")
+                assert_bits(val, ps.val[0], f"{cfg.name} SketchDP val")
+                tau_err = abs(float(tau) / float(ps.tau[0]) - 1)
+                check(tau_err <= 1e-6, f"{cfg.name} SketchDP tau {float(tau)}"
+                      f" vs plain {float(ps.tau[0])}")
+                scale = float(keep.pop("flat_in").abs().max())
+                size = int((idx != INVALID_IDX).sum())
+                del idx, val, tau, ps
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(rdv):
+                os.remove(rdv)
+        check(all(math.isfinite(v) for v in dp_losses),
+              f"{cfg.name} SketchDP losses {dp_losses}")
+        check(res_err <= 1e-6 * scale,
+              f"{cfg.name}: residual != flat - sent: {res_err} "
+              f"(scale {scale})")
+        out["sketchdp"] = {
+            "config": cfg.name, "n": n, "m": m, "method": "threshold",
+            "losses": dp_losses, "sketch_size": size,
+            "first_step_split_ms": split[0], "split_ms": split[1],
+            "compression_ratio": compression_ratio(params, m),
+            "residual_max_abs_err": res_err, "residual_scale": scale,
+            "tau_rel_err_vs_plain": tau_err}
+        del params, opt_state, fixed, ef, fn
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = [reduced_card_vs_cpu(arch, dev)
+                                  for arch, _ in FAMILIES]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -879,7 +1236,10 @@ def main() -> None:
 
     # ------------------------------------------------------------ train path
     # (first of the paths, before the parity phase: it needs most of the
-    # card's memory, and the card is empty here)
+    # card's memory, and the card is empty here), on expandable segments
+    # until its flat-gradient parity is done
+    segments = contextlib.ExitStack()
+    segments.enter_context(expandable_segments())
     kernels = tk.KERNELS
     launches = {}
     from repro_torch.configs import SHAPES as LM_SHAPES
@@ -899,52 +1259,6 @@ def main() -> None:
     lm_cfg = dataclasses.replace(lm_config("gemma2-2b"), n_layers=TRAIN_LAYERS)
     lm_seq = LM_SHAPES["train_4k"]["seq_len"]
     train_keep = {}
-
-    def nccl_group(tag: str):
-        """A one-rank NCCL group through a ``file://`` rendezvous under
-        ``build/`` (as ``sharded_path``'s)."""
-        import torch.distributed as dist
-        from datetime import timedelta
-        rdv = os.path.join(ROOT, "build", f"nccl_{tag}.{os.getpid()}")
-        os.makedirs(os.path.dirname(rdv), exist_ok=True)
-        if os.path.exists(rdv):
-            os.remove(rdv)
-        dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
-                                world_size=1, timeout=timedelta(seconds=120))
-        return rdv
-
-    def sketchdp_step(grad_fn, hook, opt, params, opt_state, batch, ef,
-                      step, split, keep=None):
-        """One SketchDP step with CUDA events at each stage (``hook`` is
-        the grad function's ``on_stage`` slot) and after the optimizer;
-        ``keep`` gets a copy of the flat gradient plus the residual in, and
-        the rank's own sketch."""
-        evs = [("start", torch.cuda.Event(enable_timing=True))]
-        evs[0][1].record()
-
-        def mark(stage, tensors):
-            if keep is not None and stage == "flatten":
-                keep["flat_in"] = tensors["flat"].clone()
-            if keep is not None and stage == "sketch":
-                keep["sketch"] = (tensors["idx"], tensors["val"],
-                                  tensors["tau"])
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            evs.append((stage, ev))
-
-        hook["fn"] = mark
-        t0 = time.perf_counter()
-        loss, grads, ef = grad_fn(params, batch, ef, step)
-        params, opt_state, _ = opt.update(grads, opt_state, params)
-        del grads
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        evs.append(("optimizer", ev))
-        torch.cuda.synchronize()
-        split.append({"step_ms": (time.perf_counter() - t0) * 1e3,
-                      **{b[0]: a[1].elapsed_time(b[1])
-                         for a, b in zip(evs, evs[1:])}})
-        return float(loss), params, opt_state, ef
 
     def train_path():
         import torch.distributed as dist
@@ -1257,8 +1571,9 @@ def main() -> None:
                 "radix_select_threshold_cut"):
         fg[key]["bound_ms"] = fg[key]["bytes"] / HBM_BYTES_PER_S * 1e3
         fg[key]["share_of_bound"] = fg[key]["bound_ms"] / fg[key]["ms"]
-    del sel, wts, brk, bhist, flat
-    torch.cuda.empty_cache()
+    # (keys: the loop's last selection keys, the weights)
+    del sel, wts, brk, bhist, flat, pr, keys, got
+    segments.close()
     emit({"phase": "train_path", **trp, "flat_gradient": fg,
           "nvidia_smi": smi_line, "gates_passed": [
               "dense: first loss within 0.5 of ln(V), every loss finite, "
@@ -1279,6 +1594,34 @@ def main() -> None:
               "reduced config, m >= n: the SketchDP mean gradient = the "
               "dense one (rtol 3e-3, atol 2e-4), residual < 1e-10"],
           "launches": launches["train_path"]})
+
+    # --------------------------------------------------------- families path
+    # (right after the train path, before the parity phase: each family
+    # trains on a freed card)
+    fam_out, launches["families_path"] = run_path(
+        kernels, lambda: families_path(dev, lm_seq))
+    for kname in ("hash_rank", "radix_select"):
+        check(launches["families_path"][kname] > 0,
+              f"{kname} never launched on the families path: "
+              f"{launches['families_path']}")
+    torch.cuda.empty_cache()
+    emit({"phase": "families_path", **fam_out, "nvidia_smi": smi_line,
+          "gates_passed": [
+              "each family at its widths, 3 steps on one fixed batch: the "
+              "first loss within 0.5 of ln(V) + 0.02^2 d / 2 (the init's "
+              "random readout), every loss and every "
+              "step's gradient finite, the last loss below the first; the "
+              "MoE aux_loss finite and > 0",
+              "mamba2-370m at full depth and chunk 256 trains",
+              "SketchDP (threshold, m = n // 20, error feedback) on "
+              "mamba2-370m: loss finite, the residual = the flat gradient "
+              "less the rank's own sketch; the sketch's idx / val "
+              "bit-equal to the plain threshold build of the same flat "
+              "gradient, tau within rtol 1e-6; B3 and B2 launched",
+              "each family's reduced config (float32) on the card = on the "
+              "CPU: loss within 1e-5, every gradient leaf within 1e-4 of "
+              "its scale"],
+          "launches": launches["families_path"]})
 
 
     # the discovery corpus's columns (host numpy; the join-correlation
@@ -4613,35 +4956,6 @@ def main() -> None:
 
     def p50_ms(calls) -> float:
         return float(np.median([step_ms(f)[1] for f in calls]))
-
-    def trace_scan(fn) -> dict:
-        """One call (after a warm one) under ``torch.profiler``: its wall
-        ms there, the summed device time of its kernels and their share
-        of the wall time, and the ops with the most device and the most
-        host time (the profiler's own overhead is in the wall time)."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = step_ms(fn)
-        evs = prof.key_averages()
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-
-        kernels_ = [e for e in evs if str(e.device_type).endswith("CUDA")]
-        busy = sum(dev_us(e) for e in kernels_) / 1e3
-        return {
-            "wall_ms_profiled": wall, "device_kernel_ms": busy,
-            "device_busy_share": busy / wall if wall else 0.0,
-            "kernels": {e.key: {"ms": dev_us(e) / 1e3, "calls": e.count}
-                        for e in sorted(kernels_, key=dev_us)[::-1][:6]},
-            "host_ops": {e.key: {"self_cpu_ms": e.self_cpu_time_total / 1e3,
-                                 "calls": e.count}
-                         for e in sorted(evs, key=lambda e:
-                                         e.self_cpu_time_total)[::-1][:8]}}
 
     disc_t = {}
     for what, eng, ix, scans, qs in (

@@ -47,6 +47,28 @@ class Sketch(NamedTuple):
         return (self.idx != INVALID_IDX).sum(dim=-1)
 
 
+class CombinedSketch(NamedTuple):
+    """Join-correlation sketch for (1_a, a, a^2) (Algorithms 5 and 6), the
+    five-field container of ``repro.core.sketches``.  The builders and
+    estimators of :mod:`repro_torch.core.join_correlation` use that
+    module's own ``CombinedSketch``, which adds the normalization
+    ``scale`` (``repro.core.join_correlation``'s, exported from
+    ``repro_torch.core``)."""
+
+    idx: torch.Tensor       # int32[..., cap]
+    val: torch.Tensor       # float32[..., cap]
+    tau_ones: torch.Tensor  # scale for 1_a
+    tau_val: torch.Tensor   # scale for a
+    tau_sq: torch.Tensor    # scale for a^2
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[-1]
+
+    def size(self) -> torch.Tensor:
+        return (self.idx != INVALID_IDX).sum(dim=-1)
+
+
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     """Zero every float32 subnormal (XLA's flush-to-zero, made explicit)."""
     return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)

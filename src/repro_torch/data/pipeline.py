@@ -7,6 +7,8 @@ pipeline``).
   k reproduces the exact batch sequence.
 - ``BinTokenSource``: memory-mapped flat token file (the production path).
 - ``Prefetcher``: background-thread double buffering.
+- ``frontend_stubs``: the stub inputs of the frontends the configs leave
+  out (whisper's frame embeddings, phi-3-vision's image embeddings).
 
 Each DP rank pulls only its slice of the global batch; ``global_batch``
 must divide by the number of ranks.  Batches are tensors on the device
@@ -72,6 +74,28 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def frontend_stubs(cfg, batch: int, seq_len: int, *, seed: int = 0,
+                   step: int = 0, device=None) -> dict:
+    """The inputs of the stubbed frontends: ``frames`` (batch, seq_len //
+    enc_ratio, d_model) for an encoder-decoder config, ``image_embeds``
+    (batch, vision_tokens, d_model) for a VLM, N(0, 0.02^2) float32 drawn
+    on the host from (seed, step) (the reference's smoke tests' scale),
+    on ``device``; ``{}`` for the other configs."""
+    out = {}
+    if not (cfg.is_encdec or cfg.vision_tokens):
+        return out
+    dev = resolve_device(device)
+    rng = np.random.default_rng((seed * 1_000_003 + step) * 65_537 + 7)
+    if cfg.vision_tokens:
+        out["image_embeds"] = rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model))
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal(
+            (batch, max(seq_len // cfg.enc_ratio, 1), cfg.d_model))
+    return {k: torch.as_tensor((v * 0.02).astype(np.float32), device=dev)
+            for k, v in out.items()}
 
 
 class BinTokenSource:

@@ -18,8 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sketches import (INVALID_IDX, default_capacity,
-                                       flush_subnormal)
+from repro_torch.core.sketches import (INVALID_IDX, Sketch,
+                                       default_capacity, flush_subnormal)
 
 PAYLOAD_VARIANTS = ("l2", "l1", "uniform")
 
@@ -138,6 +138,20 @@ def payload_weight(payload: torch.Tensor, variant: str) -> torch.Tensor:
 def payload_capacity(m: int) -> int:
     """Lemma-4 threshold capacity."""
     return default_capacity(m)
+
+
+def from_vector(s: Sketch) -> PayloadSketch:
+    """Vector sketch -> d = 1 payload sketch (no copy: payload =
+    ``val[..., None]``)."""
+    return PayloadSketch(idx=s.idx, payload=s.val[..., None], tau=s.tau)
+
+
+def to_vector(s: PayloadSketch) -> Sketch:
+    """d = 1 payload sketch -> vector sketch (no copy)."""
+    if s.payload.shape[-1] != 1:
+        raise ValueError(f"not a vector sketch: payload dim "
+                         f"{s.payload.shape[-1]}")
+    return Sketch(idx=s.idx, val=s.payload[..., 0], tau=s.tau)
 
 
 def from_matrix(s) -> PayloadSketch:

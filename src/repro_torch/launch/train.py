@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
 
-runs on the card (``--device cpu`` for the CPU).  ``--reduced`` takes the
-smoke-scale config of the same family.  Resumes from the latest
-checkpoint in ``--ckpt-dir``, watches step times, and with
+runs on the card (``--device cpu`` for the CPU).  ``--arch`` is any of
+the ten configs; ``--reduced`` takes the smoke-scale config of the same
+family.  whisper-small's frame embeddings and phi-3-vision's image
+embeddings are seeded N(0, 0.02^2) stubs (``data.frontend_stubs``).
+Resumes from the latest checkpoint in ``--ckpt-dir``, watches step
+times, and with
 ``--sketchdp-m M`` under a ``torch.distributed`` launch of more than one
 rank (``torchrun --nproc-per-node 2 -m repro_torch.launch.train ...``)
 compresses the data-parallel gradient with SketchDP: each rank takes its
@@ -20,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.data import Prefetcher, SyntheticLM
+from repro_torch.data import Prefetcher, SyntheticLM, frontend_stubs
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params, loss_fn
 from repro_torch.train import (Checkpointer, StepWatchdog, adamw,
@@ -81,6 +84,19 @@ def main(argv=None):
 
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
                        device=device)
+
+    def batch_at(step: int) -> dict:
+        batch = data.batch_at(step)
+        batch.update(frontend_stubs(cfg, args.batch, args.seq,
+                                    seed=args.seed, step=step,
+                                    device=device))
+        return batch
+
+    def batches_from(step: int):
+        # the steps left, no more: the prefetch thread ends with them
+        for i in range(step, args.steps):
+            yield batch_at(i)
+
     if args.sketchdp_m and world > 1:
         from repro_torch.distributed import (init_ef_state,
                                              make_sketchdp_grad_fn)
@@ -93,7 +109,7 @@ def main(argv=None):
                                         m=args.sketchdp_m)
         ef = init_ef_state(params)
         for i in range(start_step, args.steps):
-            batch = {k: v[rows] for k, v in data.batch_at(i).items()}
+            batch = {k: v[rows] for k, v in batch_at(i).items()}
             loss, grads, ef = grad_fn(params, batch, ef, i)
             params, opt_state, _ = opt.update(grads, opt_state, params)
             if i % 10 == 0 and rank == 0:
@@ -104,7 +120,7 @@ def main(argv=None):
 
     step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
     watchdog = StepWatchdog()
-    train_loop(cfg, params, opt_state, Prefetcher(data.iter_from(start_step)),
+    train_loop(cfg, params, opt_state, Prefetcher(batches_from(start_step)),
                step_fn, n_steps=args.steps, start_step=start_step,
                checkpointer=ck, checkpoint_every=args.ckpt_every,
                watchdog=watchdog)

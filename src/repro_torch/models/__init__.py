@@ -1,5 +1,6 @@
-"""The LM stack (``repro.models``), the dense family: parameters as
-nested dicts in the reference's layout, the training loss, and the
+"""The LM stack (``repro.models``), every family of the ten configs
+(dense, MoE, SSD, RG-LRU hybrid, encoder-decoder, VLM stub): parameters
+as nested dicts in the reference's layout, the training loss, and the
 carrier between the two packages' parameter trees."""
 from .convert import (flatten_params, params_from_reference,
                       params_to_reference, unflatten_params)

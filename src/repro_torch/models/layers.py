@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,6 +70,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) float32 sinusoidal position table, [sin | cos] halves
+    (computed in float64 on the host, as the reference's)."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(table.astype(np.float32), device=device)
 
 
 # ----------------------------------------------------------------------------
@@ -181,13 +192,20 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, q_pos0: int,
 
 def attention_train(p, x: torch.Tensor, *, positions: torch.Tensor,
                     causal: bool, window: int, rope_theta: float, cap: float,
-                    q_block: int, kv_block: int) -> torch.Tensor:
-    """Full-sequence self-attention (training).  ``positions``: (S,)."""
+                    q_block: int, kv_block: int,
+                    kv_override=None) -> torch.Tensor:
+    """Full-sequence attention (training).  ``positions``: (S,).
+    ``kv_override`` supplies precomputed ``(k, v, k_positions)`` for cross
+    attention: no RoPE on those keys, key positions from 0 (the
+    reference's ``k_positions`` is unused)."""
     q, k, v = project_qkv(p, x)
+    if kv_override is not None:
+        k, v, _ = kv_override
     if rope_theta:
         q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
                  rope_theta).reshape(q.shape)
-        k = rope(k, positions, rope_theta)
+        if kv_override is None:
+            k = rope(k, positions, rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             q_pos0=int(positions[0]), k_pos0=0,
                             q_block=q_block, kv_block=kv_block, cap=cap)

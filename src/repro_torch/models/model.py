@@ -12,22 +12,29 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .transformer import apply_backbone, check_dense, embed_tokens, lm_loss
+from .transformer import apply_backbone, embed_tokens, encode, lm_loss
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
-    (B, S) int, optional ``mask`` (B, S)) under ``params``.  The dense
-    family has no auxiliary loss (``aux_loss`` 0)."""
-    check_dense(cfg)
+    (B, S) int, optional ``mask`` (B, S); ``frames`` (B, Senc, d) for the
+    encoder-decoder, ``image_embeds`` (B, vision_tokens, d) for the VLM,
+    whose image positions leave the loss) under ``params``, plus 0.01
+    times the MoE load-balancing loss: (total, {"ce_loss", "aux_loss"})."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embed_tokens(cfg, params, tokens)
-    hidden, aux = apply_backbone(cfg, params, x, positions)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = encode(cfg, params, batch["frames"])
+    x = embed_tokens(cfg, params, tokens, batch.get("image_embeds"))
+    hidden, aux = apply_backbone(cfg, params, x, positions, enc_out)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
+    if cfg.vision_tokens:
+        img_mask = positions >= cfg.vision_tokens
+        mask = mask * img_mask[None].to(mask.dtype)
     loss = lm_loss(cfg, params, hidden, batch["labels"], mask)
     total = loss + 0.01 * aux
     return total, {"ce_loss": loss, "aux_loss": aux}
@@ -37,7 +44,8 @@ def _serving_slice(name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
             f"{name}: serving the LM (prefill / decode, serve/engine.py, "
-            "launch/serve.py) is a later slice of the port (ROADMAP step A6)")
+            "launch/serve.py) is a later slice of the port (ROADMAP step "
+            "A6.6)")
     fn.__name__ = name
     return fn
 

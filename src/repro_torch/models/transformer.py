@@ -1,18 +1,17 @@
-"""The dense LM stack (``repro.models.transformer``, the dense subset).
+"""The LM stack (``repro.models.transformer``): every block kind
+(``attn`` / ``attn_local`` / ``ssd`` / ``rglru``), the MoE feed-forward,
+cross attention and the encoder (whisper), and the image-embedding
+prefix (the VLM stub).
 
 The layout is the reference's: the depth is ``n_groups`` repetitions of
 the config's ``layer_pattern`` with each pattern slot's parameters
 stacked over the groups (``groups/p<i>``, leading dim ``n_groups``), plus
-an unrolled tail for depths the pattern does not divide; parameters are
-plain nested dicts of tensors described by ``ParamSpec``.  Each layer
-group and each loss chunk runs under ``torch.utils.checkpoint``, as the
-reference wraps them in ``jax.checkpoint``: without it, the float32
-logits of a full-width vocabulary do not fit on the card.
-
-The families the port does not train yet raise ``NotImplementedError``
-naming their slice: MoE (``models/moe.py``), SSD (``models/ssm.py``),
-RG-LRU (``models/rglru.py``), the encoder-decoder (``encode``) and the
-VLM stub (``img_proj``).
+an unrolled tail for depths the pattern does not divide (recurrentgemma:
+26 = 8 x 3 + 2); parameters are plain nested dicts of tensors described
+by ``ParamSpec``.  Each layer group, each encoder block and each loss
+chunk runs under ``torch.utils.checkpoint``, as the reference wraps them
+in ``jax.checkpoint``: without it, the float32 logits of a full-width
+vocabulary do not fit on the card.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
-from . import layers
+from . import layers, moe, rglru, ssm
 from .tree import param_leaves, tree_from_leaves, tree_map
 
 
@@ -33,35 +32,6 @@ class ParamSpec(NamedTuple):
     axes: tuple          # logical axis names (len == len(shape))
     init: str = "normal"  # normal | zeros | ones
     scale: float | None = None  # stddev; None -> 1/sqrt(fan_in)
-
-
-_LATER = {
-    "moe": "the MoE family (models/moe.py)",
-    "ssd": "the SSD family (models/ssm.py)",
-    "rglru": "the RG-LRU family (models/rglru.py)",
-    "encdec": "the encoder-decoder family (encode)",
-    "vlm": "the VLM family (img_proj)",
-}
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the later slice of the port
-    that takes ``cfg``'s family, unless it is a dense attention stack."""
-    if cfg.n_experts:
-        part = _LATER["moe"]
-    elif cfg.is_encdec:
-        part = _LATER["encdec"]
-    elif cfg.vision_tokens:
-        part = _LATER["vlm"]
-    else:
-        kinds = [k for k in cfg.layer_pattern
-                 if k not in ("attn", "attn_local")]
-        if not kinds:
-            return
-        part = _LATER.get(kinds[0], f"layer kind {kinds[0]!r}")
-    raise NotImplementedError(
-        f"{cfg.name}: {part} is a later slice of the port (ROADMAP step "
-        "A6); the port trains the dense family")
 
 
 # ----------------------------------------------------------------------------
@@ -89,14 +59,77 @@ def _mlp_specs(cfg: ModelConfig, d_ff: int) -> dict:
     return out
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
+def _moe_specs(cfg: ModelConfig) -> dict:
+    d, E, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    out = {
+        "router": ParamSpec((d, E), ("embed", None)),
+        "w_gate": ParamSpec((E, d, fe), ("experts", "embed", None)),
+        "w_up": ParamSpec((E, d, fe), ("experts", "embed", None)),
+        "w_down": ParamSpec((E, fe, d), ("experts", None, "embed")),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * fe
+        out["shared"] = {
+            "w_gate": ParamSpec((d, fs), ("embed", "ffn")),
+            "w_up": ParamSpec((d, fs), ("embed", "ffn")),
+            "w_down": ParamSpec((fs, d), ("ffn", "embed")),
+        }
+    return out
+
+
+def _ssd_specs(cfg: ModelConfig) -> dict:
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H, Kc = cfg.ssm_heads, cfg.ssm_conv
+    return {
+        "w_z": ParamSpec((d, di), ("embed", "inner")),
+        "w_x": ParamSpec((d, di), ("embed", "inner")),
+        "w_b": ParamSpec((d, N), ("embed", None)),
+        "w_c": ParamSpec((d, N), ("embed", None)),
+        "w_dt": ParamSpec((d, H), ("embed", "ssm_heads")),
+        "conv_x": ParamSpec((Kc, di), (None, "inner"), "normal", 0.2),
+        "conv_b": ParamSpec((Kc, N), (None, None), "normal", 0.2),
+        "conv_c": ParamSpec((Kc, N), (None, None), "normal", 0.2),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), "zeros"),
+        "a_log": ParamSpec((H,), ("ssm_heads",), "zeros"),
+        "d_skip": ParamSpec((H,), ("ssm_heads",), "ones"),
+        "norm": ParamSpec((di,), ("inner",), "zeros"),
+        "w_out": ParamSpec((di, d), ("inner", "embed")),
+    }
+
+
+def _rglru_specs(cfg: ModelConfig) -> dict:
+    d, W, Kc = cfg.d_model, cfg.rnn_width, cfg.rnn_conv
+    return {
+        "w_x": ParamSpec((d, W), ("embed", "rnn")),
+        "w_gate": ParamSpec((d, W), ("embed", "rnn")),
+        "w_out": ParamSpec((W, d), ("rnn", "embed")),
+        "conv_w": ParamSpec((Kc, W), (None, "rnn"), "normal", 0.2),
+        "w_r": ParamSpec((W, W), (None, "rnn")),
+        "w_i": ParamSpec((W, W), (None, "rnn")),
+        "lam": ParamSpec((W,), ("rnn",), "zeros"),
+    }
+
+
+def block_specs(cfg: ModelConfig, kind: str, *,
+                with_cross: bool = False) -> dict:
     d = cfg.d_model
     out = {"ln1": ParamSpec((d,), (None,), "zeros")}
-    if kind not in ("attn", "attn_local"):
-        check_dense(cfg)
+    if kind in ("attn", "attn_local"):
+        out.update(_attn_specs(cfg))
+    elif kind == "ssd":
+        out["ssd"] = _ssd_specs(cfg)
+    elif kind == "rglru":
+        out["rnn"] = _rglru_specs(cfg)
+    else:
         raise ValueError(kind)
-    out.update(_attn_specs(cfg))
-    if cfg.d_ff:
+    if with_cross:
+        out["ln_x"] = ParamSpec((d,), (None,), "zeros")
+        out["cross"] = _attn_specs(cfg)
+    # feed-forward sublayer (absent for pure-SSD blocks with d_ff == 0)
+    if cfg.n_experts and kind in ("attn", "attn_local"):
+        out["ln2"] = ParamSpec((d,), (None,), "zeros")
+        out["moe"] = _moe_specs(cfg)
+    elif cfg.d_ff:
         out["ln2"] = ParamSpec((d,), (None,), "zeros")
         out["mlp"] = _mlp_specs(cfg, cfg.d_ff)
     return out
@@ -108,14 +141,16 @@ def _stack_specs(specs: dict, n: int) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    check_dense(cfg)
     d, Vp = cfg.d_model, cfg.padded_vocab
     specs: dict = {"embed": ParamSpec((Vp, d), ("vocab", "embed"), "normal",
                                       0.02)}
-    specs["groups"] = {f"p{i}": _stack_specs(block_specs(cfg, kind),
-                                             cfg.n_groups)
-                       for i, kind in enumerate(cfg.layer_pattern)}
-    tail = {f"t{j}": block_specs(cfg, cfg.layer_pattern[j])
+    specs["groups"] = {
+        f"p{i}": _stack_specs(block_specs(cfg, kind,
+                                          with_cross=cfg.is_encdec),
+                              cfg.n_groups)
+        for i, kind in enumerate(cfg.layer_pattern)}
+    tail = {f"t{j}": block_specs(cfg, cfg.layer_pattern[j],
+                                 with_cross=cfg.is_encdec)
             for j in range(cfg.n_tail_layers)}
     if tail:
         specs["tail"] = tail
@@ -123,6 +158,17 @@ def param_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, Vp), ("embed", "vocab"), "normal",
                                      0.02)
+    if cfg.vision_tokens:
+        specs["img_proj"] = ParamSpec((d, d), ("embed", None))
+    if cfg.is_encdec:
+        enc_block = {"ln1": ParamSpec((d,), (None,), "zeros")}
+        enc_block.update(_attn_specs(cfg))
+        enc_block["ln2"] = ParamSpec((d,), (None,), "zeros")
+        enc_block["mlp"] = _mlp_specs(cfg, cfg.d_ff)
+        specs["enc"] = {
+            "blocks": _stack_specs(enc_block, cfg.enc_layers),
+            "final_norm": ParamSpec((d,), (None,), "zeros"),
+        }
     return specs
 
 
@@ -168,26 +214,64 @@ def init_params(cfg: ModelConfig, generator, *, device=None) -> dict:
 # ----------------------------------------------------------------------------
 
 
-def _apply_ffn(cfg: ModelConfig, p, x):
+def _apply_ffn(cfg: ModelConfig, p, x, aux):
+    """The feed-forward sublayer with its residual: the MoE (plus shared
+    experts; its load-balancing loss added to ``aux``), the MLP, or
+    nothing.  -> (x, aux)."""
+    def act(v):
+        return layers.activation(v, cfg.mlp_act)
+
+    if "moe" in p:
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, (logits, eids) = moe.moe_ffn(
+            p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            act_fn=act, capacity_factor=cfg.capacity_factor,
+            per_row=cfg.moe_per_row_dispatch)
+        if cfg.n_shared_experts:
+            y = y + moe.shared_expert_ffn(p["moe"]["shared"], h, act_fn=act)
+        aux = aux + moe.load_balancing_loss(logits, eids, cfg.n_experts,
+                                            cfg.top_k)
+        return x + y, aux
     if "mlp" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + layers.mlp(p["mlp"], h, act=cfg.mlp_act, glu=cfg.glu)
-    return x
+        return x + layers.mlp(p["mlp"], h, act=cfg.mlp_act, glu=cfg.glu), aux
+    return x, aux
 
 
-def block_train(cfg: ModelConfig, kind: str, p, x, positions):
-    """One ``attn`` / ``attn_local`` block: pre-norm attention and MLP,
-    each with a residual."""
-    if kind not in ("attn", "attn_local"):
-        check_dense(cfg)
-        raise ValueError(kind)
+def block_train(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
+                aux):
+    """One block over the full sequence: pre-norm mixer (attention, SSD
+    or RG-LRU) with its residual, cross attention over ``enc_out`` (the
+    encoder-decoder), the feed-forward.  -> (x, aux)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    window = cfg.window if kind == "attn_local" else 0
-    x = x + layers.attention_train(
-        p, h, positions=positions, causal=True, window=window,
-        rope_theta=cfg.rope_theta, cap=cfg.attn_softcap,
-        q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
-    return _apply_ffn(cfg, p, x)
+    if kind in ("attn", "attn_local"):
+        window = cfg.window if kind == "attn_local" else 0
+        y = layers.attention_train(
+            p, h, positions=positions, causal=True, window=window,
+            rope_theta=cfg.rope_theta, cap=cfg.attn_softcap,
+            q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
+    elif kind == "ssd":
+        y, _ = ssm.ssd_train(p["ssd"], h, d_inner=cfg.d_inner,
+                             n_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+                             chunk=cfg.ssm_chunk)
+    elif kind == "rglru":
+        y, _ = rglru.recurrent_block_train(p["rnn"], h)
+    else:
+        raise ValueError(kind)
+    x = x + y
+    if cfg.is_encdec and enc_out is not None:
+        h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        B, Se, d = enc_out.shape
+        K, dh = p["cross"]["wk"].shape[1:]
+        kx = (enc_out @ p["cross"]["wk"].reshape(d, K * dh)).reshape(
+            B, Se, K, dh)
+        vx = (enc_out @ p["cross"]["wv"].reshape(d, K * dh)).reshape(
+            B, Se, K, dh)
+        x = x + layers.attention_train(
+            p["cross"], h, positions=positions, causal=False, window=0,
+            rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block, kv_override=(kx, vx, None))
+    return _apply_ffn(cfg, p, x, aux)
 
 
 def _unstack(tree, n: int) -> list:
@@ -197,22 +281,48 @@ def _unstack(tree, n: int) -> list:
     return [tree_map(lambda parts: parts[g], split) for g in range(n)]
 
 
-def apply_backbone(cfg: ModelConfig, params, x, positions):
-    """x: (B, S, d) embedded inputs -> (hidden (B, S, d), aux_loss 0)."""
-    check_dense(cfg)
-
-    def group_step(x, gp):
+def apply_backbone(cfg: ModelConfig, params, x, positions, enc_out=None):
+    """x: (B, S, d) embedded inputs -> (hidden (B, S, d), aux_loss)."""
+    def group_step(x, aux, gp, enc_out):
         for i, kind in enumerate(cfg.layer_pattern):
-            x = block_train(cfg, kind, gp[f"p{i}"], x, positions)
-        return x
+            x, aux = block_train(cfg, kind, gp[f"p{i}"], x, positions,
+                                 enc_out, aux)
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gp in _unstack(params["groups"], cfg.n_groups):
-        x = checkpoint(group_step, x, gp, use_reentrant=False)
+        x, aux = checkpoint(group_step, x, aux, gp, enc_out,
+                            use_reentrant=False)
     for j in range(cfg.n_tail_layers):
-        x = block_train(cfg, cfg.layer_pattern[j], params["tail"][f"t{j}"], x,
-                        positions)
+        x, aux = block_train(cfg, cfg.layer_pattern[j],
+                             params["tail"][f"t{j}"], x, positions, enc_out,
+                             aux)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """Whisper-style encoder over stub frame embeddings (B, Senc, d):
+    sinusoidal positions, bidirectional attention and the MLP a block
+    (each block under ``torch.utils.checkpoint``), the final norm."""
+    B, Senc, d = frames.shape
+    x = frames.to(param_dtype(cfg))
+    x = x + layers.sinusoidal_positions(Senc, d, frames.device)[None].to(
+        x.dtype)
+    positions = torch.arange(Senc, device=frames.device)
+
+    def enc_step(x, bp):
+        h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        x = x + layers.attention_train(
+            bp, h, positions=positions, causal=False, window=0,
+            rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block)
+        h = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + layers.mlp(bp["mlp"], h, act=cfg.mlp_act, glu=cfg.glu)
+
+    for bp in _unstack(params["enc"]["blocks"], cfg.enc_layers):
+        x = checkpoint(enc_step, x, bp, use_reentrant=False)
+    return layers.rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
 
 
 # ----------------------------------------------------------------------------
@@ -220,12 +330,18 @@ def apply_backbone(cfg: ModelConfig, params, x, positions):
 # ----------------------------------------------------------------------------
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
-    """Token embeddings times sqrt(d_model), in the config dtype."""
+def embed_tokens(cfg: ModelConfig, params, tokens, image_embeds=None):
+    """Token embeddings times sqrt(d_model), in the config dtype; for the
+    VLM the first ``vision_tokens`` positions are ``image_embeds`` (B, P,
+    d) through ``img_proj``."""
     dtype = param_dtype(cfg)
     x = params["embed"][tokens.to(torch.int64)].to(dtype)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    return x * scale.to(dtype).to(x.device)
+    x = x * scale.to(dtype).to(x.device)
+    if cfg.vision_tokens and image_embeds is not None:
+        proj = image_embeds.to(x.dtype) @ params["img_proj"]
+        x = torch.cat([proj, x[:, cfg.vision_tokens:]], dim=1)
+    return x
 
 
 def _unembed_matrix(cfg: ModelConfig, params):

@@ -3,7 +3,10 @@ accumulation in float32, the optimizer update, periodic checkpointing and
 the step-time watchdog.
 
 ``make_train_step`` builds the (params, opt_state, batch) -> (params,
-opt_state, metrics) function the loop drives.  PyTorch runs eagerly, so
+opt_state, metrics) function the loop drives.  Its metrics carry the
+MoE load-balancing loss (``aux_loss``, 0 for the other families) beside
+the loss; with microbatches, their mean (the reference's accumulated
+step reports ``ce_loss`` only).  PyTorch runs eagerly, so
 the step has no ``jit``; its gradients come from autograd over the
 parameter leaves.
 """
@@ -53,12 +56,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                                                device=p.device), params)
         loss = torch.zeros((), dtype=torch.float32,
                            device=next(iter(batch.values())).device)
+        aux = torch.zeros_like(loss)
         for mb in mbs:
-            (mb_loss, _), g = value_and_grad(loss_fn, params, mb)
+            (mb_loss, mb_metrics), g = value_and_grad(loss_fn, params, mb)
             grads = tree_map(
                 lambda a, x: a + x.to(torch.float32) / microbatches, grads, g)
             loss = loss + mb_loss / microbatches
-        return loss, {"ce_loss": loss}, grads
+            if "aux_loss" in mb_metrics:
+                aux = aux + mb_metrics["aux_loss"] / microbatches
+        return loss, {"ce_loss": loss, "aux_loss": aux}, grads
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = compute_grads(params, batch)

@@ -1707,3 +1707,49 @@ def test_resilient_index_on_card_equals_cpu(cuda_device, kills):
             assert_bits(np.asarray(getattr(got, f)),
                         np.asarray(getattr(want, f)))
         assert_close(got.estimates, want.estimates)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                                  "mamba2-370m", "recurrentgemma-2b",
+                                  "whisper-small", "phi-3-vision-4.2b"])
+def test_family_loss_and_grads_on_card_match_cpu(cuda_device, arch):
+    """Each new family's reduced config (float32, TF32 off) on the card
+    from the CPU's weights (each attention group's wq / wk times 1/4:
+    the scores O(1)) and batch: the loss within 1e-5, each gradient leaf
+    within 1e-4 of the CPU leaf's scale; the MoE leaves' gradients
+    repeat bit for bit from run to run (the dispatch and combine are
+    gathers both ways, no float atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, frontend_stubs
+    from repro_torch.models import init_params, loss_fn, param_leaves
+    from repro_torch.models.tree import tree_map
+    from repro_torch.train import value_and_grad
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, device="cpu")
+    for g in params["groups"].values():
+        if "wq" in g:
+            g["wq"] = g["wq"] * 0.25
+            g["wk"] = g["wk"] * 0.25
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=3,
+                        device="cpu").batch_at(0)
+    batch.update(frontend_stubs(cfg, 2, 64, seed=3, device="cpu"))
+    lfn = lambda p, b: loss_fn(cfg, p, b)  # noqa: E731
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (c_loss, _), c_g = value_and_grad(lfn, params, batch)
+        on = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa
+        runs = [value_and_grad(lfn, on(params), on(batch)) for _ in range(2)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (g_loss, _), g_g = runs[0]
+    assert abs(float(g_loss) - float(c_loss)) <= \
+        1e-5 * max(1.0, abs(float(c_loss)))
+    for (path, c), (_, g) in zip(param_leaves(c_g), param_leaves(g_g)):
+        scale = max(float(c.abs().max()), 1e-30)
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale, path
+    if cfg.n_experts:
+        for (path, a), (_, b) in zip(param_leaves(g_g),
+                                     param_leaves(runs[1][1])):
+            if "moe" in path:
+                assert_bits(a, b)

@@ -301,3 +301,26 @@ def test_combined_from_arrays_round_trip(block, legacy):
     np.testing.assert_allclose(float(estimate_join_correlation(ta, mine)),
                                float(jc.estimate_join_correlation(sa, sb)),
                                atol=1e-5)
+
+
+def test_combined_sketch_containers_are_the_references():
+    """``repro_torch.core.sketches.CombinedSketch`` is the reference's
+    five-field container of ``repro.core.sketches`` and the builders'
+    ``CombinedSketch`` (``repro_torch.core``) its six-field one of
+    ``repro.core.join_correlation``: the same fields in the same order,
+    the same capacity and size of a built sketch."""
+    import repro.core.sketches as j_sketches
+    import repro_torch.core.sketches as t_sketches
+    from repro.core.join_correlation import CombinedSketch as JCombined
+    assert t_sketches.CombinedSketch._fields == \
+        j_sketches.CombinedSketch._fields
+    assert CombinedSketch._fields == JCombined._fields
+    a = correlated_pair(np.random.default_rng(3), 4000, 300, 0.2, 0.5)[0]
+    got = combined_priority_sketch(torch.as_tensor(a), 64, 5)
+    ref = jc.combined_priority_sketch(jnp.asarray(a), 64, 5)
+    five = t_sketches.CombinedSketch(*got[:5])
+    j_five = j_sketches.CombinedSketch(*ref[:5])
+    assert five.capacity == j_five.capacity == got.capacity
+    assert int(five.size()) == int(j_five.size()) == int(got.size())
+    for f in t_sketches.CombinedSketch._fields:
+        assert_bits(getattr(five, f), getattr(j_five, f))

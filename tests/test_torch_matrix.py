@@ -429,3 +429,28 @@ def test_store_error_paths():
     s = MatrixSketchStore(16, dim=4, nonfinite="sanitize", device="cpu")
     s.add("A", bad)
     assert len(s) == 1
+
+
+def test_vector_adapters_are_the_references():
+    """``engine.from_vector`` / ``to_vector``, the d = 1 adapters: a
+    vector sketch as a payload sketch and back, field for field the
+    reference's on the same sketch; a payload of d > 1 is refused."""
+    from repro.core import threshold_sketch as j_threshold_sketch
+    from repro.engine import from_vector as j_from_vector
+    from repro.engine import to_vector as j_to_vector
+    from repro_torch.core import threshold_sketch
+    from repro_torch.engine import from_vector, to_vector
+    a = np.random.default_rng(21).standard_normal(3000).astype(np.float32)
+    sk = threshold_sketch(torch.as_tensor(a), 128, 9)
+    ref = j_from_vector(j_threshold_sketch(jnp.asarray(a), 128, 9))
+    ps = from_vector(sk)
+    assert ps.payload.shape == sk.val.shape + (1,)
+    for f in ("idx", "payload", "tau"):
+        assert_bits(getattr(ps, f), getattr(ref, f))
+    back, j_back = to_vector(ps), j_to_vector(ref)
+    for f in ("idx", "val", "tau"):
+        assert_bits(getattr(back, f), getattr(sk, f))
+        assert_bits(getattr(back, f), getattr(j_back, f))
+    wide = PayloadSketch(ps.idx, ps.payload.expand(-1, 2), ps.tau)
+    with pytest.raises(ValueError, match="not a vector sketch"):
+        to_vector(wide)

@@ -1,9 +1,13 @@
-"""Port parity: the dense LM stack (``repro_torch.configs`` /
-``repro_torch.models``) against ``repro.configs`` / ``repro.models``.
+"""Port parity: the LM stack (``repro_torch.configs`` /
+``repro_torch.models``) against ``repro.configs`` / ``repro.models``, on
+every one of the ten configs (dense, MoE, SSD, RG-LRU hybrid,
+encoder-decoder, VLM stub).
 
 The reference's parameters (``init_params`` at ``PRNGKey(0)``, the
 reduced configs in float32) are carried to the port with
-``params_from_reference``; both packages take the same numpy batch.
+``params_from_reference``; both packages take the same numpy batch
+(with ``frames`` and ``image_embeds`` stubs, N(0, 0.02^2), where the
+config has an encoder or image tokens).
 
 Tolerances.  The loss agrees within ``1e-5 max(1, |loss|)``.  Gradients
 are compared at two sets of weights:
@@ -18,7 +22,8 @@ are compared at two sets of weights:
   are 3.6e-5 from the float64 forward of the same weights and 5.5e-5
   from each other, and the gradients differ by up to 2.1e-4 of a leaf's
   scale (1e-6 with the scores scaled down), whatever the order of the
-  float32 sums.
+  float32 sums.  recurrentgemma-2b-reduced comes closest (4.0e-4): its
+  attn_local layer takes the RG-LRU layers' output.
 """
 import dataclasses
 
@@ -47,46 +52,59 @@ from repro_torch.models import layers as tl
 from repro_torch.train import value_and_grad
 from _torch_common import release_jax_executables  # noqa: F401
 
-DENSE = ["gemma2-2b", "granite-20b", "command-r-plus-104b", "nemotron-4-15b"]
+ALL = list(J_ARCH_IDS)
 B, S = 2, 64
 QK_SCALE = 0.25
 
 
 def _batch(cfg):
     rng = np.random.default_rng(0)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-            "mask": (rng.random((B, S)) < 0.9).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+           "mask": (rng.random((B, S)) < 0.9).astype(np.float32)}
+    if cfg.vision_tokens:
+        out["image_embeds"] = (rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = (rng.standard_normal(
+            (B, S // cfg.enc_ratio, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
 
 
 def _scale_qk(params):
+    """Each attention group's ``wq`` and ``wk`` times QK_SCALE (SSD and
+    RG-LRU groups have none)."""
     out = jax.tree.map(lambda a: a, params)
     for g in out["groups"].values():
-        g["wq"] = g["wq"] * QK_SCALE
-        g["wk"] = g["wk"] * QK_SCALE
+        if "wq" in g:
+            g["wq"] = g["wq"] * QK_SCALE
+            g["wk"] = g["wk"] * QK_SCALE
     return out
 
 
 @pytest.fixture(scope="module")
 def ref_runs():
-    """Per dense arch: the reference's params (as it inits them, and with
-    the scores scaled down), the batch, and its loss and gradients on
-    each; one jit a config."""
-    out = {}
-    for arch in DENSE:
-        cfg = j_get_config(arch).reduced()
-        batch = _batch(cfg)
-        vg = jax.jit(jax.value_and_grad(lambda p, b: j_loss_fn(cfg, p, b),
-                                        has_aux=True))
-        jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        p0 = j_init_params(cfg, jax.random.PRNGKey(0))
-        runs = {}
-        for name, p in (("init", p0), ("scaled", _scale_qk(p0))):
-            (loss, _), grads = vg(p, jb)
-            runs[name] = (jax.device_get(p), float(loss),
-                          [np.asarray(g) for g in jax.tree.leaves(grads)])
-        out[arch] = (batch, runs)
-    return out
+    """arch -> the reference's params (as it inits them, and with the
+    scores scaled down), the batch, and its loss and gradients on each;
+    one jit a config, made the first time a test asks for the arch."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cfg = j_get_config(arch).reduced()
+            batch = _batch(cfg)
+            vg = jax.jit(jax.value_and_grad(
+                lambda p, b: j_loss_fn(cfg, p, b), has_aux=True))
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            p0 = j_init_params(cfg, jax.random.PRNGKey(0))
+            runs = {}
+            for name, p in (("init", p0), ("scaled", _scale_qk(p0))):
+                (loss, _), grads = vg(p, jb)
+                runs[name] = (jax.device_get(p), float(loss),
+                              [np.asarray(g) for g in jax.tree.leaves(grads)])
+            cache[arch] = (batch, runs)
+        return cache[arch]
+    return get
 
 
 def _port_loss_and_grads(arch, params_np, batch):
@@ -103,11 +121,11 @@ def _leaf_errors(got, want):
             for g, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_loss_and_grads_match_reference(arch, ref_runs):
     """Scores scaled down: the loss within 1e-5 max(1, |loss|), every
     gradient leaf within 1e-4 of its scale."""
-    batch, runs = ref_runs[arch]
+    batch, runs = ref_runs(arch)
     params, ref_loss, ref_grads = runs["scaled"]
     loss, grads = _port_loss_and_grads(arch, params, batch)
     assert abs(loss - ref_loss) <= 1e-5 * max(1.0, abs(ref_loss))
@@ -116,12 +134,12 @@ def test_loss_and_grads_match_reference(arch, ref_runs):
     assert max(errs) < 1e-4, errs
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_loss_and_grads_at_reference_init(arch, ref_runs):
     """The reference's init as it is: the loss within 1e-5 max(1, |loss|),
     every gradient leaf within 5e-4 of its scale (the module docstring
     says why not 1e-4)."""
-    batch, runs = ref_runs[arch]
+    batch, runs = ref_runs(arch)
     params, ref_loss, ref_grads = runs["init"]
     loss, grads = _port_loss_and_grads(arch, params, batch)
     assert abs(loss - ref_loss) <= 1e-5 * max(1.0, abs(ref_loss))
@@ -171,12 +189,12 @@ def test_layers_match_reference():
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_flatten_params_bit_equal_to_reference(arch, ref_runs):
     """``flatten_params`` of the carried parameters is the reference's
     ``grad_compress._flatten`` bit for bit (the SketchDP coordinate
     order), and ``unflatten_params`` inverts it."""
-    _, runs = ref_runs[arch]
+    _, runs = ref_runs(arch)
     params_np = runs["init"][0]
     cfg = get_config(arch).reduced()
     params = params_from_reference(cfg, params_np, device="cpu")
@@ -193,13 +211,16 @@ def test_flatten_params_bit_equal_to_reference(arch, ref_runs):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_param_specs_and_init_follow_reference(arch):
     """The same leaf paths, shapes and init kinds as the reference's
     specs, at full width and reduced; ``init_params`` draws the reference's
-    per-leaf scales (zeros for the gains, 0.02 for the embedding,
-    1/sqrt(stacked shape[-2]) for the rest) in the config dtype, the same
-    on every call with one seed."""
+    per-leaf scales (zeros for the gains, ones for the SSD skip, 0.02 for
+    the embedding, 0.2 for the convolutions, 1/sqrt(stacked shape[-2])
+    for the rest) in the config dtype, the same on every call with one
+    seed.  A leaf's sample std is held to 10% of the scale, or 4 of its
+    standard errors (1/sqrt(2 numel)) where that is wider (the SSD's
+    (4, 16) convolutions)."""
     for cfg_t, cfg_j in ((get_config(arch), j_get_config(arch)),
                          (get_config(arch).reduced(),
                           j_get_config(arch).reduced())):
@@ -219,12 +240,14 @@ def test_param_specs_and_init_follow_reference(arch):
     for (path, x), (_, y) in zip(param_leaves(a), param_leaves(b)):
         assert torch.equal(x, y) and x.dtype == torch.float32
         spec = dict(param_leaves(param_specs(cfg)))[path]
-        if spec.init == "zeros":
-            assert not x.any()
+        if spec.init in ("zeros", "ones"):
+            assert torch.equal(x, torch.full_like(
+                x, 0.0 if spec.init == "zeros" else 1.0)), path
             continue
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         want = spec.scale if spec.scale is not None else fan_in ** -0.5
-        assert abs(float(x.std()) / want - 1) < 0.1, path
+        tol = max(0.1, 4 / (2 * x.numel()) ** 0.5)
+        assert abs(float(x.std()) / want - 1) < tol, path
 
 
 def test_configs_are_the_reference_configs():
@@ -242,19 +265,6 @@ def test_configs_are_the_reference_configs():
             assert ours.padded_vocab == ref.padded_vocab
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-
-
-@pytest.mark.parametrize("arch,slice_name", [
-    ("qwen2-moe-a2.7b", "MoE"), ("qwen3-moe-235b-a22b", "MoE"),
-    ("mamba2-370m", "SSD"), ("recurrentgemma-2b", "RG-LRU"),
-    ("whisper-small", "encoder-decoder"), ("phi-3-vision-4.2b", "VLM")])
-def test_later_families_raise_naming_their_slice(arch, slice_name):
-    cfg = get_config(arch).reduced()
-    for call in (lambda: param_specs(cfg),
-                 lambda: init_params(cfg, 0, device="cpu"),
-                 lambda: loss_fn(cfg, {}, {})):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            call()
 
 
 def test_serving_entry_points_raise():

@@ -12,6 +12,7 @@ comparison is of AdamW and not of the two packages' float32 gradients
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -144,6 +145,34 @@ def test_weight_decay_mask_is_the_reference_ndim_rule(carried):
     assert not decayed[("final_norm",)]
     assert decayed == {path: np.ndim(x) >= 2
                        for path, x in param_leaves(p_np)}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m",
+                                  "recurrentgemma-2b", "whisper-small",
+                                  "phi-3-vision-4.2b"])
+def test_weight_decay_mask_over_every_family(arch):
+    """The same zero-gradient step over each new family's leaves (the
+    experts, the router, the SSD and RG-LRU leaves, cross attention, the
+    encoder, ``img_proj``): the port's updated leaves equal the
+    reference's and the decayed set is ``ndim >= 2``."""
+    jcfg = j_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    p_np = jax.tree.map(lambda a: np.asarray(a) + np.float32(0.1),
+                        jax.device_get(j_init_params(
+                            jcfg, jax.random.PRNGKey(0))))
+    p_t = params_from_reference(cfg, p_np, device="cpu")
+    j_opt = j_adamw(1.0, weight_decay=0.5, clip_norm=0.0)
+    opt = adamw(1.0, weight_decay=0.5, clip_norm=0.0)
+    jp = jax.tree.map(jnp.asarray, p_np)
+    new_j, _, _ = j_opt.update(jax.tree.map(jnp.zeros_like, jp),
+                               j_opt.init(jp), jp)
+    new_t, _, _ = opt.update(jax.tree.map(torch.zeros_like, p_t),
+                             opt.init(p_t), p_t)
+    for (path, a), b, old in zip(param_leaves(new_t), jax.tree.leaves(new_j),
+                                 jax.tree.leaves(p_np)):
+        assert (not np.array_equal(a.numpy(), old)) == (np.ndim(old) >= 2)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7, err_msg=str(path))
 
 
 def test_warmup_cosine_and_global_norm_match_reference():
@@ -578,3 +607,27 @@ def test_launcher_runs_and_resumes(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "resumed from step 3" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m",
+                                  "recurrentgemma-2b", "whisper-small",
+                                  "phi-3-vision-4.2b"])
+def test_launcher_trains_every_family(arch, capsys):
+    """The launcher's ``main`` on each new family's reduced config on the
+    CPU (the frame and image stubs for whisper and phi-3-vision): two
+    logged steps with finite losses, and no thread of its own left
+    running after it returns (the batch prefetcher's ends with the last
+    step)."""
+    from repro_torch.launch.train import main
+    before = set(threading.enumerate())
+    main(["--arch", arch, "--reduced", "--steps", "2", "--device", "cpu",
+          "--batch", "2", "--seq", "32"])
+    for t in set(threading.enumerate()) - before:
+        t.join(timeout=30)
+    assert not [t for t in set(threading.enumerate()) - before
+                if t.is_alive()]
+    out = capsys.readouterr().out
+    assert f"arch={arch}-reduced" in out
+    losses = [float(ln.split()[3]) for ln in out.splitlines()
+              if ln.startswith("step ")]
+    assert len(losses) == 1 and all(np.isfinite(losses)), out
