@@ -281,9 +281,38 @@ exits nonzero with no result line):
                  config in float32 on the card against the CPU from the
                  same weights (loss within 1e-5, gradients within 1e-4 of
                  their scale);
-16. ``kernels``  one line per the port's kernel table.
+16. ``serve_path`` (right after ``families_path``) LM serving through
+                 ``prefill_fn`` / ``decode_fn`` / ``serve.Engine``, each
+                 model freed before the next: (A) each of the ten reduced
+                 configs in float32 (``wq`` / ``wk`` times 1/4) on the
+                 card against the CPU from the same weights, a prefill of
+                 48 tokens and 8 decode steps, the logits within 1e-5 of
+                 their largest magnitude; (B) cache consistency at the
+                 published widths of gemma2-2b, qwen2-moe-a2.7b,
+                 mamba2-370m, recurrentgemma-2b, whisper-small and
+                 phi-3-vision-4.2b (depths as the families path cuts
+                 them, gemma2-2b as the train path), float32, B = 2,
+                 decoder ``wq`` / ``wk`` times 1/4 (scores O(1)): the
+                 last logits of ``prefill(t[:S])`` against
+                 ``prefill(t[:S0], max_len=S)`` plus 16 decodes, rtol =
+                 atol = 2e-2 (the reference's own), S0 = 4608 for
+                 gemma2-2b and 2560 for recurrentgemma-2b (their local
+                 rings wrap in prefill and in decode), 1024 otherwise;
+                 qwen2-moe-a2.7b's capacity factor raised to E / k so
+                 that nothing drops, mamba2-370m's full prefill at the
+                 chunk that divides S (the SSD does not depend on it);
+                 (C) the six at full published depth in bfloat16, random
+                 init: ``Engine(batch_size=4, max_len=2048)`` serves 8
+                 requests of seeded lengths in 8-1000, 32 new tokens each
+                 (two waves), a second engine gives the same greedy
+                 tokens, a temperature-1.0 wave repeats under one seed;
+                 parameter and cache bytes, prefill ms, decode ms a step,
+                 tokens/s, peak bytes and one traced decode step a
+                 family; ``python -m repro_torch.launch.serve --arch
+                 gemma2-2b`` once, on the card by default;
+17. ``kernels``  one line per the port's kernel table.
 
-Each path (4-12, 14, 15) zeroes every kernel's launch counter (and the
+Each path (4-12, 14-16) zeroes every kernel's launch counter (and the
 tile-list join's tile count) before it runs and reads them after; each of
 its kernels must have launched.  Each path's line gives its wall time
 (``seconds``).
@@ -294,6 +323,7 @@ The last lines are ``nvidia-smi``'s name and power limit and then
 import collections
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -391,6 +421,14 @@ FAMILIES = (("qwen2-moe-a2.7b", 2), ("mamba2-370m", 48),
             ("recurrentgemma-2b", 5), ("whisper-small", 12),
             ("phi-3-vision-4.2b", 2))
 FAMILY_STEPS = 3
+# the serve path: (arch, depth for gate B, its S0); gate B decodes
+# SERVE_TAIL tokens; gate C serves SERVE_REQUESTS requests at full depth
+SERVE_FAMILIES = (("gemma2-2b", TRAIN_LAYERS, 4608),
+                  ("qwen2-moe-a2.7b", 2, 1024), ("mamba2-370m", 48, 1024),
+                  ("recurrentgemma-2b", 5, 2560), ("whisper-small", 12, 1024),
+                  ("phi-3-vision-4.2b", 2, 1024))
+SERVE_TAIL, SERVE_TOL = 16, 2e-2
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 2048, 8, 32
 
 
 def emit(obj) -> None:
@@ -1139,6 +1177,279 @@ def _families(dev, seq: int) -> dict:
     return out
 
 
+def tree_bytes(tree) -> int:
+    from repro_torch.models import param_leaves as lm_leaves
+    return sum(x.numel() * x.element_size() for _, x in lm_leaves(tree))
+
+
+def scale_scores(params, by: float = 0.25) -> dict:
+    """Each decoder attention's ``wq`` and ``wk`` (self and cross) times
+    ``by``, in place: the reference's init draws them at std
+    1/sqrt(n_heads), which saturates the scores, and prefill and decode
+    then drift apart with depth and length in both packages (whisper-small
+    at 12 + 12: 3e-3 at 272 tokens on the CPU in the reference; 0.23 at
+    1040 tokens on the card, run A28)."""
+    for blocks in (params["groups"], params.get("tail", {})):
+        for g in blocks.values():
+            for att in (g, g.get("cross", {})):
+                if "wq" in att:
+                    att["wq"].mul_(by)
+                    att["wk"].mul_(by)
+    return params
+
+
+def serve_reduced_card_vs_cpu(arch: str, dev) -> dict:
+    """Gate A: ``arch``'s reduced config in float32 (:func:`scale_scores`),
+    a prefill of 48 tokens (horizon
+    56) and 8 decode steps on the card and on the CPU from the same
+    weights: each step's logits within 1e-5 of their largest magnitude.
+    -> the worst error over that magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import frontend_stubs
+    from repro_torch.models import decode_fn, init_params, prefill_fn
+    from repro_torch.models.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = scale_scores(init_params(cfg, TRAIN_SEED, device="cpu"))
+    tokens = torch.as_tensor(np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.vocab_size, (2, 56)).astype(np.int32))
+    stubs = frontend_stubs(cfg, 2, 48, seed=TRAIN_SEED, device="cpu")
+    runs = []
+    for d in ("cpu", dev):
+        p = tree_map(lambda x: x.to(d), params)
+        logits, state = prefill_fn(cfg, max_len=56)(
+            p, {"tokens": tokens[:, :48].to(d),
+                **{k: v.to(d) for k, v in stubs.items()}})
+        out = [logits.cpu()]
+        step = decode_fn(cfg)
+        for t in range(48, 56):
+            logits, state = step(p, state, tokens[:, t:t + 1].to(d))
+            out.append(logits.cpu())
+        runs.append(out)
+    worst = 0.0
+    for i, (c, g) in enumerate(zip(*runs)):
+        e = float((g - c).abs().max()) / float(c.abs().max())
+        check(e <= 1e-5, f"{cfg.name}: step {i} logits {e} of their scale "
+              "from the CPU's")
+        worst = max(worst, e)
+    return {"config": cfg.name, "steps": len(runs[0]),
+            "logits_max_err_over_scale": worst}
+
+
+def serve_cache_consistency(arch: str, depth: int, s0: int, dev) -> dict:
+    """Gate B: ``arch`` at its published widths, ``depth`` layers, float32,
+    B = 2: the last logits of ``prefill(t[:S])`` against
+    ``prefill(t[:S0], max_len=S)`` followed by decodes of ``t[S0:S]``
+    (S = S0 + SERVE_TAIL), rtol = atol = SERVE_TOL, on random weights
+    with the scores scaled down (:func:`scale_scores`).  An MoE runs at the
+    capacity factor E / k, where every expert's capacity is at least the
+    tokens routed together, so nothing drops; an SSD's full prefill runs
+    at the chunk that divides S (its output does not depend on the
+    chunk), the split one at the published chunk."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data import frontend_stubs
+    from repro_torch.models import decode_fn, init_params, prefill_fn
+    from repro_torch.models.moe import capacity
+    free_card()
+    cfg = dataclasses.replace(lm_config(arch), n_layers=depth,
+                              dtype="float32")
+    S = s0 + SERVE_TAIL
+    out = {"config": cfg.name, "n_layers": depth, "batch": 2, "S0": s0,
+           "S": S, "dtype": cfg.dtype}
+    if cfg.n_experts:
+        cf = cfg.n_experts / cfg.top_k
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        caps = {t: capacity(t, cfg.top_k, cfg.n_experts, cf)
+                for t in (2 * S, 2 * s0, 2)}
+        check(all(c >= t for t, c in caps.items()),
+              f"{cfg.name}: capacities {caps} below the routed tokens")
+        out["moe"] = {"capacity_factor": cf, "capacity_by_tokens": caps,
+                      "drops_possible": False}
+    if cfg.window:
+        out["window"] = cfg.window
+        out["local_ring_wraps_in_prefill"] = s0 > cfg.window
+    full_cfg = cfg
+    if cfg.ssm_state and S % cfg.ssm_chunk:
+        full_cfg = dataclasses.replace(cfg,
+                                       ssm_chunk=math.gcd(cfg.ssm_chunk, S))
+        out["full_prefill_ssm_chunk"] = full_cfg.ssm_chunk
+    params = scale_scores(init_params(cfg, TRAIN_SEED, device=dev))
+    tokens = torch.as_tensor(np.random.default_rng(TRAIN_SEED + 1).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32), device=dev)
+    stubs = frontend_stubs(cfg, 2, S, seed=TRAIN_SEED, device=dev)
+    full, _ = prefill_fn(full_cfg)(params, {"tokens": tokens, **stubs})
+    _, state = prefill_fn(cfg, max_len=S)(
+        params, {"tokens": tokens[:, :s0], **stubs})
+    step = decode_fn(cfg)
+    for t in range(s0, S):
+        logits, state = step(params, state, tokens[:, t:t + 1])
+    err = assert_tol(logits, full, SERVE_TOL, SERVE_TOL,
+                     f"{cfg.name} prefill + {SERVE_TAIL} decodes")
+    out.update(max_abs_err=err,
+               max_err_over_scale=err / float(full.abs().max()),
+               logits_scale=float(full.abs().max()))
+    del params, state, full, logits
+    return out
+
+
+def free_card() -> None:
+    """Collect what the last model left (an engine timed by
+    :func:`_timed_engine` is in a reference cycle) and empty the
+    allocator's cache."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _timed_engine(eng, log: dict):
+    """Wrap ``eng``'s prefill, decode step and wave with host clocks (the
+    device synchronised around each) into ``log``."""
+    prefill, decode, wave = eng._prefill, eng._decode, eng.generate_wave
+
+    def timed_prefill(params, batch):
+        (logits, state), ms = step_ms(lambda: prefill(params, batch))
+        log["prefill"].append({"tokens": list(batch["tokens"].shape),
+                               "ms": ms})
+        log["cache_bytes"] = tree_bytes(state)
+        return logits, state
+
+    def timed_decode(params, state, tok):
+        out, ms = step_ms(lambda: decode(params, state, tok))
+        log["decode_ms"].append(ms)
+        return out
+
+    def timed_wave(requests):
+        before = [len(r.output) for r in requests[:eng.batch]]
+        done, ms = step_ms(lambda: wave(requests))
+        emitted = sum(len(r.output) for r in done) - sum(before)
+        log["waves"].append({"requests": len(done), "ms": ms,
+                             "tokens": emitted,
+                             "tokens_per_s": emitted * 1e3 / ms})
+        return done
+
+    eng._prefill, eng._decode, eng.generate_wave = (
+        timed_prefill, timed_decode, timed_wave)
+
+
+def serve_family(arch: str, dev) -> dict:
+    """Gate C: ``arch`` at full published depth in bfloat16, random init,
+    on a freed card: an engine of SERVE_BATCH x SERVE_MAX_LEN serves
+    SERVE_REQUESTS requests of seeded lengths in 8-1000 (two waves), each
+    gets SERVE_NEW tokens below the vocabulary; a second engine on the
+    same weights gives the same greedy tokens; a temperature-1.0 wave
+    repeats under one seed.  Then a warm prefill of the first wave's shape
+    and one decode step under ``torch.profiler`` (:func:`trace_scan`, the
+    device only).  The peak bytes are counted from after the weights are
+    made (``init_params`` draws each leaf in float32 first).  -> the
+    family's line."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, Request
+    free_card()
+    cfg = lm_config(arch)
+    params = init_params(cfg, TRAIN_SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(TRAIN_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(8, 1001, SERVE_REQUESTS)]
+
+    def requests(k=SERVE_REQUESTS):
+        return [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts[:k])]
+
+    def engine(**kw):
+        return Engine(cfg, params, batch_size=SERVE_BATCH,
+                      max_len=SERVE_MAX_LEN, device=dev, **kw)
+
+    log = {"prefill": [], "decode_ms": [], "waves": []}
+    eng = engine()
+    _timed_engine(eng, log)
+    done = eng.serve(requests())
+    outs = [r.output for r in done]
+    check(len(outs) == SERVE_REQUESTS and all(
+        len(o) == SERVE_NEW and all(0 <= t < cfg.vocab_size for t in o)
+        for o in outs), f"{cfg.name}: outputs {outs}")
+    again = [r.output for r in engine().serve(requests())]
+    check(again == outs, f"{cfg.name}: a second engine's greedy tokens "
+          "differ")
+    sampled = [[r.output for r in engine(temperature=1.0, seed=TRAIN_SEED)
+                .serve(requests(SERVE_BATCH))] for _ in range(2)]
+    check(sampled[0] == sampled[1], f"{cfg.name}: temperature-1.0 wave "
+          "did not repeat under one seed")
+    check(all(0 <= t < cfg.vocab_size for o in sampled[0] for t in o),
+          f"{cfg.name}: a sampled token beyond the vocabulary")
+    # a warm prefill of the first wave's shape, and one decode step traced
+    batch = {"tokens": torch.zeros(tuple(log["prefill"][0]["tokens"]),
+                                   dtype=torch.int32, device=dev)}
+    if cfg.vision_tokens:
+        batch["image_embeds"] = torch.zeros(
+            (SERVE_BATCH, cfg.vision_tokens, cfg.d_model), device=dev)
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros(
+            (SERVE_BATCH, max(batch["tokens"].shape[1] // cfg.enc_ratio, 1),
+             cfg.d_model), device=dev)
+    logits, state = eng._prefill(params, batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    decode = eng._decode
+    traced = trace_scan(lambda: decode(params, state, tok), host=False)
+    dec = log["decode_ms"][:-2]                 # the waves' own steps
+    emitted = sum(w["tokens"] for w in log["waves"])
+    out = {"config": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": cfg.dtype, "batch": SERVE_BATCH,
+           "max_len": SERVE_MAX_LEN,
+           "prompt_lengths": [len(p) for p in prompts],
+           "param_bytes": tree_bytes(params),
+           "cache_bytes": log["cache_bytes"],
+           "prefill": log["prefill"][:len(log["waves"])],
+           "prefill_warm": log["prefill"][-1],
+           "decode_steps": len(dec),
+           "decode_ms_median": float(np.median(dec)),
+           "decode_ms_min": float(np.min(dec)),
+           "waves": log["waves"],
+           "tokens_per_s": emitted * 1e3 / sum(w["ms"]
+                                               for w in log["waves"]),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "trace_decode_step": traced,
+           "greedy_outputs_head": [o[:8] for o in outs[:2]]}
+    del params, eng, state, logits
+    return out
+
+
+def serve_path(dev) -> dict:
+    """LM serving on the card: gates A (:func:`serve_reduced_card_vs_cpu`
+    on the ten reduced configs), B (:func:`serve_cache_consistency`) and
+    C (:func:`serve_family`) on the six families of ``SERVE_FAMILIES``,
+    and ``python -m repro_torch.launch.serve --arch gemma2-2b`` as a
+    subprocess on the card by default."""
+    from repro_torch.configs import ARCH_IDS as LM_ARCHS
+    out = {"reduced_card_vs_cpu": [serve_reduced_card_vs_cpu(a, dev)
+                                   for a in LM_ARCHS]}
+    out["cache_consistency"] = [
+        serve_cache_consistency(arch, depth, s0, dev)
+        for arch, depth, s0 in SERVE_FAMILIES]
+    out["families"] = []
+    for arch, _, _ in SERVE_FAMILIES:
+        fam = serve_family(arch, dev)
+        emit({"phase": "serve_path.family", **fam})
+        out["families"].append(fam)
+    free_card()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2-2b"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": SRC})
+    lines = [ln for ln in run.stdout.splitlines()
+             if ln.startswith("request ")]
+    check(run.returncode == 0 and len(lines) == 4,
+          f"launch.serve exited {run.returncode}: {run.stdout[-2000:]} "
+          f"{run.stderr[-2000:]}")
+    out["launch_serve"] = {"argv": "--arch gemma2-2b", "lines": lines,
+                           "seconds": time.perf_counter() - t0}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1622,6 +1933,28 @@ def main() -> None:
               "CPU: loss within 1e-5, every gradient leaf within 1e-4 of "
               "its scale"],
           "launches": launches["families_path"]})
+
+    # ------------------------------------------------------------ serve path
+    # (right after the families path, on the card they freed; no kernel of
+    # the port is on this path: prefill and decode are matrix products)
+    serve_out, launches["serve_path"] = run_path(
+        kernels, lambda: serve_path(dev))
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_path", **serve_out, "nvidia_smi": smi_line,
+          "gates_passed": [
+              "A: each reduced config (float32) on the card = on the CPU: "
+              "prefill and 8 decode steps, logits within 1e-5 of their "
+              "largest magnitude",
+              "B: prefill(t[:S]) = prefill(t[:S0], max_len=S) + 16 "
+              "decodes at published widths, float32, decoder wq / wk "
+              "times 1/4, rtol = atol = 2e-2; gemma2-2b and "
+              "recurrentgemma-2b past their windows",
+              "C: six families at full depth in bfloat16: 8 requests x 32 "
+              "tokens below the vocabulary, a second engine's greedy "
+              "tokens equal, a temperature-1.0 wave repeats",
+              "python -m repro_torch.launch.serve --arch gemma2-2b exits 0 "
+              "with 4 requests served"],
+          "launches": launches["serve_path"]})
 
 
     # the discovery corpus's columns (host numpy; the join-correlation

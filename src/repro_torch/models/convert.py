@@ -1,4 +1,4 @@
-"""The parameter carrier between the two packages.
+"""The parameter and decode-state carriers between the two packages.
 
 Both packages keep parameters as nested dicts in the same layout
 (``groups/p<i>`` leaves stacked over the groups, ``tail/t<j>``
@@ -70,3 +70,40 @@ def params_to_reference(tree) -> dict:
     numpy arrays, the layout the JAX package takes."""
     return tree_from_leaves([(path, x.detach().to(torch.float32).cpu().numpy())
                    for path, x in param_leaves(tree)])
+
+
+def state_from_reference(cfg, tree, *, device=None) -> dict:
+    """The JAX package's decode state (nested dicts of numpy arrays, as
+    ``jax.device_get`` gives them) -> the port's, on ``device`` (default
+    ``cuda``): ``pos`` and the caches' ``pos`` int32, ``ssm`` and ``h``
+    float32, the rest in the config dtype.  The leaf paths must be those
+    of :func:`~repro_torch.models.model.init_decode_state` for ``cfg``."""
+    from repro_torch.device import resolve_device
+    from .model import init_decode_state
+    dev = resolve_device(device)
+    want = dict(param_leaves(init_decode_state(cfg, 0, 1, 1, device="cpu")))
+    got = dict(param_leaves(tree))
+    if set(want) != set(got):
+        raise ValueError(f"state paths differ: missing "
+                         f"{sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}")
+    out = []
+    for path, like in want.items():
+        a = np.asarray(got[path])
+        if a.ndim != like.ndim:
+            raise ValueError(f"{'/'.join(path)}: {a.ndim} dims, expected "
+                             f"{like.ndim}")
+        a = np.array(a, dtype=np.int32 if like.dtype == torch.int32
+                     else np.float32)
+        out.append((path, torch.as_tensor(a, device=dev).to(like.dtype)))
+    return tree_from_leaves(out)
+
+
+def state_to_reference(state) -> dict:
+    """The port's decode state -> nested dicts of numpy arrays in the
+    reference's layout: int32 where the state is, float32 elsewhere.
+    The arrays are copies: decode steps write the state in place."""
+    return tree_from_leaves([
+        (path, np.array(x.cpu().numpy() if x.dtype == torch.int32
+                        else x.to(torch.float32).cpu().numpy()))
+        for path, x in param_leaves(state)])

@@ -1,6 +1,7 @@
-"""Shared neural building blocks (``repro.models.layers``, the training
-subset): norms, softcap, activations, RoPE, gated MLPs and grouped-query
-attention with the chunked online softmax.
+"""Shared neural building blocks (``repro.models.layers``): norms,
+softcap, activations, RoPE, gated MLPs, grouped-query attention with the
+chunked online softmax, and the ring KV cache with one-token decode
+attention.
 
 Parameters are plain dicts of tensors in the reference's layouts
 (``wq`` (d, H, dh), ``wk``/``wv`` (d, K, dh), ``wo`` (H, dh, d)).  Compute
@@ -212,3 +213,59 @@ def attention_train(p, x: torch.Tensor, *, positions: torch.Tensor,
     B, S = x.shape[:2]
     wo = p["wo"]
     return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# ----------------------------------------------------------------------------
+# KV cache (decode)
+# ----------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, cache_len: int, n_kv: int, d_head: int, dtype,
+                  *, lead: tuple = (), device=None) -> dict:
+    """An empty ring cache: ``k`` / ``v`` (*lead, B, C, K, dh) zeros in
+    ``dtype``, ``pos`` (*lead, B, C) int32 -1 (no entry).  ``lead`` puts
+    the stacked groups in front; each group gets storage of its own."""
+    kv = tuple(lead) + (batch, cache_len, n_kv, d_head)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+        "pos": torch.full(tuple(lead) + (batch, cache_len), -1,
+                          dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(p, x1: torch.Tensor, cache, *, pos: torch.Tensor,
+                     window: int, rope_theta: float, cap: float):
+    """One-token decode against a ring cache.  x1: (B, 1, d); ``pos``: the
+    0-d int32 position on the device.  Writes k, v and ``pos`` into slot
+    ``pos % C`` of ``cache`` **in place** (the reference returns a new
+    cache; here the caller's tensors are the new cache) and attends over
+    the valid slots: filled, at or before ``pos``, and for a local layer
+    inside the window.  Scores in float32, the softcap before the mask.
+    -> (y (B, 1, d), cache)."""
+    q, k, v = project_qkv(p, x1)
+    B, _, K, G, dh = q.shape
+    posv = pos.reshape(1)
+    if rope_theta:
+        q = rope(q.reshape(B, 1, K * G, dh), posv, rope_theta).reshape(q.shape)
+        k = rope(k, posv, rope_theta)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = (posv % ck.shape[1]).to(torch.int64)
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    cpos.index_copy_(1, slot, posv.to(torch.int32).expand(B, 1))
+    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
+    # (B, K, G, 1, dh) x (B, K, 1, dh, C) -> (B, K, G, 1, C)
+    s = torch.matmul(q.to(torch.float32).permute(0, 2, 3, 1, 4),
+                     ck.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]
+                     ) * scale
+    s = softcap(s, cap)
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window:
+        valid &= cpos > pos - window
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)[:, :, None])
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, K * G * dh).to(x1.dtype)
+    wo = p["wo"]
+    return out @ wo.reshape(-1, wo.shape[-1]), cache

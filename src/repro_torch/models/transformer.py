@@ -214,10 +214,10 @@ def init_params(cfg: ModelConfig, generator, *, device=None) -> dict:
 # ----------------------------------------------------------------------------
 
 
-def _apply_ffn(cfg: ModelConfig, p, x, aux):
+def _apply_ffn(cfg: ModelConfig, p, x, aux=None):
     """The feed-forward sublayer with its residual: the MoE (plus shared
-    experts; its load-balancing loss added to ``aux``), the MLP, or
-    nothing.  -> (x, aux)."""
+    experts; its load-balancing loss added to ``aux`` unless ``aux`` is
+    None, as in serving), the MLP, or nothing.  -> (x, aux)."""
     def act(v):
         return layers.activation(v, cfg.mlp_act)
 
@@ -229,13 +229,24 @@ def _apply_ffn(cfg: ModelConfig, p, x, aux):
             per_row=cfg.moe_per_row_dispatch)
         if cfg.n_shared_experts:
             y = y + moe.shared_expert_ffn(p["moe"]["shared"], h, act_fn=act)
-        aux = aux + moe.load_balancing_loss(logits, eids, cfg.n_experts,
-                                            cfg.top_k)
+        if aux is not None:
+            aux = aux + moe.load_balancing_loss(logits, eids, cfg.n_experts,
+                                                cfg.top_k)
         return x + y, aux
     if "mlp" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + layers.mlp(p["mlp"], h, act=cfg.mlp_act, glu=cfg.glu), aux
     return x, aux
+
+
+def cross_kv(p_cross, enc_out):
+    """Cross attention's keys and values (B, Se, K, dh) from the encoder's
+    output (no RoPE)."""
+    B, Se, d = enc_out.shape
+    K, dh = p_cross["wk"].shape[1:]
+    kx = (enc_out @ p_cross["wk"].reshape(d, K * dh)).reshape(B, Se, K, dh)
+    vx = (enc_out @ p_cross["wv"].reshape(d, K * dh)).reshape(B, Se, K, dh)
+    return kx, vx
 
 
 def block_train(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
@@ -261,12 +272,7 @@ def block_train(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
     x = x + y
     if cfg.is_encdec and enc_out is not None:
         h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
-        B, Se, d = enc_out.shape
-        K, dh = p["cross"]["wk"].shape[1:]
-        kx = (enc_out @ p["cross"]["wk"].reshape(d, K * dh)).reshape(
-            B, Se, K, dh)
-        vx = (enc_out @ p["cross"]["wv"].reshape(d, K * dh)).reshape(
-            B, Se, K, dh)
+        kx, vx = cross_kv(p["cross"], enc_out)
         x = x + layers.attention_train(
             p["cross"], h, positions=positions, causal=False, window=0,
             rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
@@ -304,7 +310,8 @@ def apply_backbone(cfg: ModelConfig, params, x, positions, enc_out=None):
 def encode(cfg: ModelConfig, params, frames):
     """Whisper-style encoder over stub frame embeddings (B, Senc, d):
     sinusoidal positions, bidirectional attention and the MLP a block
-    (each block under ``torch.utils.checkpoint``), the final norm."""
+    (each block under ``torch.utils.checkpoint`` while autograd records;
+    serving runs them plainly), the final norm."""
     B, Senc, d = frames.shape
     x = frames.to(param_dtype(cfg))
     x = x + layers.sinusoidal_positions(Senc, d, frames.device)[None].to(
@@ -321,7 +328,8 @@ def encode(cfg: ModelConfig, params, frames):
         return x + layers.mlp(bp["mlp"], h, act=cfg.mlp_act, glu=cfg.glu)
 
     for bp in _unstack(params["enc"]["blocks"], cfg.enc_layers):
-        x = checkpoint(enc_step, x, bp, use_reentrant=False)
+        x = (checkpoint(enc_step, x, bp, use_reentrant=False)
+             if torch.is_grad_enabled() else enc_step(x, bp))
     return layers.rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
 
 
@@ -388,3 +396,11 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
                                    maskf[:, sl], W, use_reentrant=False)
     denom = torch.clamp(maskf.sum(), min=1.0)
     return total / denom
+
+
+def logits_last(cfg: ModelConfig, params, hidden_last):
+    """hidden_last: (B, d) -> (B, Vp) float32 logits with the logit
+    softcap; the padded vocabulary is left to the caller (the engine
+    masks it)."""
+    logits = (hidden_last @ _unembed_matrix(cfg, params)).to(torch.float32)
+    return layers.softcap(logits, cfg.logit_softcap)

@@ -1753,3 +1753,114 @@ def test_family_loss_and_grads_on_card_match_cpu(cuda_device, arch):
                                      param_leaves(runs[1][1])):
             if "moe" in path:
                 assert_bits(a, b)
+
+
+def _serve_setup(arch: str):
+    """``arch``'s reduced config, CPU weights (each attention group's
+    wq / wk times 1/4) and a (2, 56) token block with the prompt stubs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import frontend_stubs
+    from repro_torch.models import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, device="cpu")
+    for g in params["groups"].values():
+        if "wq" in g:
+            g["wq"] = g["wq"] * 0.25
+            g["wk"] = g["wk"] * 0.25
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 56)).astype(np.int32))
+    return cfg, params, tokens, frontend_stubs(cfg, 2, 48, seed=9,
+                                               device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b",
+                                  "mamba2-370m", "recurrentgemma-2b",
+                                  "whisper-small", "phi-3-vision-4.2b"])
+def test_prefill_decode_on_card_match_cpu(cuda_device, arch):
+    """A reduced config's prefill of 48 tokens (horizon 56: the local
+    rings wrap) and 8 decode steps on the card against the CPU from the
+    same weights, float32, TF32 off: each step's logits within 1e-5 of
+    their largest magnitude, the final state's float leaves within 1e-5
+    of their scale, its int32 leaves equal."""
+    from repro_torch.models import decode_fn, param_leaves, prefill_fn
+    from repro_torch.models.tree import tree_map
+    cfg, params, tokens, stubs = _serve_setup(arch)
+    on = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa: E731
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for move in (lambda t: t, on):
+            p = move(params)
+            logits, state = prefill_fn(cfg, max_len=56)(
+                p, move({"tokens": tokens[:, :48], **stubs}))
+            out = [logits.cpu()]
+            step = decode_fn(cfg)
+            for t in range(48, 56):
+                logits, state = step(p, state, move(tokens[:, t:t + 1]))
+                out.append(logits.cpu())
+            runs.append((out, state))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (c_out, c_state), (g_out, g_state) = runs
+    for c, g in zip(c_out, g_out):
+        assert float((g - c).abs().max()) <= 1e-5 * max(
+            1.0, float(c.abs().max()))
+    for (path, c), (_, g) in zip(param_leaves(c_state),
+                                 param_leaves(g_state)):
+        g = g.cpu()
+        if c.dtype == torch.int32:
+            assert torch.equal(g, c), path
+        elif c.numel():
+            assert float((g - c).abs().max()) <= 1e-5 * max(
+                float(c.abs().max()), 1e-30), path
+
+
+def test_decode_in_place_write_stays_in_its_group(cuda_device):
+    """The stacked caches own their storage (no ``expand`` aliasing): a
+    decode step on the card changes slot ``pos % C`` of each group's own
+    slice and no other slot of any group."""
+    from repro_torch.models import (decode_fn, init_decode_state,
+                                    param_leaves, prefill_fn)
+    from repro_torch.models.tree import tree_map
+    cfg, params, tokens, _ = _serve_setup("gemma2-2b")
+    params = tree_map(lambda x: x.to(cuda_device), params)
+    tokens = tokens.to(cuda_device)
+    empty = init_decode_state(cfg, 2, 40, device=cuda_device)
+    for path, x in param_leaves(empty["groups"]):
+        assert 0 not in x.stride(), path
+    _, state = prefill_fn(cfg, max_len=40)(params, {"tokens": tokens[:, :16]})
+    before = {p: x.clone() for p, x in param_leaves(state)}
+    _, state = decode_fn(cfg)(params, state, tokens[:, 16:17])
+    for path, x in param_leaves(state):
+        if path[0] != "groups" or path[-1] not in ("k", "v", "pos"):
+            continue
+        keep = torch.ones(x.shape[2], dtype=torch.bool, device=x.device)
+        keep[16 % x.shape[2]] = False
+        for g in range(cfg.n_groups):
+            assert torch.equal(x[g][:, keep], before[path][g][:, keep]), \
+                (path, g)
+            assert not torch.equal(x[g][:, ~keep],
+                                   before[path][g][:, ~keep]), (path, g)
+
+
+def test_two_engines_greedy_agree_on_card(cuda_device):
+    """Two engines on the same reduced weights on the card give the same
+    greedy tokens (two waves), each below the vocabulary."""
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serve import Engine, Request
+    cfg, params, _, _ = _serve_setup("gemma2-2b")
+    params = tree_map(lambda x: x.to(cuda_device), params)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 20, 9)]
+    outs = []
+    for _ in range(2):
+        eng = Engine(cfg, params, batch_size=3, max_len=64,
+                     device=cuda_device)
+        done = eng.serve([Request(rid=i, prompt=p, max_new_tokens=6)
+                          for i, p in enumerate(prompts)])
+        outs.append([tuple(r.output) for r in done])
+    assert outs[0] == outs[1]
+    assert all(len(o) == 6 and all(0 <= t < cfg.vocab_size for t in o)
+               for o in outs[0])

@@ -125,7 +125,11 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.train.checkpoint, repro_torch.train.telemetry, "
         "repro_torch.data.pipeline, repro_torch.launch, "
         "repro_torch.launch.train, "
-        "repro_torch.distributed.grad_compress\n"
+        "repro_torch.distributed.grad_compress, repro_torch.models.model, "
+        "repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "from repro_torch.models import (prefill_fn, decode_fn, "
+        "init_decode_state, state_from_reference, state_to_reference)\n"
+        "from repro_torch.serve import Engine, Request\n"
         "from repro_torch.configs import get_config, ARCH_IDS\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "from repro_torch.obs import CanaryMonitor, observe_recovery\n"

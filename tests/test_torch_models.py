@@ -44,10 +44,10 @@ from repro.models import param_specs as j_param_specs
 from repro.models import layers as jl
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.paper_sketch import CONFIG as PAPER
-from repro_torch.models import (decode_fn, flatten_params, init_params,
-                                loss_fn, param_leaves, param_specs,
+from repro_torch.models import (flatten_params, init_params, loss_fn,
+                                param_leaves, param_specs,
                                 params_from_reference, params_to_reference,
-                                prefill_fn, unflatten_params)
+                                unflatten_params)
 from repro_torch.models import layers as tl
 from repro_torch.train import value_and_grad
 from _torch_common import release_jax_executables  # noqa: F401
@@ -265,10 +265,3 @@ def test_configs_are_the_reference_configs():
             assert ours.padded_vocab == ref.padded_vocab
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-
-
-def test_serving_entry_points_raise():
-    cfg = get_config("gemma2-2b").reduced()
-    for fn in (prefill_fn, decode_fn):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fn(cfg)
