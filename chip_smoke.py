@@ -310,9 +310,32 @@ exits nonzero with no result line):
                  tokens/s, peak bytes and one traced decode step a
                  family; ``python -m repro_torch.launch.serve --arch
                  gemma2-2b`` once, on the card by default;
-17. ``kernels``  one line per the port's kernel table.
+17. ``mesh_path`` (right after ``serve_path``) the LM sharding surface:
+                 gemma2-2b at the train path's widths, depth and batch
+                 (2 x 4096 tokens, bfloat16) placed by
+                 ``param_shardings`` on a one-rank (1, 1) ("data",
+                 "model") NCCL ``DeviceMesh``; one AdamW step on the
+                 DTensors against the plain step on the same weights and
+                 batch (loss, parameters and moments within a relative
+                 1e-6; bit-equality reported), 3 timed steps of each
+                 with their peak bytes beside the train path's dense
+                 step, a SketchDP step over the mesh's data axis at
+                 m = n / 20 (B3 and B2 launched), a sharded checkpoint of
+                 the DTensor step restored onto the plain tree bit-equal;
+18. ``dryrun_path`` ``python -m repro_torch.launch.dryrun`` in three
+                 processes started together, on the card (fake tensors):
+                 gemma2-2b ``train_4k`` on the (16, 16) mesh (depth 26 →
+                 8), command-r-plus-104b ``decode_32k`` on (16, 16) (full
+                 depth; ``serve_2d``, fsdp), qwen3-moe-235b-a22b
+                 ``train_4k`` on (2, 16, 16) (depth 94 → 2), at published
+                 widths: status ok, roofline terms > 0, 0 < useful-FLOPs
+                 ratio <= 1, counted FLOPs >= 0.99 x model FLOPs,
+                 parameter bytes a device x ranks >= the config's; each
+                 cell's summary line, wall seconds and ``MemTracker``
+                 peak beside the card's memory;
+19. ``kernels``  one line per the port's kernel table.
 
-Each path (4-12, 14-16) zeroes every kernel's launch counter (and the
+Each path (4-12, 14-17) zeroes every kernel's launch counter (and the
 tile-list join's tile count) before it runs and reads them after; each of
 its kernels must have launched.  Each path's line gives its wall time
 (``seconds``).
@@ -429,6 +452,17 @@ SERVE_FAMILIES = (("gemma2-2b", TRAIN_LAYERS, 4608),
                   ("phi-3-vision-4.2b", 2, 1024))
 SERVE_TAIL, SERVE_TOL = 16, 2e-2
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 2048, 8, 32
+# the mesh path: the train path's model, batch and seed on a one-rank
+# (1, 1) ("data", "model") NCCL mesh; MESH_STEPS timed steps of each kind
+MESH_STEPS = 3
+# the dry run path: (arch, shape, mesh, config overrides); each cell at
+# its published widths on a fake group of 256 / 512 ranks, the depth cut
+# where the trace on the host would take minutes
+DRYRUN_CELLS = (("gemma2-2b", "train_4k", "single", ("n_layers=8",)),
+                ("command-r-plus-104b", "decode_32k", "single", ()),
+                ("qwen3-moe-235b-a22b", "train_4k", "multi",
+                 ("n_layers=2",)))
+DRYRUN_TIMEOUT = 900
 
 
 def emit(obj) -> None:
@@ -1450,6 +1484,252 @@ def serve_path(dev) -> dict:
     return out
 
 
+def mesh_path(dev) -> dict:
+    """The LM sharding surface on the card: gemma2-2b at the train path's
+    widths, depth and batch placed by ``param_shardings`` on a one-rank
+    (1, 1) ("data", "model") NCCL ``DeviceMesh``; one AdamW step on the
+    DTensors against the plain step on the same weights and batch (loss
+    and every updated parameter and moment bit-equal), ``MESH_STEPS``
+    timed steps of each beside their peak bytes, one SketchDP step over
+    the mesh's data axis at m = n / 20 (B3 and B2), and a sharded
+    checkpoint of the DTensor step's parameters and AdamW state restored
+    onto the plain tree, bit-equal."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import SHAPES as LM_SHAPES
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import init_ef_state, make_sketchdp_grad_fn
+    from repro_torch.distributed.sharding import (batch_shardings, gather,
+                                                  opt_state_shardings,
+                                                  param_shardings, place)
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import param_leaves as lm_leaves
+    from repro_torch.train import Checkpointer, adamw, make_train_step
+    free_card()
+    cfg = dataclasses.replace(lm_config("gemma2-2b"), n_layers=TRAIN_LAYERS)
+    seq = LM_SHAPES["train_4k"]["seq_len"]
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "seq_len": seq,
+           "batch": TRAIN_BATCH, "dtype": cfg.dtype,
+           "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                    "backend": "nccl"}}
+    rdv = nccl_group("mesh")
+    ck_dir = os.path.join(ROOT, "build", f"mesh-ckpt-{os.getpid()}")
+    try:
+        with expandable_segments():
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            params = init_params(cfg, TRAIN_SEED, device=dev)
+            batch = SyntheticLM(cfg.vocab_size, seq, TRAIN_BATCH,
+                                seed=TRAIN_SEED, device=dev).batch_at(0)
+            opt = adamw(TRAIN_LR, weight_decay=0.0)
+            step = make_train_step(cfg, opt)
+            p_sh = param_shardings(cfg, mesh)
+            dparams = place(params, p_sh)
+            dbatch = place(batch, batch_shardings(mesh, batch))
+
+            def plain():
+                return step(params, opt.init(params), batch)
+
+            def sharded():
+                state = place(opt.init(params),
+                              opt_state_shardings(p_sh, mesh))
+                return step(dparams, state, dbatch)
+
+            times = {}
+            for name, fn in (("plain", plain), ("dtensor", sharded)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = []
+                for _ in range(MESH_STEPS + 1):
+                    t0 = time.perf_counter()
+                    res = fn()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                times[name] = {"step_ms": ms,
+                               "step_ms_median": float(np.median(ms[1:])),
+                               "peak_bytes":
+                                   torch.cuda.max_memory_allocated()}
+                if name == "plain":
+                    p1, s1, m1 = res
+                else:
+                    dp1, ds1, dm1 = res
+                del res
+            out["steps"] = times
+            loss_p = float(m1["loss"])
+            loss_d = float(gather({"l": dm1["loss"]})["l"])
+            loss_rel = abs(loss_d - loss_p) / max(abs(loss_p), 1e-30)
+            out["loss"] = {"plain": loss_p, "dtensor": loss_d,
+                           "rel_err": loss_rel}
+            check(math.isfinite(loss_p) and loss_rel <= 1e-6,
+                  f"DTensor loss {loss_d} vs plain {loss_p}")
+            full_p, full_s = gather(dp1), gather(ds1)
+            worst = 0.0
+            for (path, a), (_, b) in zip(lm_leaves(full_p), lm_leaves(p1)):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"param {path}: {a.dtype}{tuple(a.shape)}")
+                if not torch.equal(a, b):
+                    rel = float(((a.float() - b.float()).abs().max())
+                                / b.float().abs().max().clamp(min=1e-30))
+                    worst = max(worst, rel)
+            for tree_a, tree_b in ((full_s.mu, s1.mu), (full_s.nu, s1.nu)):
+                for (path, a), (_, b) in zip(lm_leaves(tree_a),
+                                             lm_leaves(tree_b)):
+                    if not torch.equal(a, b):
+                        rel = float((a - b).abs().max()
+                                    / b.abs().max().clamp(min=1e-30))
+                        worst = max(worst, rel)
+            out["update_max_rel_err"] = worst
+            out["bit_equal"] = worst == 0.0 and loss_rel == 0.0
+            check(worst <= 1e-6, f"DTensor step's parameters or moments "
+                  f"differ from the plain step's: max rel err {worst}")
+            del full_s
+
+            # SketchDP over the mesh's data axis
+            n = sum(x.numel() for _, x in lm_leaves(params))
+            m = n // 20
+            grad_fn = make_sketchdp_grad_fn(
+                lambda p, b: loss_fn(cfg, p, b), m, mesh=mesh,
+                method="threshold")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp_loss, mean, ef = grad_fn(params, batch, init_ef_state(params),
+                                        0)
+            torch.cuda.synchronize()
+            dp_ms = (time.perf_counter() - t0) * 1e3
+            finite = all(bool(torch.isfinite(g).all())
+                         for _, g in lm_leaves(mean))
+            check(math.isfinite(float(dp_loss)) and finite,
+                  "SketchDP over the mesh: loss or gradient not finite")
+            out["sketchdp"] = {"m": m, "n": n, "loss": float(dp_loss),
+                               "step_ms": dp_ms,
+                               "group_size": mesh.get_group(
+                                   "data").size()}
+            del mean, ef
+
+            # sharded checkpoint, restored onto the plain tree
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            ck = Checkpointer(ck_dir, keep=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(1, {"params": dp1, "opt_state": ds1})
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_step, back = ck.restore({"params": p1, "opt_state": s1})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            with open(os.path.join(ck_dir, "step_00000001",
+                                   "manifest.json")) as f:
+                shards = sum(len(e["shards"]) for e in
+                             json.load(f)["leaves"])
+            check(got_step == 1, f"restored step {got_step}")
+            for tree_a, tree_b in ((back["params"], full_p),
+                                   (back["opt_state"].mu, gather(ds1.mu)),
+                                   (back["opt_state"].nu, gather(ds1.nu))):
+                for (path, a), (_, b) in zip(lm_leaves(tree_a),
+                                             lm_leaves(tree_b)):
+                    check(type(a) is torch.Tensor and a.device == b.device
+                          and torch.equal(a, b),
+                          f"restored {path} differs from the saved DTensor")
+            out["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                                 "shard_files": shards, "bit_equal": True}
+            del back, dp1, ds1, p1, s1, full_p, dparams, params
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(rdv):
+            os.remove(rdv)
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        free_card()
+    return out
+
+
+def dryrun_path(dev) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS``
+    in its own process (the fake group of 256 / 512 ranks cannot share a
+    process with an NCCL group), all started together, on the card by
+    default (fake tensors, no allocation): each record's ``status`` ok,
+    its roofline terms > 0, 0 < useful-FLOPs ratio <= 1, the FLOPs
+    counted on rank 0 times the ranks >= 0.99 x the model FLOPs, the
+    parameter bytes a device times the ranks >= the config's parameter
+    bytes; each cell's summary line, wall seconds and ``MemTracker`` peak
+    beside the card's memory."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.launch.dryrun import _apply_overrides, format_summary
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    out_dir = os.path.join(ROOT, "build", f"dryrun-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    procs = []
+    try:
+        for arch, shape, mesh, over in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", out_dir]
+            for o in over:
+                cmd += ["--override", o]
+            procs.append((arch, shape, mesh, over, time.perf_counter(),
+                          subprocess.Popen(
+                              cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "PYTHONPATH": SRC})))
+        cells = []
+        for arch, shape, mesh, over, t0, proc in procs:
+            try:
+                so, se = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"dryrun {arch} {shape} exited {proc.returncode}: "
+                  f"{so[-1500:]} {se[-3000:]}")
+            mesh_name = "pod2x16x16" if mesh == "multi" else "pod16x16"
+            with open(os.path.join(out_dir, f"{arch}__{shape}__"
+                                   f"{mesh_name}.json")) as f:
+                rec = json.load(f)
+            r = rec["roofline"]
+            cfg = _apply_overrides(lm_config(arch), over)
+            cfg_bytes = cfg.param_count() * 2
+            check(rec["status"] == "ok", f"dryrun {arch}: {rec['status']}")
+            check(min(r["compute_s"], r["memory_s"],
+                      r["collective_s"]) > 0, f"dryrun {arch}: {r}")
+            check(0 < r["useful_flops_ratio"] <= 1,
+                  f"dryrun {arch}: useful {r['useful_flops_ratio']}")
+            check(rec["cost_analysis_raw"]["flops_global"]
+                  >= 0.99 * r["model_flops_global"],
+                  f"dryrun {arch}: counted FLOPs "
+                  f"{rec['cost_analysis_raw']['flops_global']} < 0.99 x "
+                  f"{r['model_flops_global']}")
+            check(rec["param_bytes_per_dev"] * r["chips"] >= cfg_bytes,
+                  f"dryrun {arch}: {rec['param_bytes_per_dev']} x "
+                  f"{r['chips']} < {cfg_bytes}")
+            check(rec["device"] == "cuda", f"dryrun {arch} ran on "
+                  f"{rec['device']}")
+            peak = rec["memory_analysis"]["peak_bytes"]
+            cells.append({
+                "arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "overrides": list(over), "summary": format_summary(rec),
+                "wall_s": wall, "trace_s": rec["lower_s"],
+                "microbatches": rec.get("microbatches"),
+                "memtracker_peak_bytes": peak,
+                "memory_analysis": rec["memory_analysis"],
+                "card_bytes": card_bytes, "peak_over_card": peak / card_bytes,
+                "param_bytes_per_dev": rec["param_bytes_per_dev"],
+                "config_param_bytes": cfg_bytes,
+                "flops_dev_counted": rec["cost_analysis_raw"]["flops"],
+                "collectives": rec["collectives"],
+                "largest_collectives": rec["largest_collectives"],
+                "roofline": r,
+                "analytic": rec["analytic"]})
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"cells": cells}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1955,6 +2235,43 @@ def main() -> None:
               "python -m repro_torch.launch.serve --arch gemma2-2b exits 0 "
               "with 4 requests served"],
           "launches": launches["serve_path"]})
+
+    # ------------------------------------------------------------- mesh path
+    # (after the serve path, on the card it freed)
+    mesh_out, launches["mesh_path"] = run_path(kernels,
+                                               lambda: mesh_path(dev))
+    for kname in ("hash_rank", "radix_select"):
+        check(launches["mesh_path"][kname] > 0,
+              f"{kname} never launched on the mesh path: "
+              f"{launches['mesh_path']}")
+    emit({"phase": "mesh_path", **mesh_out,
+          "train_path_dense_step_ms": trp["dense"]["step_ms_median"],
+          "nvidia_smi": smi_line, "gates_passed": [
+              "one AdamW step of gemma2-2b (depth 2, 2 x 4096 tokens, "
+              "bfloat16) on DTensors over a (1, 1) NCCL mesh: the loss "
+              "and every updated parameter and moment within a relative "
+              "1e-6 of the plain step's (bit-equal reported)",
+              "SketchDP over the mesh's data axis, m = n / 20: loss and "
+              "gradient finite; B3 and B2 launched",
+              "the sharded checkpoint of the DTensor step restored onto "
+              "the plain tree bit-equal"],
+          "launches": launches["mesh_path"]})
+
+    # ----------------------------------------------------------- dryrun path
+    t0 = time.perf_counter()
+    dry_out = dryrun_path(dev)
+    dry_out["seconds"] = time.perf_counter() - t0
+    for cell in dry_out["cells"]:
+        print(cell["summary"], f"| wall {cell['wall_s']:.1f} s | "
+              f"MemTracker peak {cell['memtracker_peak_bytes'] / 2**30:.1f}"
+              f" GiB of {cell['card_bytes'] / 2**30:.1f} GiB", flush=True)
+    emit({"phase": "dryrun_path", **dry_out, "nvidia_smi": smi_line,
+          "gates_passed": [
+              "each cell: status ok; compute, memory and collective terms "
+              "> 0; 0 < useful-FLOPs ratio <= 1; FLOPs counted on rank 0 "
+              "times the ranks >= 0.99 x the model FLOPs; parameter bytes "
+              "a device times the ranks >= the config's parameter bytes; "
+              "traced on the card (fake tensors)"]})
 
 
     # the discovery corpus's columns (host numpy; the join-correlation

@@ -1,8 +1,9 @@
 """Distributed runtime: partitioned (map-reduce) sketch construction, on
 one host and as one ``torch.distributed`` program with a partition a
 rank, and SketchDP, sketch-based gradient compression for data-parallel
-training.  The parameter sharding rules (``repro.distributed.sharding``)
-are a later slice of the port."""
+training (on a ``DeviceMesh``'s data-parallel axes or a group).  The LM
+sharding rules and their DTensor placements are
+``distributed.sharding``."""
 from .grad_compress import (compression_ratio, densify_matrix_mean,
                             densify_mean, init_ef_state,
                             make_sketchdp_grad_fn, matrix_compression_ratio,

@@ -18,9 +18,11 @@ coordinate in both packages.  The sketches go through the linear-time
 build (``backend="kernel"``, the reference's ``"pallas"``): the threshold
 build runs B3 and B2, the priority build B1 and B2.
 
-The reference runs the step under ``shard_map`` over a mesh; here each
-rank of a ``torch.distributed`` group calls the step on its own shard of
-the batch, and the gather is ``all_gather_into_tensor``.
+The reference runs the step under ``shard_map`` over a mesh's
+data-parallel axes; here each rank of a ``torch.distributed`` group (a
+``DeviceMesh``'s axes ``axes``, or ``group=``) calls the step on its own
+shard of the batch with its own (replicated) parameters, and the gather
+is ``all_gather_into_tensor``.
 """
 from __future__ import annotations
 
@@ -103,15 +105,29 @@ def step_seed(step) -> int:
     return (0x5EED + int(step)) & 0xFFFFFFFF
 
 
+def _dp_group(mesh, axes: tuple):
+    """The process group over ``mesh``'s axes ``axes`` (those it has):
+    the ranks that share this rank's coordinates on every other axis."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in axes if a in names)
+    if not axes:
+        raise ValueError(f"the mesh {names} has none of the axes {axes}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
 def make_sketchdp_grad_fn(loss_fn: Callable, m: int, *,
                           method: str = "threshold",
-                          error_feedback: bool = True, group=None,
+                          error_feedback: bool = True, mesh=None,
+                          axes: tuple = ("data",), group=None,
                           on_stage: Optional[Callable[[str, dict], None]]
                           = None
                           ) -> Callable:
-    """Builds grad_fn(params, batch, ef_state, step) ->
-    (loss, mean_grads, new_ef_state) for one rank of ``group`` (default
-    the default process group).
+    """grad_fn(params, batch, ef_state, step) -> (loss, mean_grads,
+    new_ef_state) for one rank of ``group``: by default the data-parallel
+    axes ``axes`` of ``mesh`` (a ``DeviceMesh``; the reference's ``mesh``
+    and ``axes``) when one is given, else the default process group.
 
     ``batch`` is this rank's shard of the global batch; ``ef_state`` its
     own (n,) residual (:func:`init_ef_state`).  The only communication is
@@ -123,6 +139,8 @@ def make_sketchdp_grad_fn(loss_fn: Callable, m: int, *,
     plus the residual in, which the residual then overwrites; ``sketch``:
     ``idx``, ``val``, ``tau``): a hook for timing and checking."""
     from repro_torch.train.loop import value_and_grad
+    if mesh is not None and group is None:
+        group = _dp_group(mesh, axes)
     mark = on_stage or (lambda name, tensors: None)
 
     def grad_fn(params, batch, ef_state, step):
@@ -159,7 +177,10 @@ def make_sketchdp_grad_fn(loss_fn: Callable, m: int, *,
 
 def init_ef_state(params) -> torch.Tensor:
     """A rank's error-feedback residual: zeros over the flat parameter
-    vector, float32, on the parameters' device."""
+    vector, float32, on the parameters' device.  (The reference's
+    ``init_ef_state(mesh, params, axes)`` makes the W ranks' residuals as
+    one (W n,) array over the data-parallel axes; each rank here holds
+    its own, which needs no mesh.)"""
     pl = param_leaves(params)
     n = sum(x.numel() for _, x in pl)
     return torch.zeros((n,), dtype=torch.float32, device=pl[0][1].device)

@@ -6,13 +6,15 @@ parameter and state trees."""
 from .convert import (flatten_params, params_from_reference,
                       params_to_reference, state_from_reference,
                       state_to_reference, unflatten_params)
-from .model import decode_fn, init_decode_state, loss_fn, prefill_fn
-from .transformer import ParamSpec, init_params, param_specs
+from .model import (decode_fn, decode_state_specs, init_decode_state,
+                    loss_fn, make_batch_specs, prefill_fn)
+from .transformer import ParamSpec, init_params, param_shapes, param_specs
 from .tree import param_leaves
 
 __all__ = [
-    "decode_fn", "init_decode_state", "loss_fn", "prefill_fn", "ParamSpec",
-    "init_params", "param_specs", "flatten_params", "param_leaves",
+    "decode_fn", "decode_state_specs", "init_decode_state", "loss_fn",
+    "make_batch_specs", "prefill_fn", "ParamSpec", "init_params",
+    "param_shapes", "param_specs", "flatten_params", "param_leaves",
     "params_from_reference", "params_to_reference", "state_from_reference",
     "state_to_reference", "unflatten_params",
 ]

@@ -13,11 +13,14 @@ and is not used.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import dt
 
 NEG_INF = -1e30
 
@@ -108,9 +111,12 @@ def project_qkv(p, x: torch.Tensor):
     B, S, d = x.shape
     H, dh = p["wq"].shape[1:]
     K = p["wk"].shape[1]
-    q = (x @ p["wq"].reshape(d, H * dh)).reshape(B, S, K, H // K, dh)
-    k = (x @ p["wk"].reshape(d, K * dh)).reshape(B, S, K, dh)
-    v = (x @ p["wv"].reshape(d, K * dh)).reshape(B, S, K, dh)
+    # (on a DTensor, heads the mesh splits unevenly into K groups are
+    # gathered first)
+    q = dt.split_guard(x @ dt.merged(p["wq"], 1), K).reshape(
+        B, S, K, H // K, dh)
+    k = dt.split_guard(x @ dt.merged(p["wk"], 1), K).reshape(B, S, K, dh)
+    v = dt.split_guard(x @ dt.merged(p["wv"], 1), K).reshape(B, S, K, dh)
     return q, k, v
 
 
@@ -195,24 +201,32 @@ def attention_train(p, x: torch.Tensor, *, positions: torch.Tensor,
                     causal: bool, window: int, rope_theta: float, cap: float,
                     q_block: int, kv_block: int,
                     kv_override=None) -> torch.Tensor:
-    """Full-sequence attention (training).  ``positions``: (S,).
+    """Full-sequence attention (training).  ``positions``: (S,), the
+    positions ``0 .. S - 1`` (every caller's; the tile skipping takes the
+    first as 0 rather than reading the tensor).
     ``kv_override`` supplies precomputed ``(k, v, k_positions)`` for cross
     attention: no RoPE on those keys, key positions from 0 (the
     reference's ``k_positions`` is unused)."""
     q, k, v = project_qkv(p, x)
     if kv_override is not None:
         k, v, _ = kv_override
+    K = k.shape[2]
     if rope_theta:
-        q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
-                 rope_theta).reshape(q.shape)
+        q = rope(dt.grad_unshard(q.reshape(q.shape[:2] + (-1, q.shape[-1])),
+                                 2, K),
+                 positions, rope_theta).reshape(q.shape)
         if kv_override is None:
             k = rope(k, positions, rope_theta)
-    out = chunked_attention(q, k, v, causal=causal, window=window,
-                            q_pos0=int(positions[0]), k_pos0=0,
-                            q_block=q_block, kv_block=kv_block, cap=cap)
+    # the tiles on each rank's rows (and kv heads, where the mesh divides
+    # them)
+    out = dt.batch_local(functools.partial(
+        chunked_attention, causal=causal, window=window, q_pos0=0,
+        k_pos0=0, q_block=q_block, kv_block=kv_block, cap=cap),
+        "kkk", "k", q, k, v)
     B, S = x.shape[:2]
     wo = p["wo"]
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return (dt.grad_unshard(out.reshape(B, S, -1), 2, K)
+            @ dt.merged(wo, 0))
 
 
 # ----------------------------------------------------------------------------
@@ -251,9 +265,9 @@ def attention_decode(p, x1: torch.Tensor, cache, *, pos: torch.Tensor,
         k = rope(k, posv, rope_theta)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     slot = (posv % ck.shape[1]).to(torch.int64)
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
-    cpos.index_copy_(1, slot, posv.to(torch.int32).expand(B, 1))
+    dt.ring_write_(ck, 1, slot, k.to(ck.dtype))
+    dt.ring_write_(cv, 1, slot, v.to(cv.dtype))
+    dt.ring_write_(cpos, 1, slot, posv.to(torch.int32).expand(B, 1))
     scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
     # (B, K, G, 1, dh) x (B, K, 1, dh, C) -> (B, K, G, 1, C)
     s = torch.matmul(q.to(torch.float32).permute(0, 2, 3, 1, 4),
@@ -264,8 +278,12 @@ def attention_decode(p, x1: torch.Tensor, cache, *, pos: torch.Tensor,
     if window:
         valid &= cpos > pos - window
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)[:, :, None])
+    if dt.shard_count(s, -1) > 1:
+        out = dt.split_softmax_values(s, cv)
+    else:
+        pr = torch.softmax(s, dim=-1)
+        out = torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)
+                           [:, :, None])
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, K * G * dh).to(x1.dtype)
     wo = p["wo"]
     return out @ wo.reshape(-1, wo.shape[-1]), cache

@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from . import layers, rglru, ssm
+from . import dt, layers, rglru, ssm
 from .transformer import (_apply_ffn, _unstack, apply_backbone, cross_kv,
                           embed_tokens, encode, lm_loss, logits_last,
                           param_dtype)
@@ -38,6 +38,11 @@ def loss_fn(cfg: ModelConfig, params, batch) -> tuple[torch.Tensor, dict]:
     encoder-decoder, ``image_embeds`` (B, vision_tokens, d) for the VLM,
     whose image positions leave the loss) under ``params``, plus 0.01
     times the MoE load-balancing loss: (total, {"ce_loss", "aux_loss"})."""
+    with dt.scope(params, batch):
+        return _loss(cfg, params, batch)
+
+
+def _loss(cfg: ModelConfig, params, batch):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_out = None
@@ -98,7 +103,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     sequences of up to ``seq_len`` positions on ``device`` (default
     ``cuda``).  Every stacked leaf is allocated whole: no group shares
     storage with another, so an in-place write lands in one group."""
-    dev = resolve_device(device)
+    return _decode_state(cfg, batch, seq_len, enc_len, resolve_device(device))
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """The decode state's leaves as ``meta`` tensors (shapes and dtypes,
+    no allocation)."""
+    return _decode_state(cfg, batch, seq_len, 0, torch.device("meta"))
+
+
+def _decode_state(cfg: ModelConfig, batch: int, seq_len: int, enc_len: int,
+                  dev) -> dict:
     dtype = param_dtype(cfg)
     lead = (cfg.n_groups,)
     state: dict = {
@@ -128,6 +143,34 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     return state
 
 
+def make_batch_specs(cfg: ModelConfig, kind: str, seq_len: int,
+                     global_batch: int) -> dict:
+    """A cell's batch as ``meta`` tensors (the reference's
+    ``ShapeDtypeStruct`` stand-ins)."""
+    B, S = global_batch, seq_len
+    i32 = torch.int32
+    dt_ = param_dtype(cfg)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "train":
+        batch = {"tokens": spec((B, S), i32), "labels": spec((B, S), i32),
+                 "mask": spec((B, S), torch.float32)}
+    elif kind == "prefill":
+        batch = {"tokens": spec((B, S), i32)}
+    elif kind == "decode":
+        batch = {"token": spec((B, 1), i32)}
+    else:
+        raise ValueError(kind)
+    if cfg.vision_tokens and kind in ("train", "prefill"):
+        batch["image_embeds"] = spec((B, cfg.vision_tokens, cfg.d_model), dt_)
+    if cfg.is_encdec and kind in ("train", "prefill"):
+        batch["frames"] = spec((B, max(S // cfg.enc_ratio, 1), cfg.d_model),
+                               dt_)
+    return batch
+
+
 def _write(cache: dict, new: dict) -> None:
     """Copy a block's new recurrent state into its slice of the state."""
     for k, v in new.items():
@@ -152,21 +195,30 @@ def _cross_decode(p_cross, x1, ck, cv):
     B, S, d = x1.shape
     H, dh = p_cross["wq"].shape[1:]
     K = ck.shape[2]
-    q = (x1 @ p_cross["wq"].reshape(d, H * dh)).reshape(B, S, K, H // K, dh)
+    q = dt.split_guard(x1 @ p_cross["wq"].reshape(d, H * dh), K).reshape(
+        B, S, K, H // K, dh)
+    out = dt.batch_local(_cross_scores, "kkk", "k", q, ck, cv)
+    wo = p_cross["wo"]
+    return out.to(x1.dtype) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _cross_scores(q, ck, cv):
+    """q (B, S, K, G, dh) over ck / cv (B, Se, K, dh) -> (B, S, K G dh)
+    float32."""
+    B, S, K, G, dh = q.shape
     root = float(torch.sqrt(torch.tensor(float(dh), dtype=torch.float32)))
     s = torch.matmul(q.to(torch.float32).permute(0, 2, 3, 1, 4),
                      ck.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]
                      ) / root                                   # (B,K,G,S,Se)
     pr = torch.softmax(s, dim=-1)
     out = torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)[:, :, None])
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * dh).to(x1.dtype)
-    wo = p_cross["wo"]
-    return out @ wo.reshape(-1, wo.shape[-1])
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, K * G * dh)
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, cache, x1, pos, cross_ctx):
     """One block on one token; ``cache`` (the block's slice of the state)
     is written in place.  -> x."""
+    x1 = dt.pin_batch(x1)
     h = layers.rms_norm(x1, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else 0
@@ -185,10 +237,11 @@ def block_decode(cfg: ModelConfig, kind: str, p, cache, x1, pos, cross_ctx):
         _write(cache, {"conv": conv, "h": hn})
     else:
         raise ValueError(kind)
-    x = x1 + y
+    x = x1 + dt.pin_batch(y)
     if cfg.is_encdec and cross_ctx is not None:
         h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + _cross_decode(p["cross"], h, cross_ctx["k"], cross_ctx["v"])
+        x = x + dt.pin_batch(_cross_decode(p["cross"], h, cross_ctx["k"],
+                                           cross_ctx["v"]))
     x, _ = _apply_ffn(cfg, p, x)
     return x
 
@@ -204,7 +257,8 @@ def decode_fn(cfg: ModelConfig):
     computed from the tensor."""
 
     def serve_step(params, state, token):
-        with torch.inference_mode():
+        with dt.no_grad_scope(params, state, token), \
+                dt.scope(params, state, token):
             pos = state["pos"]
             n = cfg.n_groups
             x = embed_tokens(cfg, params, token)
@@ -241,24 +295,29 @@ def _attn_prefill_cache(p, h, positions, rope_theta: float, cache) -> None:
     horizon) for a local one."""
     B, S, d = h.shape
     K, dh = p["wk"].shape[1:]
-    k = (h @ p["wk"].reshape(d, K * dh)).reshape(B, S, K, dh)
-    v = (h @ p["wv"].reshape(d, K * dh)).reshape(B, S, K, dh)
+    k = dt.split_guard(h @ p["wk"].reshape(d, K * dh), K).reshape(
+        B, S, K, dh)
+    v = dt.split_guard(h @ p["wv"].reshape(d, K * dh), K).reshape(
+        B, S, K, dh)
     if rope_theta:
         k = layers.rope(k, positions, rope_theta)
     C = cache["k"].shape[1]
     take = min(C, S)
     pos_tail = positions[S - take:]
     slots = pos_tail % C
-    cache["k"].index_copy_(1, slots, k[:, S - take:].to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v[:, S - take:].to(cache["v"].dtype))
-    cache["pos"].index_copy_(1, slots,
-                             pos_tail.to(torch.int32).expand(B, take))
+    dt.ring_write_(cache["k"], 1, slots,
+                   k[:, S - take:].to(cache["k"].dtype))
+    dt.ring_write_(cache["v"], 1, slots,
+                   v[:, S - take:].to(cache["v"].dtype))
+    dt.ring_write_(cache["pos"], 1, slots,
+                   pos_tail.to(torch.int32).expand(B, take))
 
 
 def block_prefill(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
                   cache, cross_cache):
     """One block over the prompt, its caches (its slices of the state)
     filled in place.  -> x."""
+    x = dt.pin_batch(x)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else 0
@@ -277,14 +336,14 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
         _write(cache, {"conv": conv, "h": hl})
     else:
         raise ValueError(kind)
-    x = x + y
+    x = x + dt.pin_batch(y)
     if cfg.is_encdec and enc_out is not None:
         hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
         kx, vx = cross_kv(p["cross"], enc_out)
-        x = x + layers.attention_train(
+        x = x + dt.pin_batch(layers.attention_train(
             p["cross"], hx, positions=positions, causal=False, window=0,
             rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
-            kv_block=cfg.attn_kv_block, kv_override=(kx, vx, None))
+            kv_block=cfg.attn_kv_block, kv_override=(kx, vx, None)))
         _write(cross_cache, {"k": kx, "v": vx})
     x, _ = _apply_ffn(cfg, p, x)
     return x
@@ -301,7 +360,7 @@ def prefill_fn(cfg: ModelConfig, max_len: int | None = None):
     positions, as the reference's does."""
 
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        with dt.no_grad_scope(params, batch), dt.scope(params, batch):
             tokens = batch["tokens"]
             B, S = tokens.shape
             dev = tokens.device
@@ -313,6 +372,12 @@ def prefill_fn(cfg: ModelConfig, max_len: int | None = None):
             state = init_decode_state(
                 cfg, B, max_len or S,
                 enc_out.shape[1] if enc_out is not None else 0, device=dev)
+            mesh = dt.mesh_of(params)
+            if mesh is not None:
+                # laid out as the parameters' mesh's rules say
+                from repro_torch.distributed.sharding import (
+                    decode_state_shardings, place)
+                state = place(state, decode_state_shardings(cfg, mesh, B))
             x = embed_tokens(cfg, params, tokens, batch.get("image_embeds"))
             cross = state.get("cross", {})
             for gp, gc, gx in zip(_unstack(params["groups"], n),

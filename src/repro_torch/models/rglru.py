@@ -19,14 +19,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import dt
 from .ssm import causal_conv1d
 
 _C = 8.0
 
 
 def _gates(p, u):
-    r = torch.sigmoid(u @ p["w_r"])
-    i = torch.sigmoid(u @ p["w_i"])
+    r_in, i_in = dt.keep_layout(u @ p["w_r"], u @ p["w_i"])
+    r = torch.sigmoid(r_in)
+    i = torch.sigmoid(i_in)
     log_a = (-_C * F.softplus(p["lam"].to(torch.float32))
              * r.to(torch.float32))
     a = torch.exp(log_a)
@@ -80,7 +82,8 @@ def rglru_scan(p, u: torch.Tensor, h0=None):
         # fold the initial state into the first element
         b = torch.cat([b[:, :1] + a[:, :1] * h0.to(torch.float32)[:, None],
                        b[:, 1:]], dim=1)
-    _, h = linear_scan(a, b)
+    # a rank scans its rows and channels
+    _, h = dt.batch_local(linear_scan, "cc", "cc", a, b)
     return h.to(u.dtype), h[:, -1]
 
 
@@ -94,7 +97,7 @@ def rglru_step(p, u1: torch.Tensor, h):
 def _in_and_gate(p, x):
     u = x @ p["w_x"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    return u, gate
+    return dt.keep_layout(u, gate)
 
 
 def recurrent_block_train(p, x: torch.Tensor, *, conv_state=None, h0=None):

@@ -22,14 +22,23 @@ chunk is this form's oracle.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from . import dt as dt_mod
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
     """Depthwise causal conv.  x: (B, L, D); w: (K, D).  ``state``
     ((B, K-1, D), the trailing inputs of the previous segment) prefixes
-    the input when given.  Returns (y, new_state)."""
+    the input when given.  Returns (y, new_state).  On DTensors each rank
+    convolves its rows and channels."""
+    return dt_mod.batch_local(_conv, "cmc", "cc", x, w, state)
+
+
+def _conv(x, w, state):
     K = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
@@ -49,7 +58,7 @@ def _project(p, x):
     Bm = x @ p["w_b"]           # (B, L, N)
     Cm = x @ p["w_c"]
     dt = x @ p["w_dt"]          # (B, L, H)
-    return z, xs, Bm, Cm, dt
+    return dt_mod.keep_layout(z, xs, Bm, Cm, dt)
 
 
 def _gated_norm(p, y, z, dtype):
@@ -68,20 +77,13 @@ def _conv_silu(p, xs, Bm, Cm, state):
             {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c})
 
 
-def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
-              headdim: int, chunk: int, state=None):
-    """x: (B, L, d) -> (y (B, L, d), new_state dict).
-
-    ``state`` = {"conv_x", "conv_b", "conv_c", "ssm"} for segment-wise
-    prefill; the final states are returned for the decode handoff."""
-    B, L, _ = x.shape
-    H = d_inner // headdim
-    state = state or {}
-    z, xs, Bm, Cm, dt = _project(p, x)
-    xs, Bm, Cm, new_state = _conv_silu(p, xs, Bm, Cm, state)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["a_log"].to(torch.float32))                # (H,) < 0
-
+def _ssd_chunks(xs, Bm, Cm, dt, A, d_skip, h, *, chunk: int, n_state: int,
+                headdim: int, dtype):
+    """The chunked SSD over (B, L, ...) inputs from state ``h`` (None:
+    zeros) -> (y (B, L, d_inner) in ``dtype``, final state).  The heads
+    are those of ``dt`` (a rank's own on DTensors)."""
+    B, L, d_inner = xs.shape
+    H = dt.shape[-1]
     Q = min(chunk, L)
     assert L % Q == 0
     nc = L // Q
@@ -96,7 +98,7 @@ def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
     # --- intra-chunk (quadratic), the decay masked before exp ---
     CB = Cc @ Bc.transpose(-1, -2)                              # (B,nc,Q,Q)
     diff = cum[..., :, None] - cum[..., None, :]                # (B,nc,H,Q,Q)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
     decay = torch.exp(torch.where(tri, diff, float("-inf")))
     scores = CB[:, :, None] * decay * dtc[..., None, :]
     y_intra = scores @ xh                                       # (B,nc,H,Q,P)
@@ -107,10 +109,9 @@ def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
                @ (w[..., None] * xh))                           # (B,nc,H,N,P)
 
     # --- inter-chunk carry ---
-    h = state.get("ssm")
     if h is None:
         h = torch.zeros((B, H, n_state, headdim), dtype=torch.float32,
-                        device=x.device)
+                        device=xs.device)
     decay_c = torch.exp(total)
     y_inter = []
     for c in range(nc):
@@ -120,33 +121,63 @@ def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
     y_inter = torch.stack(y_inter, dim=1)
 
     y = (y_intra + y_inter
-         + p["d_skip"].to(torch.float32)[:, None, None] * xh)
-    y = y.transpose(2, 3).reshape(B, L, d_inner).to(x.dtype)
+         + d_skip.to(torch.float32)[:, None, None] * xh)
+    y = y.transpose(2, 3).reshape(B, L, d_inner).to(dtype)
+    return y, h
+
+
+def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
+              headdim: int, chunk: int, state=None):
+    """x: (B, L, d) -> (y (B, L, d), new_state dict).
+
+    ``state`` = {"conv_x", "conv_b", "conv_c", "ssm"} for segment-wise
+    prefill; the final states are returned for the decode handoff."""
+    state = state or {}
+    z, xs, Bm, Cm, dt = _project(p, x)
+    xs, Bm, Cm, new_state = _conv_silu(p, xs, Bm, Cm, state)
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
+    A = -torch.exp(p["a_log"].to(torch.float32))                # (H,) < 0
+
+    # the chunk recurrence is independent along the batch and the heads:
+    # a rank runs it on its rows and heads
+    y, h = dt_mod.batch_local(
+        functools.partial(_ssd_chunks, chunk=chunk, n_state=n_state,
+                          headdim=headdim, dtype=x.dtype),
+        "cbbcmmh", "ch", xs, Bm, Cm, dt, A, p["d_skip"], state.get("ssm"))
     y = _gated_norm(p, y, z, x.dtype)
     out = y @ p["w_out"]
     new_state["ssm"] = h
     return out, new_state
 
 
-def ssd_decode(p, x1: torch.Tensor, state, *, d_inner: int, n_state: int,
-               headdim: int):
-    """One-token recurrent step.  x1: (B, 1, d)."""
-    B = x1.shape[0]
-    H = d_inner // headdim
-    z, xs, Bm, Cm, dt = _project(p, x1)
-    xs, Bm, Cm, new_state = _conv_silu(p, xs, Bm, Cm, state)
-    dt = F.softplus(dt.to(torch.float32)
-                    + p["dt_bias"].to(torch.float32))[:, 0]     # (B, H)
-    A = -torch.exp(p["a_log"].to(torch.float32))
+def _ssd_step(xs, Bm, Cm, dt, A, d_skip, ssm, *, headdim: int, dtype):
+    """One token's SSD update: xs (B, 1, d_inner), dt (B, H) -> (y
+    (B, 1, d_inner) in ``dtype``, new state (B, H, N, P))."""
+    B, _, d_inner = xs.shape
+    H = dt.shape[-1]
     xh = xs.reshape(B, H, headdim).to(torch.float32)
     Bv = Bm[:, 0].to(torch.float32)
     Cv = Cm[:, 0].to(torch.float32)
     decay = torch.exp(dt * A)                                   # (B, H)
     upd = dt[:, :, None, None] * Bv[:, None, :, None] * xh[:, :, None, :]
-    ssm = state["ssm"] * decay[:, :, None, None] + upd
+    ssm = ssm * decay[:, :, None, None] + upd
     y = ((Cv[:, None, None, :] @ ssm)[:, :, 0]
-         + p["d_skip"].to(torch.float32)[None, :, None] * xh)
-    y = y.reshape(B, 1, d_inner).to(x1.dtype)
+         + d_skip.to(torch.float32)[None, :, None] * xh)
+    y = y.reshape(B, 1, d_inner).to(dtype)
+    return y, ssm
+
+
+def ssd_decode(p, x1: torch.Tensor, state, *, d_inner: int, n_state: int,
+               headdim: int):
+    """One-token recurrent step.  x1: (B, 1, d)."""
+    z, xs, Bm, Cm, dt = _project(p, x1)
+    xs, Bm, Cm, new_state = _conv_silu(p, xs, Bm, Cm, state)
+    dt = F.softplus(dt.to(torch.float32)
+                    + p["dt_bias"].to(torch.float32))[:, 0]     # (B, H)
+    A = -torch.exp(p["a_log"].to(torch.float32))
+    y, ssm = dt_mod.batch_local(
+        functools.partial(_ssd_step, headdim=headdim, dtype=x1.dtype),
+        "cbbcmmh", "ch", xs, Bm, Cm, dt, A, p["d_skip"], state["ssm"])
     y = _gated_norm(p, y, z, x1.dtype)
     out = y @ p["w_out"]
     new_state["ssm"] = ssm

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
-from . import layers, moe, rglru, ssm
+from . import dt, layers, moe, rglru, ssm
 from .tree import param_leaves, tree_from_leaves, tree_map
 
 
@@ -209,6 +209,14 @@ def init_params(cfg: ModelConfig, generator, *, device=None) -> dict:
     return tree_from_leaves(out)
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors of the config dtype: shapes
+    and dtypes with no allocation (the dry run's stand-ins)."""
+    dtype = param_dtype(cfg)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), param_specs(cfg))
+
+
 # ----------------------------------------------------------------------------
 # Block application — train (full sequence)
 # ----------------------------------------------------------------------------
@@ -222,6 +230,10 @@ def _apply_ffn(cfg: ModelConfig, p, x, aux=None):
         return layers.activation(v, cfg.mlp_act)
 
     if "moe" in p:
+        if cfg.constrain_activations:
+            from repro_torch.distributed.sharding import \
+                constrain_batch_sharded
+            x = constrain_batch_sharded(x)
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         y, (logits, eids) = moe.moe_ffn(
             p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
@@ -232,10 +244,11 @@ def _apply_ffn(cfg: ModelConfig, p, x, aux=None):
         if aux is not None:
             aux = aux + moe.load_balancing_loss(logits, eids, cfg.n_experts,
                                                 cfg.top_k)
-        return x + y, aux
+        return x + dt.pin_batch(y), aux
     if "mlp" in p:
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + layers.mlp(p["mlp"], h, act=cfg.mlp_act, glu=cfg.glu), aux
+        return x + dt.pin_batch(layers.mlp(p["mlp"], h, act=cfg.mlp_act,
+                                           glu=cfg.glu)), aux
     return x, aux
 
 
@@ -244,8 +257,10 @@ def cross_kv(p_cross, enc_out):
     output (no RoPE)."""
     B, Se, d = enc_out.shape
     K, dh = p_cross["wk"].shape[1:]
-    kx = (enc_out @ p_cross["wk"].reshape(d, K * dh)).reshape(B, Se, K, dh)
-    vx = (enc_out @ p_cross["wv"].reshape(d, K * dh)).reshape(B, Se, K, dh)
+    kx = dt.split_guard(enc_out @ dt.merged(p_cross["wk"], 1), K).reshape(
+        B, Se, K, dh)
+    vx = dt.split_guard(enc_out @ dt.merged(p_cross["wv"], 1), K).reshape(
+        B, Se, K, dh)
     return kx, vx
 
 
@@ -254,6 +269,7 @@ def block_train(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
     """One block over the full sequence: pre-norm mixer (attention, SSD
     or RG-LRU) with its residual, cross attention over ``enc_out`` (the
     encoder-decoder), the feed-forward.  -> (x, aux)."""
+    x = dt.pin_batch(x)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else 0
@@ -269,14 +285,14 @@ def block_train(cfg: ModelConfig, kind: str, p, x, positions, enc_out,
         y, _ = rglru.recurrent_block_train(p["rnn"], h)
     else:
         raise ValueError(kind)
-    x = x + y
+    x = x + dt.pin_batch(y)
     if cfg.is_encdec and enc_out is not None:
         h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
         kx, vx = cross_kv(p["cross"], enc_out)
-        x = x + layers.attention_train(
+        x = x + dt.pin_batch(layers.attention_train(
             p["cross"], h, positions=positions, causal=False, window=0,
             rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
-            kv_block=cfg.attn_kv_block, kv_override=(kx, vx, None))
+            kv_block=cfg.attn_kv_block, kv_override=(kx, vx, None)))
     return _apply_ffn(cfg, p, x, aux)
 
 
@@ -319,13 +335,15 @@ def encode(cfg: ModelConfig, params, frames):
     positions = torch.arange(Senc, device=frames.device)
 
     def enc_step(x, bp):
+        x = dt.pin_batch(x)
         h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        x = x + layers.attention_train(
+        x = x + dt.pin_batch(layers.attention_train(
             bp, h, positions=positions, causal=False, window=0,
             rope_theta=0.0, cap=0.0, q_block=cfg.attn_q_block,
-            kv_block=cfg.attn_kv_block)
+            kv_block=cfg.attn_kv_block))
         h = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + layers.mlp(bp["mlp"], h, act=cfg.mlp_act, glu=cfg.glu)
+        return x + dt.pin_batch(layers.mlp(bp["mlp"], h, act=cfg.mlp_act,
+                                           glu=cfg.glu))
 
     for bp in _unstack(params["enc"]["blocks"], cfg.enc_layers):
         x = (checkpoint(enc_step, x, bp, use_reentrant=False)
@@ -338,16 +356,23 @@ def encode(cfg: ModelConfig, params, frames):
 # ----------------------------------------------------------------------------
 
 
+def _lookup(table, ids):
+    return table[ids]
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens, image_embeds=None):
     """Token embeddings times sqrt(d_model), in the config dtype; for the
     VLM the first ``vision_tokens`` positions are ``image_embeds`` (B, P,
     d) through ``img_proj``."""
     dtype = param_dtype(cfg)
-    x = params["embed"][tokens.to(torch.int64)].to(dtype)
+    # (on DTensors each rank looks its rows' tokens up in the whole table,
+    # its gradient a pending sum over the ranks)
+    x = dt.batch_local(_lookup, "rb", "b", params["embed"],
+                       tokens.to(torch.int64)).to(dtype)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
     x = x * scale.to(dtype).to(x.device)
     if cfg.vision_tokens and image_embeds is not None:
-        proj = image_embeds.to(x.dtype) @ params["img_proj"]
+        proj = dt.keep_layout(image_embeds.to(x.dtype) @ params["img_proj"])
         x = torch.cat([proj, x[:, cfg.vision_tokens:]], dim=1)
     return x
 
@@ -378,15 +403,16 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
     cb = loss_chunk_len(cfg, B, S)
     maskf = mask.to(torch.float32)
     pad = Vp > cfg.vocab_size
-    vocab_ok = torch.arange(Vp, device=hidden.device) < cfg.vocab_size
+    vocab_ok = dt.aligned(W, torch.arange(Vp, device=hidden.device)
+                          < cfg.vocab_size, 1)
 
     def chunk(hc, lc, mc, W):
         logits = (hc @ W).to(torch.float32)
         logits = layers.softcap(logits, cfg.logit_softcap)
         if pad:
             logits = torch.where(vocab_ok, logits, layers.NEG_INF)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
+        logz = dt.logsumexp(logits, -1)
+        gold = dt.take_last(logits, lc.to(torch.int64))
         return torch.sum(mc * (logz - gold))
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)

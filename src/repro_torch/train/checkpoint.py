@@ -7,9 +7,14 @@ reference's on-disk layout:
 A leaf's key is its path in the tree joined with ``.``: dict keys as they
 are, a NamedTuple field as ``.<name>`` (so ``AdamWState.mu`` under
 ``opt_state`` is ``opt_state..mu``), a list index as its number, which is
-how ``jax.tree_util`` names them.  A tensor leaf is written as one shard
-covering the whole array (``index`` ``[[null, null], ...]``, as the
+how ``jax.tree_util`` names them.  A plain tensor leaf is written as one
+shard covering the whole array (``index`` ``[[null, null], ...]``, as the
 reference writes a one-device array); a numpy leaf has ``index`` null.
+A DTensor leaf (a tree laid out by ``distributed.sharding``) is written
+one file a distinct local shard, ``<leaf>.s<k>.npy`` with ``k`` the
+writing rank and ``index`` its ``[start, stop]`` a dim, by the ranks
+that hold it (one copy of a replicated shard); rank 0 writes the
+manifest once every rank's shards are on disk.
 bfloat16 has no numpy dtype here: its leaves are written as the raw
 16-bit payload (``<V2``, which is what ``np.save`` writes for the
 reference's ``ml_dtypes.bfloat16`` arrays) under the manifest dtype
@@ -19,8 +24,12 @@ reference's bfloat16 checkpoints and float32 ones cross both ways.
 Write path: copy the leaves to host memory synchronously, then a
 background thread writes ``step_<N>.tmp`` and renames it atomically, so a
 crash mid-write never corrupts the latest checkpoint; ``keep`` old steps
-are removed.  Restore rebuilds the tree of ``tree_like``, each leaf on
-that leaf's device.
+are removed; a tree holding DTensors is written synchronously (the ranks
+meet at barriers around the manifest).  Restore rebuilds the tree of
+``tree_like``, each leaf on that leaf's device, or laid out by
+``shardings`` (a tree of ``sharding.NamedSharding``): every rank reads
+the leaf whole and keeps its shard, so a checkpoint written on one mesh
+restores on a smaller or larger one.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models.dt import is_dt
 
 _RAW16 = np.dtype("V2")
 
@@ -67,6 +78,28 @@ def _rebuild(tree, leaves: list):
     return leaves.pop(0)
 
 
+def _local_shard(leaf):
+    """(local tensor, index [[start, stop], ...], whether this rank writes
+    it: the first holder of each distinct shard) of a DTensor."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = leaf.device_mesh, tuple(leaf.placements)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(leaf.shape), mesh, pl)
+    coord = mesh.get_coordinate()
+    writes = all(c == 0 for c, p in zip(coord, pl) if not p.is_shard())
+    index = [[int(o), int(o) + int(n)] for o, n in zip(offset, shape)]
+    return leaf.to_local(), index, writes
+
+
+def _host(t: torch.Tensor):
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(_RAW16), "bfloat16"
+    arr = t.cpu().numpy()
+    return arr, str(arr.dtype)
+
+
 def _to_host(leaf):
     """(array to write, manifest dtype, shard index)."""
     if isinstance(leaf, torch.Tensor):
@@ -95,6 +128,31 @@ def _save(path: str, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
+def _sharding_leaves(tree_like, shardings) -> list:
+    """``shardings``' leaves in ``tree_like``'s leaf order (a sharding in
+    place of a subtree applies to each of its leaves)."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    def walk(tree, sh):
+        if sh is None or isinstance(sh, NamedSharding):
+            return [sh] * len(_leaf_paths(tree))
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in walk(tree[k], sh[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v, s_ in zip(tree, sh) for x in walk(v, s_)]
+        return [sh]
+
+    return walk(tree_like, shardings)
+
+
+def _placed(t: torch.Tensor, sharding):
+    """``t`` (the whole leaf) laid out by ``sharding`` when given."""
+    if sharding is None:
+        return t
+    from repro_torch.distributed.sharding import place_leaf
+    return place_leaf(t.to(sharding.mesh.device_type), sharding)
+
+
 def _to_tensor(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
     dev = like.device if isinstance(like, torch.Tensor) else "cpu"
     if dtype == "bfloat16":
@@ -116,9 +174,14 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any) -> None:
-        """Snapshot to host memory synchronously; write to disk (async)."""
+        """Snapshot to host memory synchronously; write to disk (async; a
+        tree of DTensors synchronously, every rank calling)."""
+        paths = _leaf_paths(tree)
+        if any(is_dt(leaf) for _, leaf in paths):
+            self._save_sharded(step, paths)
+            return
         leaves = []
-        for key, leaf in _leaf_paths(tree):
+        for key, leaf in paths:
             arr, dtype, index = _to_host(leaf)
             leaves.append((key, list(arr.shape), dtype, [(index, arr)]))
         if self.async_save:
@@ -170,6 +233,50 @@ class Checkpointer:
         os.replace(tmp, final)
         self._gc()
 
+    def _save_sharded(self, step: int, paths) -> None:
+        """Each rank writes its distinct shards into ``step_<N>.tmp``; rank
+        0 gathers every rank's entries, writes the manifest and renames
+        the directory."""
+        import torch.distributed as dist
+        self.wait()
+        rank = dist.get_rank()
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        dist.barrier()
+        mine, meta = [], []
+        for key, leaf in paths:
+            if is_dt(leaf):
+                local, index, writes = _local_shard(leaf)
+                arr, dtype = _host(local)
+            else:
+                arr, dtype, index = _to_host(leaf)
+                writes = rank == 0
+            meta.append((key, list(leaf.shape), dtype))
+            if writes:
+                fname = f"{key}.s{rank}.npy"
+                _save(os.path.join(tmp, fname), arr, dtype)
+                mine.append((key, {"file": fname, "index": index}))
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, mine)
+        if rank == 0:
+            shards: dict = {}
+            for entries in everyone:
+                for key, shard in entries:
+                    shards.setdefault(key, []).append(shard)
+            manifest = {"step": step, "leaves": [
+                {"key": key, "shape": shape, "dtype": dtype,
+                 "shards": shards.get(key, [])}
+                for key, shape, dtype in meta]}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._gc()
+        dist.barrier()
+
     def _gc(self):
         steps = self.all_steps()
         for s in steps[: -self.keep] if self.keep else []:
@@ -191,11 +298,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like: Any, step: Optional[int] = None
-                ) -> tuple[int, Any]:
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Rebuild the tree of ``tree_like`` from checkpoint ``step``
         (default the latest): each leaf with the saved dtype and values, on
-        the device of ``tree_like``'s leaf (the CPU for a non-tensor)."""
+        the device of ``tree_like``'s leaf (the CPU for a non-tensor).
+        ``shardings`` (same structure, ``sharding.NamedSharding`` leaves
+        or None) lays a leaf out on its mesh, which may be smaller or
+        larger than the one that saved it (elastic restore)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -204,8 +314,11 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {e["key"]: e for e in manifest["leaves"]}
+        shard_flat = None
+        if shardings is not None:
+            shard_flat = _sharding_leaves(tree_like, shardings)
         out = []
-        for key, like in _leaf_paths(tree_like):
+        for i, (key, like) in enumerate(_leaf_paths(tree_like)):
             entry = by_key[key]
             raw = entry["dtype"] == "bfloat16"
             full = np.zeros(entry["shape"], _RAW16 if raw else entry["dtype"])
@@ -217,5 +330,6 @@ class Checkpointer:
                     full = arr
                 else:
                     full[tuple(slice(a, b) for a, b in sh["index"])] = arr
-            out.append(_to_tensor(full, entry["dtype"], like))
+            out.append(_placed(_to_tensor(full, entry["dtype"], like),
+                               shard_flat[i] if shard_flat else None))
         return step, _rebuild(tree_like, out)

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import dt
 from repro_torch.models import loss_fn as model_loss_fn
 from repro_torch.models.tree import param_leaves, tree_from_leaves, tree_map
 
@@ -33,11 +34,25 @@ def value_and_grad(loss_fn: Callable, params, batch):
     leaves = [x.detach().requires_grad_(True) for _, x in pl]
     tracked = tree_from_leaves([(path, x)
                                 for (path, _), x in zip(pl, leaves)])
-    loss, metrics = loss_fn(tracked, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    with dt.scope(params, batch):
+        loss, metrics = loss_fn(tracked, batch)
+        grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_from_leaves(
         [(path, g) for (path, _), g in zip(pl, grads)])
+
+
+def _microbatch(v, microbatches: int, i: int):
+    """Rows ``[i B / mb, (i + 1) B / mb)`` of a (B, ...) batch leaf.  A
+    DTensor batch is gathered along the batch, sliced, and laid out as it
+    was (its rows of a microbatch live on other ranks)."""
+    whole = dt.unshard(v, 0)
+    mb = whole.reshape((microbatches, v.shape[0] // microbatches)
+                       + tuple(v.shape[1:]))[i]
+    if dt.is_dt(v):
+        from repro_torch.distributed.sharding import constrain_batch_sharded
+        mb = constrain_batch_sharded(mb)
+    return mb
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
@@ -49,11 +64,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
             return loss, metrics, grads
-        mbs = [{k: v.reshape((microbatches, v.shape[0] // microbatches)
-                             + tuple(v.shape[1:]))[i]
-                for k, v in batch.items()} for i in range(microbatches)]
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        mbs = [{k: _microbatch(v, microbatches, i) for k, v in batch.items()}
+               for i in range(microbatches)]
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         loss = torch.zeros((), dtype=torch.float32,
                            device=next(iter(batch.values())).device)
         aux = torch.zeros_like(loss)
@@ -67,9 +81,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         return loss, {"ce_loss": loss, "aux_loss": aux}, grads
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = compute_grads(params, batch)
-        params, opt_state, opt_metrics = optimizer.update(grads, opt_state,
-                                                          params)
+        with dt.scope(params, batch):
+            loss, metrics, grads = compute_grads(params, batch)
+            params, opt_state, opt_metrics = optimizer.update(
+                grads, opt_state, params)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

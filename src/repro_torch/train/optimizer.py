@@ -16,6 +16,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.models import dt
 from repro_torch.models.tree import param_leaves, tree_map
 
 
@@ -65,12 +66,17 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def init(params):
         dev = param_leaves(params)[0][1].device
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # a sharded parameter's moments are sharded as it is
+            return torch.zeros_like(p, dtype=torch.float32)
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
     def update(grads, state: AdamWState, params):
+        with dt.scope(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state: AdamWState, params):
         step = state.step + 1
         stepf = step.to(torch.float32)
         dev = step.device

@@ -31,6 +31,44 @@ def release_jax_executables():
         jax.clear_caches()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: its tensors are small, and
+    the suite's workers already take every core.  A module imports this
+    fixture by name to have it (autouse applies where it is visible)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def once_per_session(tmp_path_factory, name: str, make):
+    """``make(work_dir)``'s result (JSON-able), made once a test session:
+    under pytest-xdist the workers share it through the session's common
+    temporary directory, the first to come making it under a file lock
+    while the others wait for it."""
+    import json
+    import os
+    import shutil
+
+    from filelock import FileLock
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    work = str(root / name)
+    done = os.path.join(work, "result.json")
+    with FileLock(work + ".lock"):
+        if not os.path.exists(done):
+            # a failed earlier attempt's files (its rendezvous) go first
+            shutil.rmtree(work, ignore_errors=True)
+            os.makedirs(work)
+            result = make(work)
+            with open(done, "w") as f:
+                json.dump(result, f)
+    with open(done) as f:
+        return work, json.load(f)
+
+
 # estimates are float32 sums over <= B*S^2 matched terms taken in another
 # order than the reference's
 RTOL = 2e-5

@@ -1864,3 +1864,86 @@ def test_two_engines_greedy_agree_on_card(cuda_device):
     assert outs[0] == outs[1]
     assert all(len(o) == 6 and all(0 <= t < cfg.vocab_size for t in o)
                for o in outs[0])
+
+
+@pytest.fixture
+def one_rank_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL group (``file://`` rendezvous in ``tmp_path``) and a
+    (1, 1) ("data", "model") ``DeviceMesh`` over it; the group is
+    destroyed after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b"])
+def test_mesh_step_on_card_matches_plain(one_rank_mesh, arch):
+    """One AdamW step on DTensors laid out by the sharding rules on a
+    (1, 1) NCCL mesh = the plain step on the same weights and batch, bit
+    for bit (loss, every parameter and moment), the reduced config in
+    float32 with TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import (batch_shardings, gather,
+                                                  opt_state_shardings,
+                                                  param_shardings, place)
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.train import adamw, make_train_step
+    mesh = one_rank_mesh
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, device="cuda")
+    batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=3,
+                        device="cuda").batch_at(0)
+    opt = adamw(1e-3)
+    step = make_train_step(cfg, opt)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p1, s1, m1 = step(params, opt.init(params), batch)
+        p_sh = param_shardings(cfg, mesh)
+        dp1, ds1, dm1 = step(place(params, p_sh),
+                             place(opt.init(params),
+                                   opt_state_shardings(p_sh, mesh)),
+                             place(batch, batch_shardings(mesh, batch)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert_bits(gather({"l": dm1["loss"]})["l"], m1["loss"])
+    full_p, full_s = gather(dp1), gather(ds1)
+    for got, want in ((full_p, p1), (full_s.mu, s1.mu), (full_s.nu, s1.nu)):
+        for (path, g), (_, w) in zip(param_leaves(got), param_leaves(want)):
+            assert g.device.type == "cuda", path
+            assert_bits(g, w)
+
+
+def test_sharded_checkpoint_round_trip_on_card(one_rank_mesh, tmp_path):
+    """A tree of CUDA DTensors saved sharded (one file a distinct shard)
+    restores bit for bit onto the plain CUDA tree and back onto the
+    mesh by the rules."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (gather, param_shardings,
+                                                  place)
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.train import Checkpointer
+    mesh = one_rank_mesh
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, 1, device="cuda")
+    p_sh = param_shardings(cfg, mesh)
+    ck = Checkpointer(str(tmp_path / "ck"), keep=1)
+    ck.save(7, {"params": place(params, p_sh)})
+    step, plain = ck.restore({"params": params})
+    step2, sharded = ck.restore({"params": params},
+                                shardings={"params": p_sh})
+    assert step == step2 == 7
+    for (path, w), (_, a), (_, b) in zip(param_leaves(params),
+                                         param_leaves(plain["params"]),
+                                         param_leaves(gather(
+                                             sharded["params"]))):
+        assert type(a) is torch.Tensor and a.device.type == "cuda", path
+        assert_bits(a, w)
+        assert_bits(b, w)

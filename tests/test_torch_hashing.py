@@ -136,6 +136,9 @@ def test_port_imports_no_jax_and_no_reference():
         "from repro_torch.serve import (DurableSketchIndex, IngestJournal, "
         "ResilientSketchIndex, ResilientMatrixStore, save_snapshot)\n"
         "from repro_torch.kernels import _build\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.dryrun, repro_torch.roofline.analysis, "
+        "repro_torch.models.dt\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"

@@ -50,7 +50,8 @@ from repro_torch.models import (flatten_params, init_params, loss_fn,
                                 unflatten_params)
 from repro_torch.models import layers as tl
 from repro_torch.train import value_and_grad
-from _torch_common import release_jax_executables  # noqa: F401
+from _torch_common import (one_torch_thread,  # noqa: F401
+                           release_jax_executables)
 
 ALL = list(J_ARCH_IDS)
 B, S = 2, 64

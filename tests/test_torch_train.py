@@ -42,7 +42,8 @@ from repro_torch.train import (AdamWState, Checkpointer, StepWatchdog, adamw,
                                grad_cosine, grad_inner_product,
                                make_train_step, run_with_recovery,
                                sketch_grads, train_loop, warmup_cosine)
-from _torch_common import release_jax_executables  # noqa: F401
+from _torch_common import (one_torch_thread,  # noqa: F401
+                           release_jax_executables)
 
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "gemma2-2b"
