@@ -8,9 +8,10 @@ SketchDP over the mesh's data axis, a sharded checkpoint round trip) and
 ``chip_smoke.dryrun_path`` (the dry run's cells in subprocesses on fake
 groups of 256 / 512 ranks).  With ``--debug-cells`` it also traces the
 reduced config of every family for train, prefill and decode on a fake
-(2, 4) mesh on the card, as ``tests/test_torch_dryrun.py`` does on the
-CPU.  Prints each path's JSON line and the card's name and power limit.
-Exits 1 on a failed gate, 2 without a CUDA card.
+(2, 4) mesh on the card, and ``EXTRA_CELLS``, as
+``tests/test_torch_dryrun.py`` does on the CPU.  Prints each path's JSON
+line and the card's name and power limit.  Exits 1 on a failed gate, 2
+without a CUDA card.
 
     python scripts/mesh_alone.py [--debug-cells]
 """
@@ -32,6 +33,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import chip_smoke as cs  # noqa: E402
 
 
+# reduced cells that failed, or held the whole batch's tensors, on the fake
+# mesh before the MoE, the loss, decode attention and the prefill's decode
+# state ran on each rank's own share (tests/test_torch_dryrun.py)
+EXTRA_CELLS = [("qwen3-moe-235b-a22b", "train_4k", ("n_experts=4",)),
+               ("qwen2-moe-a2.7b", "train_4k", ("n_experts=6",)),
+               ("command-r-plus-104b", "train_4k", ("vocab_size=4096",)),
+               ("phi-3-vision-4.2b", "prefill_32k", ("n_kv_heads=4",)),
+               ("phi-3-vision-4.2b", "decode_32k", ("n_kv_heads=4",)),
+               ("qwen2-moe-a2.7b", "decode_32k", ("n_kv_heads=4",))]
+
+
 def debug_cells() -> dict:
     """Every family's reduced config, train / prefill / decode, on a fake
     (2, 4) mesh with fake tensors on the card: status and trace seconds
@@ -45,14 +57,17 @@ def debug_cells() -> dict:
         D.SHAPES = {{k: dict(v, seq_len=32, global_batch=8)
                     for k, v in D.SHAPES.items()}}
         out = []
-        for a in {list(ARCH_IDS)!r}:
-            for shape in ("train_4k", "prefill_32k", "decode_32k"):
-                try:
-                    r = D.run_cell(a, shape, multi_pod=False,
-                                   mesh_shape=(2, 4), device="cuda")
-                    out.append([a, shape, r["status"], r["lower_s"]])
-                except Exception as e:
-                    out.append([a, shape, "error", repr(e)[:300]])
+        cells = [(a, shape, ()) for a in {list(ARCH_IDS)!r}
+                 for shape in ("train_4k", "prefill_32k", "decode_32k")]
+        cells += {EXTRA_CELLS!r}
+        for a, shape, over in cells:
+            try:
+                r = D.run_cell(a, shape, multi_pod=False, mesh_shape=(2, 4),
+                               device="cuda", overrides=over)
+                out.append([a, shape, list(over), r["status"],
+                            r["lower_s"]])
+            except Exception as e:
+                out.append([a, shape, list(over), "error", repr(e)[:300]])
         print("JSON", json.dumps(out))
     """)
     t0 = time.perf_counter()
@@ -62,8 +77,9 @@ def debug_cells() -> dict:
     if r.returncode != 0 or "JSON" not in r.stdout:
         cs.fail(f"debug cells exited {r.returncode}: {r.stderr[-3000:]}")
     cells = json.loads(r.stdout.split("JSON", 1)[1])
-    return {"cells": cells, "seconds": time.perf_counter() - t0,
-            "errors": [c for c in cells if c[2] != "ok"]}
+    errors = [c for c in cells if c[3] != "ok"]
+    cs.check(not errors, f"debug cells failed: {errors}")
+    return {"cells": cells, "seconds": time.perf_counter() - t0}
 
 
 def main() -> None:

@@ -1,7 +1,7 @@
 """The paper's synthetic data generators, numpy only (copies of
 ``repro.data.synthetic``'s: the same draws from the same ``rng``):
-Section 5.1's real-valued pairs, 5.1.3's correlated pairs and 5.3's
-Zipf-skewed join-size tables."""
+Section 5.1's real-valued pairs, 5.1.3's correlated pairs, 5.3's
+Zipf-skewed join-size tables and Fig. 9's TF-IDF documents."""
 from __future__ import annotations
 
 import numpy as np
@@ -61,3 +61,25 @@ def zipf_frequency_tables(rng, n_keys=30_000, rows_a=200_000,
     np.add.at(fa, draws_a, 1.0)
     np.add.at(fb, draws_b, 1.0)
     return fa, fb
+
+
+def tfidf_documents(rng, n_docs=200, vocab=50_000, doc_len_range=(100, 2000),
+                    zipf_z=1.3):
+    """TF-IDF-like document vectors (a 20-Newsgroups stand-in): Zipf
+    unigram draws, tf * idf weighting, unit-normalized; (n_docs, vocab)
+    float32."""
+    dfs = np.zeros(vocab, np.float32)
+    tf_list = []
+    for _ in range(n_docs):
+        L = rng.integers(*doc_len_range)
+        words = np.minimum(rng.zipf(zipf_z, L) - 1, vocab - 1)
+        tf = np.bincount(words, minlength=vocab).astype(np.float32)
+        dfs += (tf > 0)
+        tf_list.append(tf)
+    idf = np.log((1 + n_docs) / (1 + dfs)) + 1
+    docs = []
+    for tf in tf_list:
+        v = tf * idf
+        nrm = np.linalg.norm(v)
+        docs.append((v / max(nrm, 1e-9)).astype(np.float32))
+    return np.stack(docs)

@@ -298,6 +298,23 @@ def place_leaf(x: torch.Tensor, sharding) -> torch.Tensor:
     return distribute_tensor(x, sharding.mesh, pl, src_data_rank=None)
 
 
+def place_full(x: torch.Tensor, sharding, fill, device=None):
+    """A DTensor of ``x``'s shape and dtype (``x`` may be a ``meta``
+    tensor) laid out by ``sharding``, every element ``fill``: each rank
+    makes only its own shard, so the whole tensor is never made."""
+    from torch.distributed.tensor import DTensor
+    pl = sharding.placements(tuple(x.shape))
+    # (the placements split only dims their axes divide)
+    local = list(x.shape)
+    for size, p in zip(sharding.mesh.shape, pl):
+        if p.is_shard():
+            local[p.dim] //= size
+    return DTensor.from_local(
+        torch.full(local, fill, dtype=x.dtype, device=device),
+        sharding.mesh, pl, run_check=False, shape=x.shape,
+        stride=x.stride())
+
+
 def place(tree: Any, shardings: Any) -> Any:
     """``tree`` (nested dicts / NamedTuples of tensors) laid out by the
     same-structured ``shardings``; a :class:`NamedSharding` in place of a

@@ -3,7 +3,22 @@ input shape) on the production meshes, traced with fake tensors over a
 fake process group, and its roofline terms.
 
     python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
-    python -m repro_torch.launch.dryrun --all --mesh both --out DIR
+    python -m repro_torch.launch.dryrun --all --mesh both --out DIR \
+        [--override n_layers=2] [--jobs 8] [--device cpu]
+
+``--all`` runs every cell in a process of its own, ``--jobs`` at once,
+each with the ``--override`` and ``--device`` given, and writes one
+table of the records (``OUT/table.md``, ``OUT/summary.json``;
+:func:`sweep_table`); it exits 1 when a cell errs.  A depth cut
+(``--override n_layers=N``) must be a multiple of the config's
+layer-pattern period (``len(layer_pattern)``): recurrentgemma-2b's
+pattern is (rglru, rglru, attn_local), and at 2 layers its attention
+weights are unused and the backward raises.  ``--all`` rounds the cut up
+so (:func:`cut_overrides`: 3 for recurrentgemma-2b); a single cell is
+traced at the depth given.  A cut also changes
+:func:`choose_microbatches`, which reads the cut depth: a train cell at
+2 layers may take 1 microbatch where its published depth takes 8, and
+hold 8x the tokens of a microbatch.
 
 A cell joins a fake process group of 256 ranks (the (16, 16) mesh) or
 512 (the (2, 16, 16) mesh) in one process, as rank 0.  Parameters, the
@@ -26,7 +41,13 @@ content is the same thing: ``status`` / ``reason`` (``skip`` for
 ``collectives`` ({kind: {bytes, count}}, every collective counted as it
 is issued: eager execution runs every loop iteration; the port adds
 ``largest_collectives``, the five largest with their shape and the
-model-code line that issued them), ``lower_s`` (the
+model-code line that issued them, ``batch_sized_collectives``, every
+one whose result has a dim of the global batch's rows or tokens, and
+``largest_tensors``, the three
+largest tensors that other local ops made on rank 0: a collective's
+raw result stacks the ranks' shards along dim 0 whatever dim it
+gathers, so its shape alone does not say whether a rank holds the
+whole batch), ``lower_s`` (the
 trace's wall seconds), ``param_bytes_per_dev`` (the reference's formula
 over the port's pspecs), ``analytic`` and ``roofline`` (the reference's
 ``as_dict`` keys; the collective term from the counted wire bytes),
@@ -98,7 +119,7 @@ def _group_size(args) -> int:
     return _resolve_process_group(name).size()
 
 
-def _counter_mode():
+def _counter_mode(rows: int, tokens: int):
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
@@ -108,14 +129,19 @@ def _counter_mode():
     class CollectiveCounter(TorchDispatchMode):
         """Records each ``_c10d_functional`` collective issued inside it:
         {kind: {bytes (ring wire bytes from the result's size), count,
-        result_bytes}}.  DTensor ops pass through (``NotImplemented``)
-        so that the collectives they desugar into are seen."""
+        result_bytes}}, the five largest, every one whose result has a
+        dim of the batch's ``rows`` or ``tokens`` (once a kind, shape and
+        issuing line, with its count), and the largest tensors the other
+        local ops make (what a rank holds at once is bounded below by the
+        largest).  DTensor ops pass through (``NotImplemented``) so that
+        the local ops they desugar into are seen."""
 
-        def __init__(self, keep: int = 5):
+        def __init__(self):
             super().__init__()
             self.stats: dict = {}
-            self.keep = keep
             self.largest: list = []
+            self.batch_sized: dict = {}
+            self.tensors: list = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
@@ -136,30 +162,61 @@ def _counter_mode():
                     rec["count"] += 1
                     rec["result_bytes"] += int(nbytes)
                     self._note(kind, int(wire), w, out)
+            elif not (func.is_view or func._schema.is_mutable):
+                self._note_tensor(func, out)
             return out
 
-        def _note(self, kind, wire, w, out):
-            """Keep the ``keep`` largest collectives: kind, wire bytes,
-            group size, result shape and the model-code line that
+        def _note_tensor(self, func, out, keep: int = 3):
+            """Keep the ``keep`` largest tensors made by local ops other
+            than collectives (views, in-place ops and ``meta`` tensors
+            aside): shape, bytes, the op and the model-code lines that
+            ran it."""
+            for t in tree_leaves(out):
+                if not isinstance(t, torch.Tensor) or t.is_meta:
+                    continue
+                nbytes = t.numel() * t.element_size()
+                if len(self.tensors) == keep and \
+                        nbytes <= self.tensors[-1]["bytes"]:
+                    continue
+                self.tensors.append({
+                    "bytes": nbytes, "shape": list(t.shape),
+                    "op": str(func.overloadpacket.__name__),
+                    "where": _model_lines()[-2:]})
+                self.tensors.sort(key=lambda r: -r["bytes"])
+                del self.tensors[keep:]
+
+        def _note(self, kind, wire, w, out, keep: int = 5):
+            """Keep the ``keep`` largest collectives, and every one whose
+            result has a dim of the batch's rows or tokens: kind, wire
+            bytes, group size, result shape and the model-code lines that
             issued it."""
-            if len(self.largest) == self.keep and \
-                    wire <= self.largest[-1]["bytes"]:
-                return
-            import traceback
-            where = [f"{os.path.basename(fr.filename)}:{fr.lineno} "
-                     f"{fr.name}" for fr in traceback.extract_stack()
-                     if "repro_torch" in fr.filename
-                     and not fr.filename.endswith("dryrun.py")]
             t = next((t for t in tree_leaves(out)
                       if isinstance(t, torch.Tensor)), None)
-            self.largest.append({
-                "kind": kind, "bytes": wire, "group": w,
-                "shape": list(t.shape) if t is not None else None,
-                "where": where[-2:]})
+            shape = list(t.shape) if t is not None else None
+            rec = {"kind": kind, "bytes": wire, "group": w, "shape": shape,
+                   "where": _model_lines()[-2:]}
+            if shape and (rows in shape or tokens in shape):
+                key = json.dumps([kind, shape, rec["where"]])
+                self.batch_sized.setdefault(key, dict(rec, count=0))
+                self.batch_sized[key]["count"] += 1
+            if len(self.largest) == keep and \
+                    wire <= self.largest[-1]["bytes"]:
+                return
+            self.largest.append(rec)
             self.largest.sort(key=lambda r: -r["bytes"])
-            del self.largest[self.keep:]
+            del self.largest[keep:]
 
     return CollectiveCounter()
+
+
+def _model_lines() -> list:
+    """The port's stack frames (``file:line function``) outside this
+    module, outermost first."""
+    import traceback
+    return [f"{os.path.basename(fr.filename)}:{fr.lineno} {fr.name}"
+            for fr in traceback.extract_stack()
+            if "repro_torch" in fr.filename
+            and not fr.filename.endswith("dryrun.py")]
 
 
 def _flop_counter():
@@ -348,7 +405,9 @@ def trace_cell(cfg, kind: str, seq: int, gbatch: int, mesh,
             run = lambda: step(params, state, token)  # noqa: E731
         else:
             raise ValueError(kind)
-        flops, coll = _flop_counter(), _counter_mode()
+        flops = _flop_counter()
+        coll = _counter_mode(gbatch, gbatch * (seq if kind != "decode"
+                                               else 1))
         t0 = time.monotonic()
         with _MetaOutsideCounters(), tracker, flops, coll:
             run()
@@ -357,6 +416,8 @@ def trace_cell(cfg, kind: str, seq: int, gbatch: int, mesh,
     out["flops_dev"] = float(flops.get_total_flops())
     out["collectives"] = coll.stats
     out["largest_collectives"] = coll.largest
+    out["batch_sized_collectives"] = list(coll.batch_sized.values())
+    out["largest_tensors"] = coll.tensors
     dev_peak = next(iter(peak.values()), {}) if peak else {}
     out["memory"] = {getattr(k, "name", str(k)): int(v)
                      for k, v in dev_peak.items()}
@@ -421,7 +482,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     rec["cost_analysis_raw"] = {"flops": counted["flops_dev"],
                                 "flops_global": counted["flops_dev"] * chips}
     rec["collectives"] = counted["collectives"]
-    rec["largest_collectives"] = counted["largest_collectives"]
+    for k in ("largest_collectives", "batch_sized_collectives",
+              "largest_tensors"):
+        rec[k] = counted[k]
     coll_bytes = sum(v["bytes"] for v in counted["collectives"].values())
     total = param_bytes_per_dev(cfg, mesh)
     rec["param_bytes_per_dev"] = total
@@ -453,6 +516,134 @@ def format_summary(rec: dict) -> str:
             f"trace {rec['lower_s']:.0f}s")
 
 
+def cut_overrides(cfg, overrides) -> list:
+    """``overrides`` with an ``n_layers`` cut rounded up to a multiple of
+    ``cfg``'s layer-pattern period (at most the published depth)."""
+    out = []
+    for kv in overrides:
+        k, v = kv.split("=", 1)
+        if k == "n_layers":
+            p = cfg.pattern_period
+            kv = f"n_layers={min(-(-int(v) // p) * p, cfg.n_layers)}"
+        out.append(kv)
+    return out
+
+
+def sweep(cells, *, out: str, device: str, jobs: int = 1,
+          force: bool = False) -> list:
+    """Trace ``cells`` ((arch, shape, multi_pod, overrides) each) in a
+    process apiece, ``jobs`` at once, on ``device``, records under
+    ``out`` (each process's output in ``<cell>.log`` beside its record);
+    a cell whose record exists is skipped unless ``force``, a cell that
+    fails gets an error record.  Prints a summary line a cell as it
+    ends; returns the records in the order of ``cells``."""
+    todo, paths = [], []
+    for arch, shape, mp, over in cells:
+        tag = f"{arch}__{shape}__{'pod2x16x16' if mp else 'pod16x16'}"
+        path = os.path.join(out, tag + ".json")
+        paths.append(path)
+        if os.path.exists(path) and not force:
+            continue
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape,
+               "--mesh", "multi" if mp else "single", "--out", out,
+               "--device", device]
+        for o in over:
+            cmd += ["--override", o]
+        todo.append((tag, cmd))
+    running: dict = {}
+    while todo or running:
+        while todo and len(running) < max(jobs, 1):
+            tag, cmd = todo.pop(0)
+            with open(os.path.join(out, tag + ".log"), "w") as log:
+                running[tag] = subprocess.Popen(cmd, stdout=log,
+                                                stderr=subprocess.STDOUT)
+        done = [t for t, p in running.items() if p.poll() is not None]
+        if not done:
+            time.sleep(0.2)
+        for tag in done:
+            proc = running.pop(tag)
+            with open(os.path.join(out, tag + ".log")) as f:
+                text = f.read()
+            if proc.returncode != 0:
+                arch, shape, mesh_name = tag.split("__")
+                with open(os.path.join(out, tag + ".json"), "w") as f:
+                    json.dump({"arch": arch, "shape": shape,
+                               "mesh": mesh_name, "status": "error",
+                               "error": text[-2000:]}, f, indent=1)
+                print(f"{arch:24s} {shape:12s} {mesh_name:10s} ERROR "
+                      f"(see {out}/{tag}.log)", flush=True)
+            else:
+                print(text.strip().splitlines()[-1], flush=True)
+    records = []
+    for path in paths:
+        with open(path) as f:
+            records.append(json.load(f))
+    return records
+
+
+def _card(device: str) -> tuple:
+    """(where the counts ran, the card's memory in bytes): on the CPU an
+    H100 80GB HBM3's ``total_memory`` as ``torch.cuda`` reports it."""
+    if device == "cpu":
+        return "the CPU (fake tensors; counts, not times)", 79.2 * 2**30
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    return (f"{smi[0] if smi else torch.cuda.get_device_name(0)} "
+            "(fake tensors)", torch.cuda.get_device_properties(0).total_memory)
+
+
+def sweep_table(records, where: str, card_bytes: float) -> str:
+    """A markdown row a record: status, a train step's microbatches at the
+    cut and at the published depth (:func:`choose_microbatches` reads the
+    depth), the ``MemTracker`` peak a device (``over`` above the card),
+    the counted FLOPs over the model FLOPs, the roofline's collective
+    term, the largest collective (kind, raw result shape, wire GB,
+    issuing lines) and the largest tensor a local op made."""
+    lines = [f"Dry-run sweep on {where}; card memory "
+             f"{card_bytes / 2**30:.1f} GiB", "",
+             "| Arch | Shape | Mesh | Depth | Status | Microbatches (cut / "
+             "published) | Peak GiB | Counted / model FLOPs | Collective "
+             "term s | Largest collective | Largest tensor made |",
+             "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- "
+             "| --- |"]
+    for rec in records:
+        mesh = "(2, 16, 16)" if rec["mesh"] == "pod2x16x16" else "(16, 16)"
+        cfg = get_config(rec["arch"])
+        depth = _apply_overrides(cfg, rec.get("overrides")).n_layers
+        head = f"| {rec['arch']} | {rec['shape']} | {mesh} | {depth} | "
+        if rec["status"] != "ok":
+            note = rec.get("reason", "")[:80] or rec.get("error",
+                                                          "")[-80:]
+            lines.append(head + f"{rec['status']} | | | | | "
+                         f"{note.replace(chr(10), ' ')} | |")
+            continue
+        mb = ""
+        if "microbatches" in rec:
+            sh = SHAPES[rec["shape"]]
+            chips = rec["roofline"]["chips"]
+            dp = chips if cfg.strategy == "fsdp" else chips // 16
+            mb = f"{rec['microbatches']} / " + str(choose_microbatches(
+                cfg, sh["seq_len"], sh["global_batch"], dp))
+        peak = rec["memory_analysis"]["peak_bytes"]
+        r = rec["roofline"]
+        big = (rec["largest_collectives"] or [None])[0]
+        top = (rec["largest_tensors"] or [None])[0]
+        what = (f"{big['kind']} {tuple(big['shape'])} "
+                f"{big['bytes'] / 1e9:.3f} GB, {' → '.join(big['where'])}"
+                if big else "none")
+        made = (f"{tuple(top['shape'])} {top['bytes'] / 2**30:.2f} GiB, "
+                f"{top['op']} at {' → '.join(top['where'])}" if top
+                else "none")
+        lines.append(
+            head + f"ok | {mb} | {peak / 2**30:.2f}"
+            + (" **over**" if peak > card_bytes else "") + " | "
+            f"{rec['cost_analysis_raw']['flops_global'] / r['model_flops_global']:.3f}"
+            f" | {r['collective_s']:.4f} | {what} | {made} |")
+    return "\n".join(lines) + "\n"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -461,7 +652,11 @@ def main(argv=None):
                     default="single")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--all", action="store_true",
-                    help="iterate every cell in subprocesses")
+                    help="every cell in subprocesses, an n_layers cut "
+                    "rounded up to each config's pattern period; "
+                    "OUT/table.md and OUT/summary.json")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="--all: cells traced at once")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--override", action="append", default=[],
                     help="cfg overrides key=value (hillclimb iterations)")
@@ -479,37 +674,24 @@ def main(argv=None):
               "both": [False, True]}[args.mesh]
 
     if args.all:
-        for arch in ARCH_IDS:
-            for shape in SHAPES:
-                for mp in meshes:
-                    mesh_name = "multi" if mp else "single"
-                    tag = (f"{arch}__{shape}__"
-                           f"{'pod2x16x16' if mp else 'pod16x16'}")
-                    path = os.path.join(args.out, tag + ".json")
-                    if os.path.exists(path) and not args.force:
-                        with open(path) as f:
-                            rec = json.load(f)
-                        print("cached:", format_summary(rec)
-                              if rec.get("status") != "error"
-                              else f"{arch} {shape} ERROR")
-                        continue
-                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                           "--arch", arch, "--shape", shape,
-                           "--mesh", mesh_name, "--out", args.out,
-                           "--device", args.device]
-                    proc = subprocess.run(cmd, capture_output=True,
-                                          text=True)
-                    if proc.returncode != 0:
-                        rec = {"arch": arch, "shape": shape,
-                               "mesh": "pod2x16x16" if mp else "pod16x16",
-                               "status": "error",
-                               "error": proc.stderr[-2000:]}
-                        with open(path, "w") as f:
-                            json.dump(rec, f, indent=1)
-                        print(f"{arch:24s} {shape:12s} ERROR (see {path})")
-                    else:
-                        print(proc.stdout.strip().splitlines()[-1])
-        return
+        if args.arch or args.shape or mesh_shape:
+            ap.error("--all runs every cell: no --arch, --shape or "
+                     "--mesh-shape")
+        where, card_bytes = _card(_resolve(args.device))
+        records = sweep([(arch, shape, mp,
+                          cut_overrides(get_config(arch), args.override))
+                         for arch in ARCH_IDS for shape in SHAPES
+                         for mp in meshes],
+                        out=args.out, device=args.device, jobs=args.jobs,
+                        force=args.force)
+        table = sweep_table(records, where, card_bytes)
+        print(table)
+        with open(os.path.join(args.out, "table.md"), "w") as f:
+            f.write(table)
+        with open(os.path.join(args.out, "summary.json"), "w") as f:
+            json.dump({"device": where, "card_bytes": card_bytes,
+                       "records": records}, f, indent=1)
+        sys.exit(1 if any(r["status"] == "error" for r in records) else 0)
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape are required without --all")

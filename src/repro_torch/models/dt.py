@@ -56,6 +56,45 @@ def unshard(x, *dims: int):
         x.device_mesh, pl)
 
 
+def fsdp_whole(w, dim: int, x):
+    """``w``, gathered along its d_model dim ``dim`` (which fsdp splits
+    over the data axes) when the activation ``x`` (B, S, ...) it meets is
+    a DTensor of more than one position: FSDP's gather, its gradient
+    reduce-scattered back.  Left to DTensor, such a product can contract
+    over the split d instead, which makes the batch's rows whole on every
+    rank (a whole pod's rows of a training step's MLP).  One-token decode
+    keeps that choice: its rows are few, the weights many times larger.
+    A plain tensor passes through."""
+    if not is_dt(w) or x.shape[1] <= 1:
+        return w
+    return unshard(w, dim)
+
+
+def linear(x, w):
+    """``x @ w`` for a 2-D ``w``.  On a DTensor ``x`` of more than two
+    dims the leading dims are folded into one first: DTensor runs a
+    (B, S, d) @ (d, f) product as a batched one, ``w`` copied once a row
+    of the batch (a one-token decode's (rows, d, f) copy of every
+    projection)."""
+    if not is_dt(x) or x.ndim <= 2:
+        return x @ w
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(x.shape[:-1] + (-1,))
+
+
+def row_parallel(x, w):
+    """``x @ w`` of a product that contracts x's last dim (split over
+    ``model``: an MLP's down projection, an attention's or a recurrent
+    block's output projection).  On a DTensor of more than one position
+    each rank multiplies its own rows' share of that dim by its rows of
+    ``w`` (``w`` gathered over the data axes where fsdp splits it) and
+    the result is a pending sum over ``model``: left to DTensor, the
+    backward of such a product can make every position of the batch
+    whole on a rank.  Otherwise ``x @ w``."""
+    if not is_dt(x) or x.shape[1] <= 1:
+        return linear(x, w)
+    return batch_local(torch.matmul, "cf", "p", x, w)
+
+
 def shard_count(x, dim: int) -> int:
     """How many pieces the mesh splits tensor dim ``dim`` of ``x`` into
     (1 for a plain tensor)."""
@@ -66,54 +105,6 @@ def shard_count(x, dim: int) -> int:
         if p.is_shard() and p.dim % x.ndim == dim % x.ndim:
             n *= size
     return n
-
-
-def replicated_call(fn: Callable, *args):
-    """``fn(*args)``.  With a DTensor among ``args`` (tensors, or lists /
-    tuples / dicts of them), every DTensor argument is replicated and
-    handed to ``fn`` as its full plain tensor, and each tensor ``fn``
-    returns is a replicated DTensor on that mesh: for code with no
-    sharding rule (the MoE routing's sorts, gathers by computed indices
-    and counts).  Autograd flows through both conversions."""
-    found = []
-
-    def scan(a):
-        if is_dt(a):
-            found.append(a)
-        elif isinstance(a, (list, tuple)):
-            for v in a:
-                scan(v)
-        elif isinstance(a, dict):
-            for v in a.values():
-                scan(v)
-
-    for a in args:
-        scan(a)
-    if not found:
-        return fn(*args)
-    mesh = found[0].device_mesh
-    from torch.distributed.tensor import DTensor, Replicate
-    rep = (Replicate(),) * mesh.ndim
-
-    def down(a):
-        if is_dt(a):
-            return a.redistribute(mesh, rep).to_local()
-        if isinstance(a, (list, tuple)) and not hasattr(a, "_fields"):
-            return type(a)(down(v) for v in a)
-        if isinstance(a, dict):
-            return {k: down(v) for k, v in a.items()}
-        return a
-
-    def up(a):
-        if isinstance(a, torch.Tensor):
-            return DTensor.from_local(a, mesh, rep, run_check=False)
-        if isinstance(a, (list, tuple)):
-            return type(a)(up(v) for v in a)
-        if isinstance(a, dict):
-            return {k: up(v) for k, v in a.items()}
-        return a
-
-    return up(fn(*(down(a) for a in args)))
 
 
 def pin_batch(x):
@@ -307,7 +298,7 @@ def grad_unshard(x, dim: int, groups: int):
     return _GradUnshard.apply(x, dim, groups)
 
 
-_MODEL_DIM = {"c": -1, "m": -1, "h": 1, "k": 2}
+_MODEL_DIM = {"c": -1, "m": -1, "f": 0, "h": 1, "k": 2}
 
 
 def _model_dim(kind: str, ndim: int):
@@ -354,7 +345,8 @@ def batch_local(fn: Callable, layout: str, out_layout: str, *args):
     tensor's: ``b`` the batch (dim 0) split over the data-parallel axes
     and the rest whole; ``c`` that and the last dim over ``model``; ``h``
     dim 1 over ``model``; ``k`` dim 2 over ``model``; ``m`` only the last
-    dim over ``model``; ``r`` whole; ``p`` (a result) the batch split and
+    dim over ``model``; ``f`` only dim 0 over ``model``; ``r`` whole;
+    ``p`` (a result) the batch split and
     a pending sum over ``model``; ``-`` not a tensor.  The batch is
     split only if every batched argument's divides, the model dims only
     if every one divides, so the local shards agree.  DTensor arguments
@@ -379,7 +371,7 @@ def batch_local(fn: Callable, layout: str, out_layout: str, *args):
     dp_ok = bool(batched) and all(a.shape[0] % dp_size == 0
                                   for a in batched)
     msize = sizes.get("model")
-    split_m = [(k, a) for k, a in tens if k in "chkm"]
+    split_m = [(k, a) for k, a in tens if k in "chkmf"]
     model_ok = msize is not None and bool(split_m) and all(
         a.shape[_model_dim(k, a.ndim)] % msize == 0 for k, a in split_m)
     # the mesh dims this call splits the work over: an argument whole on

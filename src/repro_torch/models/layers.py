@@ -92,12 +92,14 @@ def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor, *, act: str, glu: bool) -> torch.Tensor:
+    w_up = dt.fsdp_whole(p["w_up"], 0, x)
     if glu:
-        gate = activation(x @ p["w_gate"], act)
-        up = x @ p["w_up"]
-        return (gate * up) @ p["w_down"]
-    h = activation(x @ p["w_up"], act)
-    return h @ p["w_down"]
+        gate = activation(dt.linear(x, dt.fsdp_whole(p["w_gate"], 0, x)),
+                          act)
+        up = dt.linear(x, w_up)
+        return dt.row_parallel(gate * up, p["w_down"])
+    h = activation(dt.linear(x, w_up), act)
+    return dt.row_parallel(h, p["w_down"])
 
 
 # ----------------------------------------------------------------------------
@@ -113,11 +115,20 @@ def project_qkv(p, x: torch.Tensor):
     K = p["wk"].shape[1]
     # (on a DTensor, heads the mesh splits unevenly into K groups are
     # gathered first)
-    q = dt.split_guard(x @ dt.merged(p["wq"], 1), K).reshape(
+    q = dt.split_guard(dt.linear(x, dt.merged(dt.fsdp_whole(p["wq"], 0, x),
+                                              1)), K).reshape(
         B, S, K, H // K, dh)
-    k = dt.split_guard(x @ dt.merged(p["wk"], 1), K).reshape(B, S, K, dh)
-    v = dt.split_guard(x @ dt.merged(p["wv"], 1), K).reshape(B, S, K, dh)
-    return q, k, v
+    return (q,) + project_kv(p, x)
+
+
+def project_kv(p, x: torch.Tensor):
+    """x: (B, S, d) -> k, v (B, S, K, dh)."""
+    B, S, d = x.shape
+    K, dh = p["wk"].shape[1:]
+    k, v = (dt.split_guard(dt.linear(x, dt.merged(
+        dt.fsdp_whole(p[w], 0, x), 1)), K).reshape(B, S, K, dh)
+        for w in ("wk", "wv"))
+    return k, v
 
 
 def _fit(size: int, block: int) -> int:
@@ -207,6 +218,13 @@ def attention_train(p, x: torch.Tensor, *, positions: torch.Tensor,
     ``kv_override`` supplies precomputed ``(k, v, k_positions)`` for cross
     attention: no RoPE on those keys, key positions from 0 (the
     reference's ``k_positions`` is unused)."""
+    tiles = functools.partial(chunked_attention, causal=causal,
+                              window=window, q_pos0=0, k_pos0=0,
+                              q_block=q_block, kv_block=kv_block, cap=cap)
+    n = dt.shard_count(p["wq"], 1)
+    if n > 1 and p["wk"].shape[1] % n:
+        return _attention_by_head(p, x, positions, rope_theta, kv_override,
+                                  tiles)
     q, k, v = project_qkv(p, x)
     if kv_override is not None:
         k, v, _ = kv_override
@@ -219,14 +237,46 @@ def attention_train(p, x: torch.Tensor, *, positions: torch.Tensor,
             k = rope(k, positions, rope_theta)
     # the tiles on each rank's rows (and kv heads, where the mesh divides
     # them)
-    out = dt.batch_local(functools.partial(
-        chunked_attention, causal=causal, window=window, q_pos0=0,
-        k_pos0=0, q_block=q_block, kv_block=kv_block, cap=cap),
-        "kkk", "k", q, k, v)
+    out = dt.batch_local(tiles, "kkk", "k", q, k, v)
     B, S = x.shape[:2]
     wo = p["wo"]
-    return (dt.grad_unshard(out.reshape(B, S, -1), 2, K)
-            @ dt.merged(wo, 0))
+    return dt.row_parallel(dt.grad_unshard(out.reshape(B, S, -1), 2, K),
+                           dt.merged(wo, 0))
+
+
+def _attention_by_head(p, x, positions, rope_theta: float, kv_override,
+                       tiles):
+    """:func:`attention_train` on DTensors whose mesh splits the query
+    heads evenly but not the K kv heads (K < the model axis): each rank
+    runs its own query heads, each against a copy of its kv head (the kv
+    projections whole on every rank), instead of every head on every
+    rank."""
+    B, S, d = x.shape
+    H, dh = p["wq"].shape[1:]
+    K = p["wk"].shape[1]
+    q = (x @ dt.merged(dt.fsdp_whole(p["wq"], 0, x), 1)).reshape(
+        B, S, H, dh)
+    if kv_override is not None:
+        k, v, _ = kv_override
+    else:
+        k, v = project_kv(p, x)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        if kv_override is None:
+            k = rope(k, positions, rope_theta)
+    heads = dt.aligned(q, torch.arange(H, device=x.device), 2)
+    out = dt.batch_local(functools.partial(_tiles_by_head, tiles=tiles,
+                                           groups=H // K),
+                         "kbbm", "k", q, k, v, heads)
+    return dt.row_parallel(out.reshape(B, S, H * dh), dt.merged(p["wo"], 0))
+
+
+def _tiles_by_head(q, k, v, heads, *, tiles, groups: int):
+    """q (B, S, h, dh) of the query heads ``heads`` against k / v (B, S,
+    K, dh), each head its group's kv head -> (B, S, h, dh)."""
+    kv = torch.div(heads, groups, rounding_mode="floor")
+    return tiles(q[:, :, :, None], k.index_select(2, kv),
+                 v.index_select(2, kv))[:, :, :, 0]
 
 
 # ----------------------------------------------------------------------------
@@ -246,6 +296,33 @@ def init_kv_cache(batch: int, cache_len: int, n_kv: int, d_head: int, dtype,
         "pos": torch.full(tuple(lead) + (batch, cache_len), -1,
                           dtype=torch.int32, device=device),
     }
+
+
+def _decode_scores(q, ck, cpos, pos, *, window: int, cap: float):
+    """One-token scores (B, K, G, 1, C) float32 of q (B, 1, K, G, dh)
+    against the cache keys ``ck`` (B, C, K, dh): the softcap, then
+    ``NEG_INF`` off the valid slots (filled, at or before ``pos``, and for
+    a local layer inside the window)."""
+    scale = float(torch.tensor(1.0 / math.sqrt(q.shape[-1]),
+                               dtype=torch.float32))
+    # (B, K, G, 1, dh) x (B, K, 1, dh, C) -> (B, K, G, 1, C)
+    s = torch.matmul(q.to(torch.float32).permute(0, 2, 3, 1, 4),
+                     ck.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]
+                     ) * scale
+    s = softcap(s, cap)
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window:
+        valid &= cpos > pos - window
+    return torch.where(valid[:, None, None, None, :], s, NEG_INF)
+
+
+def _decode_attend(q, ck, cv, cpos, pos, *, window: int, cap: float):
+    """``softmax(scores) @ values`` of one-token decode -> (B, K, G, 1,
+    dh) float32."""
+    s = _decode_scores(q, ck, cpos, pos, window=window, cap=cap)
+    pr = torch.softmax(s, dim=-1)
+    return torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)
+                        [:, :, None])
 
 
 def attention_decode(p, x1: torch.Tensor, cache, *, pos: torch.Tensor,
@@ -268,22 +345,16 @@ def attention_decode(p, x1: torch.Tensor, cache, *, pos: torch.Tensor,
     dt.ring_write_(ck, 1, slot, k.to(ck.dtype))
     dt.ring_write_(cv, 1, slot, v.to(cv.dtype))
     dt.ring_write_(cpos, 1, slot, posv.to(torch.int32).expand(B, 1))
-    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
-    # (B, K, G, 1, dh) x (B, K, 1, dh, C) -> (B, K, G, 1, C)
-    s = torch.matmul(q.to(torch.float32).permute(0, 2, 3, 1, 4),
-                     ck.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]
-                     ) * scale
-    s = softcap(s, cap)
-    valid = (cpos >= 0) & (cpos <= pos)
-    if window:
-        valid &= cpos > pos - window
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    if dt.shard_count(s, -1) > 1:
+    if dt.shard_count(ck, 1) > 1:
+        # the cache split along its sequence: flash-decoding's combine
+        s = _decode_scores(q, ck, cpos, pos, window=window, cap=cap)
         out = dt.split_softmax_values(s, cv)
     else:
-        pr = torch.softmax(s, dim=-1)
-        out = torch.matmul(pr, cv.to(torch.float32).permute(0, 2, 1, 3)
-                           [:, :, None])
+        # each rank's own (batch, kv-head) block: DTensor has no rule for
+        # the batched product of a batch and a head dim both split
+        out = dt.batch_local(functools.partial(
+            _decode_attend, window=window, cap=cap), "kkkbr", "h",
+            q, ck, cv, cpos, pos)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, K * G * dh).to(x1.dtype)
     wo = p["wo"]
-    return out @ wo.reshape(-1, wo.shape[-1]), cache
+    return dt.linear(out, wo.reshape(-1, wo.shape[-1])), cache

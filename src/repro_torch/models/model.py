@@ -30,6 +30,7 @@ from . import dt, layers, rglru, ssm
 from .transformer import (_apply_ffn, _unstack, apply_backbone, cross_kv,
                           embed_tokens, encode, lm_loss, logits_last,
                           param_dtype)
+from .tree import param_leaves, tree_from_leaves
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> tuple[torch.Tensor, dict]:
@@ -104,6 +105,23 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     ``cuda``).  Every stacked leaf is allocated whole: no group shares
     storage with another, so an in-place write lands in one group."""
     return _decode_state(cfg, batch, seq_len, enc_len, resolve_device(device))
+
+
+def _placed_state(cfg: ModelConfig, batch: int, seq_len: int, enc_len: int,
+                  dev, mesh) -> dict:
+    """:func:`init_decode_state`'s state laid out as ``mesh``'s rules say
+    (``decode_state_shardings``), each rank making only its own shards:
+    the empty caches of the whole batch are never made on one rank.  A
+    cache's ``pos`` is -1, every other leaf 0."""
+    from repro_torch.distributed.sharding import (decode_state_shardings,
+                                                  place_full)
+    shard = dict(param_leaves(decode_state_shardings(cfg, mesh, batch)))
+    meta = _decode_state(cfg, batch, seq_len, enc_len, torch.device("meta"))
+    return tree_from_leaves(
+        (path, place_full(x, shard[path],
+                          -1 if len(path) > 1 and path[-1] == "pos" else 0,
+                          dev))
+        for path, x in param_leaves(meta))
 
 
 def decode_state_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -195,11 +213,11 @@ def _cross_decode(p_cross, x1, ck, cv):
     B, S, d = x1.shape
     H, dh = p_cross["wq"].shape[1:]
     K = ck.shape[2]
-    q = dt.split_guard(x1 @ p_cross["wq"].reshape(d, H * dh), K).reshape(
-        B, S, K, H // K, dh)
+    q = dt.split_guard(dt.linear(x1, p_cross["wq"].reshape(d, H * dh)),
+                       K).reshape(B, S, K, H // K, dh)
     out = dt.batch_local(_cross_scores, "kkk", "k", q, ck, cv)
     wo = p_cross["wo"]
-    return out.to(x1.dtype) @ wo.reshape(-1, wo.shape[-1])
+    return dt.linear(out.to(x1.dtype), wo.reshape(-1, wo.shape[-1]))
 
 
 def _cross_scores(q, ck, cv):
@@ -293,12 +311,8 @@ def _attn_prefill_cache(p, h, positions, rope_theta: float, cache) -> None:
     place.  C is the cache's length: the decode horizon for a global
     layer (so the ring never wraps onto live entries), min(window,
     horizon) for a local one."""
-    B, S, d = h.shape
-    K, dh = p["wk"].shape[1:]
-    k = dt.split_guard(h @ p["wk"].reshape(d, K * dh), K).reshape(
-        B, S, K, dh)
-    v = dt.split_guard(h @ p["wv"].reshape(d, K * dh), K).reshape(
-        B, S, K, dh)
+    B, S = h.shape[:2]
+    k, v = layers.project_kv(p, h)
     if rope_theta:
         k = layers.rope(k, positions, rope_theta)
     C = cache["k"].shape[1]
@@ -369,15 +383,14 @@ def prefill_fn(cfg: ModelConfig, max_len: int | None = None):
             enc_out = None
             if cfg.is_encdec:
                 enc_out = encode(cfg, params, batch["frames"])
-            state = init_decode_state(
-                cfg, B, max_len or S,
-                enc_out.shape[1] if enc_out is not None else 0, device=dev)
+            enc_len = enc_out.shape[1] if enc_out is not None else 0
             mesh = dt.mesh_of(params)
-            if mesh is not None:
-                # laid out as the parameters' mesh's rules say
-                from repro_torch.distributed.sharding import (
-                    decode_state_shardings, place)
-                state = place(state, decode_state_shardings(cfg, mesh, B))
+            if mesh is None:
+                state = init_decode_state(cfg, B, max_len or S, enc_len,
+                                          device=dev)
+            else:
+                state = _placed_state(cfg, B, max_len or S, enc_len, dev,
+                                      mesh)
             x = embed_tokens(cfg, params, tokens, batch.get("image_embeds"))
             cross = state.get("cross", {})
             for gp, gc, gx in zip(_unstack(params["groups"], n),

@@ -24,8 +24,14 @@ with duplicate indices, and so is every gradient:
   reference's ``.at[t_s].add`` accumulates on the CPU.  ``index_add_``
   is not used: on the card its float atomics change bits from run to
   run.
+
+On DTensors (:func:`_moe_sharded`) every rank routes only its own
+tokens, with the whole slab's capacity and drops, and the experts' slots
+travel to the experts' ranks by all-to-all; no rank holds the slab.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -47,7 +53,8 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, src, index, valid, inv, inv_valid):
         ctx.save_for_backward(inv, inv_valid)
         out = src[index]
-        return torch.where(valid[:, None], out, torch.zeros_like(out))
+        return torch.where(valid[:, None], out,
+                           torch.zeros((), dtype=out.dtype, device=out.device))
 
     @staticmethod
     def backward(ctx, g_out):
@@ -69,12 +76,10 @@ def _count(ids: torch.Tensor, n: int) -> torch.Tensor:
         0, ids, torch.ones_like(ids))
 
 
-def _routing(xt, router, n_experts: int, top_k: int, cap: int):
-    """The reference's routing of a (T, d) token slab: logits (T, E)
-    float32, expert ids (T, K) in top-k order, gates (T, K) float32, and
-    the maps between assignments and buffer slots."""
-    T = xt.shape[0]
-    dev = xt.device
+def _route(xt, router, top_k: int):
+    """The reference's router over a (T, d) token slab: logits (T, E)
+    float32, expert ids (T, K) in top-k order and gates (T, K)
+    float32."""
     logits = xt.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
@@ -82,26 +87,51 @@ def _routing(xt, router, n_experts: int, top_k: int, cap: int):
     gate_vals, expert_ids = gate_vals[:, :top_k], expert_ids[:, :top_k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    return logits, expert_ids, gate_vals
+
+
+def _slot_maps(expert_ids, counts, cap: int, width: int, earlier, total):
+    """The maps between a slab's assignments and a buffer of ``width``
+    slots an expert.  An assignment is kept while its position among all
+    assignments to its expert in flat token order is below ``cap``:
+    ``earlier[e]`` of them lie in the slabs before this one, ``total[e]``
+    in all slabs (``counts[e]`` in this one).  When anything anywhere is
+    dropped, the first assignment to expert 0 in flat order gets a zero
+    slot (the reference's duplicate writes).  -> (slot -> assignment,
+    slot valid, assignment -> its slot or -1)."""
+    T, top_k = expert_ids.shape
+    dev = expert_ids.device
     flat_e = expert_ids.reshape(-1)                         # (T*K,)
     order = torch.sort(flat_e, stable=True).indices         # (T*K,)
     e_s = flat_e[order]
-    counts = _count(flat_e, n_experts)
     first = torch.cumsum(counts, 0) - counts                 # (E,)
     pos = torch.arange(T * top_k, device=dev) - first[e_s]  # in its expert
-    keep_s = pos < cap
-    # slot (e, c) <- sorted assignment first[e] + c, while c < count[e]
-    c = torch.arange(cap, device=dev)
-    slot_valid = c[None, :] < torch.clamp(counts, max=cap)[:, None]
+    keep_s = pos + earlier[e_s] < cap
+    # slot (e, c) <- sorted assignment first[e] + c, while it is kept
+    c = torch.arange(width, device=dev)
+    n_keep = torch.clamp(torch.minimum(counts, cap - earlier), min=0)
+    slot_valid = c[None, :] < n_keep[:, None]
     # the reference's duplicate writes: a drop zeroes slot (0, 0)
-    slot_valid[0, 0] &= ~(counts > cap).any()
+    slot_valid[0, 0] &= ~((total > cap).any() & (earlier[0] == 0))
     slot_src = torch.clamp(first[:, None] + c[None, :], max=T * top_k - 1)
-    slot_assign = order[slot_src].reshape(-1)               # (E*C,) flat a
+    slot_assign = order[slot_src].reshape(-1)               # (E*W,) flat a
     slot_valid = slot_valid.reshape(-1)
     # assignment a = t*K + k -> its slot, -1 if dropped
     slot_of = torch.full((T * top_k,), -1, dtype=torch.int64, device=dev)
-    slot_of[order] = torch.where(keep_s, e_s * cap + pos,
+    slot_of[order] = torch.where(keep_s, e_s * width + pos,
                                  torch.full_like(pos, -1))
-    return logits, expert_ids, gate_vals, slot_assign, slot_valid, slot_of
+    return slot_assign, slot_valid, slot_of
+
+
+def _routing(xt, router, n_experts: int, top_k: int, cap: int):
+    """The reference's routing of a whole (T, d) token slab: logits,
+    expert ids, gates (:func:`_route`) and the slot maps of the (E, cap)
+    buffer (:func:`_slot_maps`)."""
+    logits, expert_ids, gate_vals = _route(xt, router, top_k)
+    counts = _count(expert_ids.reshape(-1), n_experts)
+    maps = _slot_maps(expert_ids, counts, cap, cap, torch.zeros_like(counts),
+                      counts)
+    return (logits, expert_ids, gate_vals) + maps
 
 
 def _slots(slot_of, slot_assign, slot_valid, lo: int, hi: int):
@@ -162,58 +192,140 @@ def _combine(out_buf, gate_vals, expert_ids, slot_assign, slot_valid,
 def _moe_tokens(p, xt: torch.Tensor, *, n_experts: int, top_k: int, act_fn,
                 capacity_factor: float):
     """Core dispatch over a flat (T, d) token slab -> (out (T, d),
-    (logits, expert_ids)).  On DTensors the routing runs replicated
-    (every rank routes every token: the capacity and the drops are the
-    whole slab's); where the mesh splits the experts, each rank runs its
-    own over every token (:func:`_moe_expert_parallel`), else the
-    dispatch and the combine run replicated and the expert products on
-    the weights' shards."""
+    (logits, expert_ids)); on DTensors :func:`_moe_sharded`."""
     T, d = xt.shape
     C = capacity(T, top_k, n_experts, capacity_factor)
-    routing = dt.replicated_call(_routing, xt, p["router"], n_experts,
-                                 top_k, C)
-    if dt.shard_count(p["w_gate"], 0) > 1:
-        return _moe_expert_parallel(p, xt, routing, top_k=top_k,
-                                    act_fn=act_fn, C=C)
-    logits, expert_ids, gate_vals, slot_assign, slot_valid, slot_of = routing
+    if dt.is_dt(xt):
+        return _moe_sharded(p, xt, n_experts=n_experts, top_k=top_k,
+                            act_fn=act_fn, C=C)
+    logits, expert_ids, gate_vals, slot_assign, slot_valid, slot_of = \
+        _routing(xt, p["router"], n_experts, top_k, C)
     hi = n_experts * C                                       # every slot
-    buf = dt.replicated_call(_dispatch, xt, slot_assign, slot_valid, slot_of,
-                             top_k, C, 0, hi)
+    buf = _dispatch(xt, slot_assign, slot_valid, slot_of, top_k, C, 0, hi)
     out_buf = _experts(buf, p["w_gate"], p["w_up"], p["w_down"], act_fn)
-    out = dt.replicated_call(_combine, out_buf, gate_vals, expert_ids,
-                             slot_assign, slot_valid, slot_of, 0, hi)
+    out = _combine(out_buf, gate_vals, expert_ids, slot_assign, slot_valid,
+                   slot_of, 0, hi)
     return out, (logits, expert_ids)
 
 
-def _moe_expert_parallel(p, xt, routing, *, top_k: int, act_fn, C: int):
-    """The MoE on DTensors whose experts the mesh splits: each rank runs
-    its own experts (their weights gathered over any other axis) over the
-    whole routing, and the token outputs are a pending sum over the expert
-    axes; the tokens and the gates get their gradients back as such sums.
-    -> (out (T, d), (logits, expert_ids))."""
+def _earlier_and_total(counts, mesh, dims):
+    """(E,) assignment counts of this rank's slab -> the counts of the
+    slabs before it in flat token order, and of all slabs: one
+    all-gather of the counts a mesh dim in ``dims`` (the dims that split
+    the tokens; a slab's place in token order is its coordinate along
+    them, the first the major one)."""
+    import torch.distributed._functional_collectives as funcol
+    every = counts[None]
+    for i in reversed(dims):
+        every = funcol.all_gather_tensor(every, 0, (mesh, i))
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in dims:
+        block = block * mesh.shape[i] + coord[i]
+    before = torch.arange(every.shape[0], device=counts.device) < block
+    return (every * before[:, None]).sum(0), every.sum(0)
+
+
+def _to_experts(buf, mesh, dim: int):
+    """All-to-all over mesh dim ``dim``, whose n ranks hold E / n experts
+    each: (E, W, d) slots of this rank's tokens by expert -> (E / n,
+    n W, d) slots of this rank's experts by source rank."""
+    import torch.distributed._functional_collectives as funcol
+    E, W, d = buf.shape
+    n = mesh.shape[dim]
+    got = funcol.all_to_all_single_autograd(buf.reshape(E * W, d), None,
+                                            None, (mesh, dim))
+    return got.reshape(n, E // n, W, d).transpose(0, 1).reshape(
+        E // n, n * W, d)
+
+
+def _from_experts(out, mesh, dim: int):
+    """The inverse of :func:`_to_experts`: (E / n, n W, d) -> (E, W, d)."""
+    import torch.distributed._functional_collectives as funcol
+    El, nW, d = out.shape
+    n = mesh.shape[dim]
+    send = out.reshape(El, n, nW // n, d).transpose(0, 1).reshape(-1, d)
+    got = funcol.all_to_all_single_autograd(send, None, None, (mesh, dim))
+    return got.reshape(n * El, nW // n, d)
+
+
+def _moe_sharded(p, xt, *, n_experts: int, top_k: int, act_fn, C: int):
+    """The MoE on DTensors: every rank routes only its own tokens.
+
+    The slab is split over every mesh dim where the tokens are split,
+    and over the dims where they are whole too when the rank's tokens
+    divide among them (each rank a contiguous piece).  The capacity C is
+    the whole slab's and the drops are global: one all-gather of the
+    (E,) counts a split dim gives each rank the assignments to each
+    expert in the slabs before its own (:func:`_earlier_and_total`).  A
+    rank's kept assignments fill its (E, W, d) buffer, W = min(C, its
+    tokens) (no slab can keep more for one expert).  Where the mesh
+    splits the experts along a dim that splits the tokens, one
+    all-to-all sends each expert's slots to its rank and one brings the
+    outputs back; where it splits them along a dim the tokens are whole
+    on, each rank runs its own experts and the outputs are gathered over
+    that dim; else each rank runs every expert on its own slots.  The
+    output is laid out as ``xt``.  -> (out (T, d), (logits, expert_ids),
+    split as the tokens)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    logits, expert_ids, gate_vals, slot_assign, slot_valid, slot_of = routing
-    mesh = p["w_gate"].device_mesh
-    split = [i for i, pl in enumerate(p["w_gate"].placements)
-             if pl.is_shard() and pl.dim == 0]
-    rep = (Replicate(),) * mesh.ndim
-    part = tuple(Partial() if i in split else Replicate()
+    mesh = xt.device_mesh
+    xt = dt.unshard(xt, 1)
+    layout = tuple(xt.placements)
+    whole = [i for i, pl in enumerate(layout) if not pl.is_shard()]
+    divides = xt.to_local().shape[0] % math.prod(
+        mesh.shape[i] for i in whole) == 0
+    tok = tuple(Shard(0) if pl.is_shard() or divides else Replicate()
+                for pl in layout)
+    split = [i for i, pl in enumerate(tok) if pl.is_shard()]
+    xs = xt.redistribute(mesh, tok)
+    x_l = xs.to_local()
+    # the experts' dim (the last, where several split them)
+    ep = [i for i, pl in enumerate(p["w_gate"].placements)
+          if pl.is_shard() and pl.dim == 0][-1:]
+    w_pl = tuple(Shard(0) if i in ep else Replicate()
                  for i in range(mesh.ndim))
-    ep = tuple(Shard(0) if i in split else Replicate()
-               for i in range(mesh.ndim))
-    x_l = xt.redistribute(mesh, rep).to_local(grad_placements=part)
-    g_l = gate_vals.redistribute(mesh, rep).to_local(grad_placements=part)
-    e_l, sa, sv, so = [t.redistribute(mesh, rep).to_local()
-                       for t in (expert_ids, slot_assign, slot_valid,
-                                 slot_of)]
-    ws = [p[k].redistribute(mesh, ep) for k in ("w_gate", "w_up", "w_down")]
-    lo = dt.shard_offset(ws[0], 0) * C
-    hi = lo + ws[0].to_local().shape[0] * C
-    buf = _dispatch(x_l, sa, sv, so, top_k, C, lo, hi)
-    out_buf = _experts(buf, *(w.to_local() for w in ws), act_fn)
-    out = _combine(out_buf, g_l, e_l, sa, sv, so, lo, hi)
-    return (DTensor.from_local(out, mesh, part, run_check=False),
-            (logits, expert_ids))
+    # a weight serves this rank's tokens only: a pending sum over the
+    # dims that split them (its expert dim aside)
+    w_grad = tuple(Shard(0) if i in ep else Partial() if i in split
+                   else Replicate() for i in range(mesh.ndim))
+    r_grad = tuple(Partial() if i in split else Replicate()
+                   for i in range(mesh.ndim))
+    router = p["router"].redistribute(mesh, (Replicate(),) * mesh.ndim
+                                      ).to_local(grad_placements=r_grad)
+    ws = [p[k].redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+          for k in ("w_gate", "w_up", "w_down")]
+
+    logits, expert_ids, gate_vals = _route(x_l, router, top_k)
+    counts = _count(expert_ids.reshape(-1), n_experts)
+    earlier, total = _earlier_and_total(counts, mesh, split)
+    W = min(C, x_l.shape[0])
+    sa, sv, so = _slot_maps(expert_ids, counts, C, W, earlier, total)
+    full = n_experts * W
+    if ep and ep[0] in split:                 # all-to-all to the experts
+        buf = _to_experts(_dispatch(x_l, sa, sv, so, top_k, W, 0, full),
+                          mesh, ep[0])
+        out_buf = _from_experts(_experts(buf, *ws, act_fn), mesh, ep[0])
+    elif ep:              # tokens whole along the expert dim: own experts
+        lo = mesh.get_coordinate()[ep[0]] * ws[0].shape[0] * W
+        hi = lo + ws[0].shape[0] * W
+        # (the dispatch's gradient: this rank's experts' share)
+        x_d = xs.to_local(grad_placements=tuple(
+            Partial() if i in ep else pl for i, pl in enumerate(tok)))
+        mine = _experts(_dispatch(x_d, sa, sv, so, top_k, W, lo, hi), *ws,
+                        act_fn)
+        sub = mesh[mesh.mesh_dim_names[ep[0]]]
+        out_buf = DTensor.from_local(mine, sub, (Shard(0),),
+                                     run_check=False).redistribute(
+            sub, (Replicate(),)).to_local()
+    else:                                     # every expert on this rank
+        out_buf = _experts(_dispatch(x_l, sa, sv, so, top_k, W, 0, full),
+                           *ws, act_fn)
+    out = _combine(out_buf, gate_vals, expert_ids, sa, sv, so, 0, full)
+
+    def up(t):
+        return DTensor.from_local(t, mesh, tok, run_check=False)
+
+    return up(out).redistribute(mesh, layout), (up(logits), up(expert_ids))
 
 
 def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int, act_fn,
@@ -244,15 +356,31 @@ def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int, act_fn,
 def shared_expert_ffn(p, x: torch.Tensor, *, act_fn):
     """Always-on shared experts (qwen2-moe): a gated MLP with the shared
     experts fused into one wider FFN."""
-    gate = act_fn(x @ p["w_gate"])
-    up = x @ p["w_up"]
-    return (gate * up) @ p["w_down"]
+    gate = act_fn(dt.linear(x, dt.fsdp_whole(p["w_gate"], 0, x)))
+    up = dt.linear(x, dt.fsdp_whole(p["w_up"], 0, x))
+    return dt.row_parallel(gate * up, p["w_down"])
 
 
 def load_balancing_loss(logits: torch.Tensor, expert_ids: torch.Tensor,
                         n_experts: int, top_k: int) -> torch.Tensor:
-    """Switch-style auxiliary loss: E * sum_e f_e * p_e."""
-    return dt.replicated_call(_balance, logits, expert_ids, n_experts, top_k)
+    """Switch-style auxiliary loss: E * sum_e f_e * p_e.  On DTensors
+    (split as :func:`_moe_sharded` splits the tokens) each rank sums its
+    own rows' probabilities and counts, and the (2, E) sums are reduced
+    across the mesh."""
+    if not dt.is_dt(logits):
+        return _balance(logits, expert_ids, n_experts, top_k)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = logits.device_mesh
+    local = torch.stack([
+        torch.softmax(logits.to_local(), dim=-1).sum(0),
+        _count(expert_ids.to_local().reshape(-1), n_experts).to(
+            torch.float32)])
+    sums = DTensor.from_local(
+        local, mesh, tuple(Partial() if pl.is_shard() else Replicate()
+                           for pl in logits.placements),
+        run_check=False).redistribute(mesh, (Replicate(),) * mesh.ndim)
+    T = logits.shape[0]
+    return n_experts * torch.sum(sums[1] / (T * top_k) * (sums[0] / T))
 
 
 def _balance(logits, expert_ids, n_experts: int, top_k: int):

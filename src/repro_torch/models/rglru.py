@@ -26,7 +26,10 @@ _C = 8.0
 
 
 def _gates(p, u):
-    r_in, i_in = dt.keep_layout(u @ p["w_r"], u @ p["w_i"])
+    # each rank its own rows and gate channels: DTensor's own layout of
+    # these products makes every position of the batch whole on a rank
+    r_in, i_in = (dt.batch_local(torch.matmul, "bm", "c", u, p[w])
+                  for w in ("w_r", "w_i"))
     r = torch.sigmoid(r_in)
     i = torch.sigmoid(i_in)
     log_a = (-_C * F.softplus(p["lam"].to(torch.float32))
@@ -95,8 +98,8 @@ def rglru_step(p, u1: torch.Tensor, h):
 
 
 def _in_and_gate(p, x):
-    u = x @ p["w_x"]
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    u = dt.linear(x, p["w_x"])
+    gate = F.gelu(dt.linear(x, p["w_gate"]), approximate="tanh")
     return dt.keep_layout(u, gate)
 
 
@@ -106,7 +109,7 @@ def recurrent_block_train(p, x: torch.Tensor, *, conv_state=None, h0=None):
     u, gate = _in_and_gate(p, x)
     u, conv_state = causal_conv1d(u, p["conv_w"], conv_state)
     h, h_last = rglru_scan(p, u, h0)
-    y = (h * gate) @ p["w_out"]
+    y = dt.row_parallel(h * gate, p["w_out"])
     return y, (conv_state, h_last)
 
 
@@ -114,5 +117,5 @@ def recurrent_block_decode(p, x1: torch.Tensor, conv_state, h):
     u, gate = _in_and_gate(p, x1)
     u, conv_state = causal_conv1d(u, p["conv_w"], conv_state)
     h1, h_new = rglru_step(p, u, h)
-    y = (h1 * gate) @ p["w_out"]
+    y = dt.linear(h1 * gate, p["w_out"])
     return y, (conv_state, h_new)

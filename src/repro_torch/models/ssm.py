@@ -53,11 +53,11 @@ def _conv(x, w, state):
 
 
 def _project(p, x):
-    z = x @ p["w_z"]            # gate   (B, L, di)
-    xs = x @ p["w_x"]           # values (B, L, di)
-    Bm = x @ p["w_b"]           # (B, L, N)
-    Cm = x @ p["w_c"]
-    dt = x @ p["w_dt"]          # (B, L, H)
+    z = dt_mod.linear(x, p["w_z"])        # gate   (B, L, di)
+    xs = dt_mod.linear(x, p["w_x"])       # values (B, L, di)
+    Bm = dt_mod.linear(x, p["w_b"])       # (B, L, N)
+    Cm = dt_mod.linear(x, p["w_c"])
+    dt = dt_mod.linear(x, p["w_dt"])      # (B, L, H)
     return dt_mod.keep_layout(z, xs, Bm, Cm, dt)
 
 
@@ -145,7 +145,7 @@ def ssd_train(p, x: torch.Tensor, *, d_inner: int, n_state: int,
                           headdim=headdim, dtype=x.dtype),
         "cbbcmmh", "ch", xs, Bm, Cm, dt, A, p["d_skip"], state.get("ssm"))
     y = _gated_norm(p, y, z, x.dtype)
-    out = y @ p["w_out"]
+    out = dt_mod.row_parallel(y, p["w_out"])
     new_state["ssm"] = h
     return out, new_state
 
@@ -179,6 +179,6 @@ def ssd_decode(p, x1: torch.Tensor, state, *, d_inner: int, n_state: int,
         functools.partial(_ssd_step, headdim=headdim, dtype=x1.dtype),
         "cbbcmmh", "ch", xs, Bm, Cm, dt, A, p["d_skip"], state["ssm"])
     y = _gated_norm(p, y, z, x1.dtype)
-    out = y @ p["w_out"]
+    out = dt_mod.linear(y, p["w_out"])
     new_state["ssm"] = ssm
     return out, new_state

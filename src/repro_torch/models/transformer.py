@@ -257,10 +257,9 @@ def cross_kv(p_cross, enc_out):
     output (no RoPE)."""
     B, Se, d = enc_out.shape
     K, dh = p_cross["wk"].shape[1:]
-    kx = dt.split_guard(enc_out @ dt.merged(p_cross["wk"], 1), K).reshape(
-        B, Se, K, dh)
-    vx = dt.split_guard(enc_out @ dt.merged(p_cross["wv"], 1), K).reshape(
-        B, Se, K, dh)
+    kx, vx = (dt.split_guard(
+        enc_out @ dt.merged(dt.fsdp_whole(p_cross[w], 0, enc_out), 1),
+        K).reshape(B, Se, K, dh) for w in ("wk", "wv"))
     return kx, vx
 
 
@@ -372,7 +371,8 @@ def embed_tokens(cfg: ModelConfig, params, tokens, image_embeds=None):
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
     x = x * scale.to(dtype).to(x.device)
     if cfg.vision_tokens and image_embeds is not None:
-        proj = dt.keep_layout(image_embeds.to(x.dtype) @ params["img_proj"])
+        proj = dt.keep_layout(image_embeds.to(x.dtype) @ dt.fsdp_whole(
+            params["img_proj"], 0, image_embeds))
         x = torch.cat([proj, x[:, cfg.vision_tokens:]], dim=1)
     return x
 
@@ -381,6 +381,18 @@ def _unembed_matrix(cfg: ModelConfig, params):
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def _chunk_logits(hc, W):
+    """``hc @ W`` of a loss chunk.  Where the mesh splits the vocabulary,
+    each rank multiplies its own rows by its own columns (``W`` gathered
+    along d first, where fsdp splits it): a layout pinned as
+    :func:`dt.pin_batch` pins the residual stream, since DTensor's own
+    choice can contract over the split d and reduce the whole batch's
+    rows of the chunk on every rank."""
+    if dt.shard_count(W, -1) == 1:
+        return hc @ W
+    return dt.batch_local(torch.matmul, "bm", "c", hc, dt.unshard(W, 0))
 
 
 def loss_chunk_len(cfg: ModelConfig, B: int, S: int) -> int:
@@ -407,7 +419,7 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
                           < cfg.vocab_size, 1)
 
     def chunk(hc, lc, mc, W):
-        logits = (hc @ W).to(torch.float32)
+        logits = _chunk_logits(hc, W).to(torch.float32)
         logits = layers.softcap(logits, cfg.logit_softcap)
         if pad:
             logits = torch.where(vocab_ok, logits, layers.NEG_INF)

@@ -7,22 +7,30 @@ Spawns 8 ranks (``torch.multiprocessing.spawn``) that join one gloo group
 through a ``file://`` rendezvous in WORK_DIR and build a ``DeviceMesh``
 on the CPU.  Imports no JAX.
 
-1. 8 ranks, a (2, 4) ("data", "model") mesh: for each config named in
-   ``WORK_DIR/archs.txt``, from ``WORK_DIR/<arch>.npz`` (the reduced
-   config's float32 parameters as ``path/of/leaf`` arrays, and the batch
-   under ``batch/<key>``), the parameters and batch are placed by
+1. 8 ranks, a (2, 4) ("data", "model") mesh: for each line ``CASE ARCH
+   [key=value ...]`` of ``WORK_DIR/archs.txt`` (the reduced config of
+   ARCH with the fields given replaced), from ``WORK_DIR/<CASE>.npz``
+   (the config's float32 parameters as ``path/of/leaf`` arrays, and the
+   batch under ``batch/<key>``), the parameters and batch are placed by
    ``distributed.sharding``'s rules and the DTensor loss and gradients
-   are taken; rank 0 writes ``WORK_DIR/<arch>.out.npz`` (``loss``, each
+   are taken; rank 0 writes ``WORK_DIR/<CASE>.out.npz`` (``loss``, each
    gradient whole, the local shape of every parameter's shard).  The
-   placed parameters of the first config are saved as a sharded
-   checkpoint in ``WORK_DIR/port8``; then rank 0 writes
-   ``WORK_DIR/port8.done``.
+   placed parameters of the first case are saved as a sharded
+   checkpoint in ``WORK_DIR/port8``.  Then, for each line ``CASE ARCH
+   [key=value ...]`` of ``WORK_DIR/serve.txt``, from ``WORK_DIR/<CASE>.
+   npz`` (parameters, the prompt under ``batch/<key>``, the decode
+   steps' tokens (steps, B, 1) under ``steps``), the sharded prefill to a
+   horizon of the prompt's length plus the steps and one decode step a
+   token; rank 0 writes ``WORK_DIR/<CASE>.out.npz`` (``logits/<i>``: the
+   prefill's, then each step's; ``state/<path>``: the final decode state
+   whole).  Then rank 0 writes ``WORK_DIR/port8.done``.
 2. Ranks 0-3 join a new group of 4, a (2, 2) mesh, and, once
    ``WORK_DIR/ref8.done`` exists (another process's checkpoint), restore
    each checkpoint directory named in ``WORK_DIR/restore.txt`` onto it by
    the rules (``Checkpointer.restore(..., shardings=)``); rank 0 writes
    every leaf whole to ``WORK_DIR/<dir>.restored.npz``.
 """
+import dataclasses
 import os
 import sys
 import time
@@ -58,18 +66,17 @@ def _flat(tree, prefix="") -> dict:
 
 
 def _loss(rank: int, work: str) -> None:
-    from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import (batch_shardings, gather,
                                                   param_shardings, place)
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import loss_fn
     from repro_torch.train import Checkpointer, value_and_grad
     mesh = make_debug_mesh(2, 4)
-    archs = [ln.strip() for ln in open(os.path.join(work, "archs.txt"))
+    cases = [ln.split() for ln in open(os.path.join(work, "archs.txt"))
              if ln.strip()]
-    for i, arch in enumerate(archs):
-        cfg = get_config(arch).reduced()
-        data = dict(np.load(os.path.join(work, f"{arch}.npz")))
+    for i, (case, arch, *over) in enumerate(cases):
+        cfg = _config(arch, over)
+        data = dict(np.load(os.path.join(work, f"{case}.npz")))
         batch = {k[6:]: torch.as_tensor(v) for k, v in data.items()
                  if k.startswith("batch/")}
         params = _tree({k: v for k, v in data.items()
@@ -84,13 +91,56 @@ def _loss(rank: int, work: str) -> None:
         local = {f"local/{k}": np.array(v.to_local().shape)
                  for k, v in _flat(dparams).items()}
         if rank == 0:
-            np.savez(os.path.join(work, f"{arch}.out.npz"),
+            np.savez(os.path.join(work, f"{case}.out.npz"),
                      loss=np.array(whole_loss),
                      **{f"grad/{k}": v.numpy() for k, v in full.items()},
                      **local)
         if i == 0:
             ck = Checkpointer(os.path.join(work, "port8"), keep=1)
             ck.save(0, {"params": dparams})
+
+
+def _serve(rank: int, work: str) -> None:
+    from repro_torch.distributed.sharding import (batch_shardings, gather,
+                                                  param_shardings, place,
+                                                  replicated)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import decode_fn, prefill_fn
+    mesh = make_debug_mesh(2, 4)
+    cases = [ln.split() for ln in open(os.path.join(work, "serve.txt"))
+             if ln.strip()]
+    for case, arch, *over in cases:
+        cfg = _config(arch, over)
+        data = dict(np.load(os.path.join(work, f"{case}.npz")))
+        steps = torch.as_tensor(data.pop("steps"))
+        batch = {k[6:]: torch.as_tensor(v) for k, v in data.items()
+                 if k.startswith("batch/")}
+        params = place(_tree({k: v for k, v in data.items()
+                              if not k.startswith("batch/")}),
+                       param_shardings(cfg, mesh))
+        horizon = batch["tokens"].shape[1] + steps.shape[0]
+        logits, state = prefill_fn(cfg, max_len=horizon)(
+            params, place(batch, batch_shardings(mesh, batch)))
+        out = [logits.full_tensor()]
+        step = decode_fn(cfg)
+        for tok in steps:
+            t = place({"t": tok}, {"t": replicated(mesh)} if cfg.serve_2d
+                      else batch_shardings(mesh, {"t": tok}))["t"]
+            logits, state = step(params, state, t)
+            out.append(logits.full_tensor())
+        whole = _flat(gather(state))
+        if rank == 0:
+            np.savez(os.path.join(work, f"{case}.out.npz"),
+                     **{f"logits/{i}": v.numpy() for i, v in enumerate(out)},
+                     **{f"state/{k}": v.numpy() for k, v in whole.items()})
+
+
+def _config(arch: str, over):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, **{
+        k: type(getattr(cfg, k))(v) for k, v in
+        (kv.split("=", 1) for kv in over)})
 
 
 def _restore(rank: int, work: str) -> None:
@@ -139,6 +189,7 @@ def rank_main(rank: int, work: str) -> None:
     _join(rank, 8, work)
     try:
         _loss(rank, work)
+        _serve(rank, work)
         dist.barrier()
         if rank == 0:
             open(os.path.join(work, "port8.done"), "w").close()

@@ -16,8 +16,15 @@ FLOPs count as 2 N D but which does no arithmetic, is a large share of
 the parameters: the published-size bounds on the counted FLOPs and the
 ratio are ``chip_smoke.py``'s gates.)  A kind's cells run in one
 subprocess (the fake group is the process's default group), the three
-kinds at once and once a session.  Without a
-card, ``--device cuda`` exits nonzero and writes an error record.
+kinds at once and once a session.  After the families,
+``EXTRA_CELLS`` run in the same subprocesses: the MoE (its experts
+split, and whole) and the loss of a wide vocabulary issue no collective
+that holds the whole batch's tokens or rows (the record's
+``batch_sized_collectives``), prefill and decode with kv heads that
+divide the model axis trace, and none of them makes a tensor of the
+whole batch's rows or tokens (``largest_tensors``).
+Without a card, ``--device cuda`` exits nonzero and writes an error
+record.
 """
 import json
 import os
@@ -48,6 +55,23 @@ KINDS = {"train": "train_4k", "prefill": "prefill_32k",
 # one of each family (``ModelConfig.family``)
 FAMILY_ARCHS = ("gemma2-2b", "qwen2-moe-a2.7b", "mamba2-370m",
                 "recurrentgemma-2b", "whisper-small", "phi-3-vision-4.2b")
+# cells that failed or held the whole batch's tensors on a rank before the
+# MoE, the loss, decode attention and the prefill's decode state ran on
+# each rank's own share: their sequence is SEQ2, so that the batch's token
+# count (BATCH x SEQ2) and row count (BATCH) are no dim of any weight
+SEQ2 = 40
+EXTRA_CELLS = {
+    # the experts split 4 ways (an all-to-all), and whole on every rank;
+    # a vocabulary large enough that DTensor's own layout of the logits
+    # product reduced the whole batch's rows of a loss chunk
+    "train": (("qwen3-moe-235b-a22b", ("n_experts=4",)),
+              ("qwen2-moe-a2.7b", ("n_experts=6",)),
+              ("command-r-plus-104b", ("vocab_size=4096",))),
+    # kv heads that divide the model axis, the batch split on data
+    "prefill": (("phi-3-vision-4.2b", ("n_kv_heads=4",)),),
+    "decode": (("phi-3-vision-4.2b", ("n_kv_heads=4",)),
+               ("qwen2-moe-a2.7b", ("n_kv_heads=4",))),
+}
 KEYS = {"arch", "shape", "mesh", "kind", "status", "collectives",
         "param_bytes_per_dev", "analytic", "roofline", "memory_analysis",
         "cost_analysis_raw", "lower_s"}
@@ -75,8 +99,8 @@ def _run(code: str, timeout: int = 600) -> subprocess.CompletedProcess:
 
 
 def _all_records(work: str) -> dict:
-    """kind -> the families' records: one subprocess a kind, the three
-    at once."""
+    """kind -> the families' records, then its ``EXTRA_CELLS``': one
+    subprocess a kind, the three at once."""
     procs = {}
     for kind, shape in KINDS.items():
         code = DEBUG_CELLS + textwrap.dedent(f"""
@@ -85,6 +109,12 @@ def _all_records(work: str) -> dict:
             out = [D.run_cell(a, {shape!r}, multi_pod=False,
                               mesh_shape=(2, 4), device="cpu")
                    for a in {list(FAMILY_ARCHS)!r}]
+            D.SHAPES = {{k: dict(v, seq_len={SEQ2})
+                        for k, v in D.SHAPES.items()}}
+            out += [D.run_cell(a, {shape!r}, multi_pod=False,
+                               mesh_shape=(2, 4), device="cpu",
+                               overrides=o)
+                    for a, o in {list(EXTRA_CELLS.get(kind, ()))!r}]
             print("JSON", json.dumps(out))
         """)
         procs[kind] = subprocess.Popen(
@@ -136,7 +166,7 @@ def test_debug_mesh_records(kind, records):
     want_keys = set(JRoofline(1.0, 1.0, 1.0, 1.0, 1).as_dict())
     assert ({get_config(a).family for a in FAMILY_ARCHS}
             == {get_config(a).family for a in ARCH_IDS})
-    got = records[kind]
+    got = records[kind][:len(FAMILY_ARCHS)]
     assert [rec["arch"] for rec in got] == list(FAMILY_ARCHS)
     for rec in got:
         arch = rec["arch"]
@@ -157,6 +187,92 @@ def test_debug_mesh_records(kind, records):
             assert rec["microbatches"] >= 1
             assert sum(v["count"] for v in rec["collectives"].values()) > 0
             assert rec["memory_analysis"]["opt_bytes"] > 0
+
+
+def _extra(records, kind: str, arch: str) -> dict:
+    got = records[kind][len(FAMILY_ARCHS):]
+    assert [r["arch"] for r in got] == [a for a, _ in EXTRA_CELLS[kind]]
+    rec = next(r for r in got if r["arch"] == arch)
+    assert rec["status"] == "ok" and rec["seq_len"] == SEQ2, rec
+    return rec
+
+
+def _whole_batch(shape) -> bool:
+    """A shape that holds the whole batch's tokens, or its rows (a data
+    shard holds BATCH / 2), in one of its first two dims."""
+    return BATCH * SEQ2 in shape or BATCH in shape[:2]
+
+
+def _made(rec) -> list:
+    return [(t["shape"], t["where"]) for t in rec["largest_tensors"]
+            if _whole_batch(t["shape"])]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b"])
+def test_moe_train_holds_no_global_tokens(arch, records):
+    """Each rank routes its own tokens: no collective's result holds the
+    whole batch's tokens (BATCH x SEQ2 rows, or (BATCH, SEQ2, ...)) and
+    no tensor a rank makes does; the experts' slots travel by all-to-all
+    where the model axis splits the experts (qwen3-moe-235b-a22b's 4 of
+    4), and stay on the rank where they are whole (6 experts)."""
+    rec = _extra(records, "train", arch)
+    bad = [(c["kind"], c["shape"], c["where"])
+           for c in rec["batch_sized_collectives"]
+           if BATCH * SEQ2 in c["shape"] or c["shape"][:2] == [BATCH, SEQ2]]
+    assert not bad, bad
+    assert not _made(rec), rec["largest_tensors"]
+    assert ("all-to-all" in rec["collectives"]) == (
+        arch == "qwen3-moe-235b-a22b"), rec["collectives"]
+
+
+def test_loss_holds_no_global_rows(records):
+    """Each rank computes the logits of its own rows: no collective's
+    result is a (BATCH, positions, ...) tensor of the whole batch's rows
+    (a data shard holds BATCH / 2), and no tensor a rank makes holds
+    them."""
+    rec = _extra(records, "train", "command-r-plus-104b")
+    bad = [(c["kind"], c["shape"], c["where"])
+           for c in rec["batch_sized_collectives"]
+           if len(c["shape"]) == 3 and c["shape"][0] == BATCH]
+    assert not bad, bad
+    assert not _made(rec), rec["largest_tensors"]
+
+
+def test_prefill_makes_only_own_state(records):
+    """Prefill with kv heads split on the model axis makes only each
+    rank's shards of the decode state (the (groups, BATCH, ...) caches of
+    the whole batch are never made on a rank)."""
+    rec = _extra(records, "prefill", "phi-3-vision-4.2b")
+    assert rec["overrides"] == ["n_kv_heads=4"]
+    assert rec["largest_tensors"] and not _made(rec), rec["largest_tensors"]
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "qwen2-moe-a2.7b"])
+def test_decode_with_kv_heads_split(arch, records):
+    """kv heads that divide the model axis (4 of 4) with the batch split
+    on data: the score and value products run on each rank's own
+    (batch, kv-head) block, and no rank makes a tensor of the whole
+    batch's rows."""
+    rec = _extra(records, "decode", arch)
+    assert rec["overrides"] == ["n_kv_heads=4"]
+    assert rec["cost_analysis_raw"]["flops"] > 0
+    assert rec["largest_tensors"] and not _made(rec), rec["largest_tensors"]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "gemma2-2b"])
+def test_all_rounds_depth_cut_to_pattern_period(arch):
+    """``--all``'s depth cut: up to a multiple of the layer pattern's
+    period (recurrentgemma-2b's 3), never past the published depth."""
+    from repro_torch.launch.dryrun import cut_overrides
+    cfg = get_config(arch)
+    p = cfg.pattern_period
+    for n in (1, 2, 3, 4, cfg.n_layers, cfg.n_layers + 5):
+        (got,) = cut_overrides(cfg, [f"n_layers={n}"])
+        depth = int(got.split("=")[1])
+        assert depth % p == 0 or depth == cfg.n_layers, got
+        assert min(n, cfg.n_layers) <= depth <= min(n + p - 1,
+                                                     cfg.n_layers), got
+    assert cut_overrides(cfg, ["vocab_size=4096"]) == ["vocab_size=4096"]
 
 
 def test_cuda_device_without_a_card_fails(tmp_path):

@@ -12,12 +12,18 @@ sharding``, the mesh helpers, sharded checkpoints) against
   devices_indices_map`` for the same spec (8 host devices in a
   subprocess).
 - The sharded loss: on an 8-rank gloo (2, 4) mesh (``_torch_mesh_worker.
-  py``) qwen2-moe-a2.7b's and gemma2-2b's reduced configs, the
-  reference's weights (q / k scaled by 1/4, as ``test_torch_models.py``)
-  carried over: the DTensor loss within ``1e-5 max(1, |loss|)`` of the
+  py``) the reduced configs of ``LOSS_CASES`` (gemma2-2b, and the MoE's
+  three layouts, with and without forced drops), the reference's
+  weights (q / k scaled by 1/4, as ``test_torch_models.py``) carried
+  over: the DTensor loss within ``1e-5 max(1, |loss|)`` of the
   reference's ``loss_fn`` run unsharded here, every gradient leaf within
   ``1e-4`` of its scale of the port's unsharded gradient (the mesh sums
   the partial products in another order), the experts split 4 ways.
+- Sharded serving: on the same ranks, the reduced configs of
+  ``SERVE_CASES`` (kv heads that divide the model axis, the batch split
+  on data) prefill a prompt and decode ``SERVE_STEPS`` tokens; every
+  step's logits and the final decode state within ``1e-4`` of their
+  scale of the port's unsharded prefill and decode.
 - Checkpoints: the port's 8-rank sharded save restores bit for bit on 4
   ranks and in the reference on 4 devices; the reference's 8-device save
   restores bit for bit on the port's 4-rank mesh.
@@ -41,8 +47,8 @@ from repro.models import init_params as j_init_params
 from repro.models import loss_fn as j_loss_fn
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding as ts
-from repro_torch.models import (loss_fn, param_leaves,
-                                params_from_reference)
+from repro_torch.models import (decode_fn, loss_fn, param_leaves,
+                                params_from_reference, prefill_fn)
 from repro_torch.train import value_and_grad
 from _subproc import run_with_devices
 from _torch_common import (once_per_session,
@@ -52,8 +58,37 @@ from _torch_common import (once_per_session,
 HERE = os.path.dirname(os.path.abspath(__file__))
 MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
           {"data": 2, "model": 4}, {"data": 8}]
-LOSS_ARCHS = ("qwen2-moe-a2.7b", "gemma2-2b")
 B, S = 4, 64
+# case -> (arch, reduced config overrides, sequence length): the MoE's
+# three layouts on the (2, 4) mesh (the experts split along the model
+# axis that splits the tokens: all-to-all; the experts whole: each rank
+# runs every expert; the tokens whole along the model axis because its
+# 126 a data shard do not divide by 4: each rank its own experts), with
+# forced drops (capacity factor 0.5: the drops and the slot (0, 0) rule
+# are the whole slab's)
+LOSS_CASES = {
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, S),
+    "gemma2-2b": ("gemma2-2b", {}, S),
+    "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}, S),
+    "qwen3-moe-235b-a22b+drops": ("qwen3-moe-235b-a22b",
+                                  {"capacity_factor": 0.5}, S),
+    "qwen2-moe-a2.7b+drops": ("qwen2-moe-a2.7b", {"capacity_factor": 0.5},
+                              S),
+    "qwen2-moe-a2.7b+6-experts+drops": (
+        "qwen2-moe-a2.7b", {"n_experts": 6, "capacity_factor": 0.5}, S),
+    "qwen3-moe-235b-a22b+seq63+drops": ("qwen3-moe-235b-a22b",
+                                        {"capacity_factor": 0.5}, 63),
+}
+LOSS_ARCHS = tuple(LOSS_CASES)
+# case -> (arch, reduced config overrides): prefill of SERVE_PROMPT
+# positions, then SERVE_STEPS decode steps, with the kv heads split over
+# the model axis (the per-(batch, kv-head) decode attention, each rank's
+# own decode-state shards, and the MoE and its shared experts in decode)
+SERVE_CASES = {
+    "phi-3-vision-4.2b+kv4": ("phi-3-vision-4.2b", {"n_kv_heads": 4}),
+    "qwen2-moe-a2.7b+kv4": ("qwen2-moe-a2.7b", {"n_kv_heads": 4}),
+}
+SERVE_PROMPT, SERVE_STEPS = 32, 3
 QK_SCALE = 0.25
 
 
@@ -185,11 +220,51 @@ def test_shard_offsets_equal_jax_named_sharding():
 # ----------------------------------------------------------------------------
 
 
-def _batch(cfg):
+def _case_configs(case):
+    """(the port's, the reference's) reduced config of a loss or serve
+    case, and its sequence length."""
+    arch, over, seq = LOSS_CASES.get(case) or (*SERVE_CASES[case],
+                                               SERVE_PROMPT)
+    return (dataclasses.replace(get_config(arch).reduced(), **over),
+            dataclasses.replace(j_get_config(arch).reduced(), **over), seq)
+
+
+def _serve_inputs(cfg) -> dict:
+    """A serve case's prompt (``batch/<key>``) and decode tokens
+    (``steps``, (SERVE_STEPS, B, 1))."""
+    rng = np.random.default_rng(1)
+    out = {"batch/tokens": rng.integers(0, cfg.vocab_size,
+                                        (B, SERVE_PROMPT)).astype(np.int32),
+           "steps": rng.integers(0, cfg.vocab_size,
+                                 (SERVE_STEPS, B, 1)).astype(np.int32)}
+    if cfg.vision_tokens:
+        out["batch/image_embeds"] = (rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
+
+
+def _serve_plain(cfg, params, inputs) -> dict:
+    """The port's unsharded prefill and decode of a serve case: each
+    step's logits (``logits/<i>``) and the final state (``state/<path>``)."""
+    batch = {k[6:]: torch.as_tensor(v) for k, v in inputs.items()
+             if k.startswith("batch/")}
+    logits, state = prefill_fn(cfg, max_len=SERVE_PROMPT + SERVE_STEPS)(
+        params, batch)
+    out = [logits]
+    for tok in inputs["steps"]:
+        logits, state = decode_fn(cfg)(params, state, torch.as_tensor(tok))
+        out.append(logits)
+    return {**{f"logits/{i}": v.numpy() for i, v in enumerate(out)},
+            **{f"state/{k}": v for k, v in _flat_np(state).items()}}
+
+
+def _batch(cfg, seq=S):
     rng = np.random.default_rng(0)
-    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-           "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-           "mask": (rng.random((B, S)) < 0.9).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, seq)).astype(
+               np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (B, seq)).astype(
+               np.int32),
+           "mask": (rng.random((B, seq)) < 0.9).astype(np.float32)}
     return out
 
 
@@ -274,16 +349,29 @@ def _mesh_pass(work: str) -> dict:
     port's unsharded losses (and the port's gradients, kept in
     ``<arch>.grads.npz``)."""
     p0, batches = {}, {}
-    for arch in LOSS_ARCHS:
-        jcfg, cfg = j_get_config(arch).reduced(), get_config(arch).reduced()
-        batches[arch] = _batch(cfg)
-        p0[arch] = jax.device_get(_scale_qk(j_init_params(
+    for case in LOSS_ARCHS:
+        cfg, jcfg, seq = _case_configs(case)
+        batches[case] = _batch(cfg, seq)
+        p0[case] = jax.device_get(_scale_qk(j_init_params(
             jcfg, jax.random.PRNGKey(0))))
-        params = params_from_reference(cfg, p0[arch], device="cpu")
-        np.savez(os.path.join(work, f"{arch}.npz"), **_flat_np(params),
-                 **{f"batch/{k}": v for k, v in batches[arch].items()})
-    with open(os.path.join(work, "archs.txt"), "w") as f:
-        f.write("\n".join(LOSS_ARCHS))
+        params = params_from_reference(cfg, p0[case], device="cpu")
+        np.savez(os.path.join(work, f"{case}.npz"), **_flat_np(params),
+                 **{f"batch/{k}": v for k, v in batches[case].items()})
+    for case in SERVE_CASES:
+        cfg, jcfg, _ = _case_configs(case)
+        params = params_from_reference(cfg, jax.device_get(_scale_qk(
+            j_init_params(jcfg, jax.random.PRNGKey(0)))), device="cpu")
+        inputs = _serve_inputs(cfg)
+        np.savez(os.path.join(work, f"{case}.npz"), **_flat_np(params),
+                 **inputs)
+        with torch.no_grad():
+            np.savez(os.path.join(work, f"{case}.plain.npz"),
+                     **_serve_plain(cfg, params, inputs))
+    for name, cases in (("archs", LOSS_CASES), ("serve", SERVE_CASES)):
+        with open(os.path.join(work, f"{name}.txt"), "w") as f:
+            for case, (arch, over, *_) in cases.items():
+                f.write(" ".join([case, arch] + [f"{k}={v}" for k, v in
+                                                 over.items()]) + "\n")
     with open(os.path.join(work, "restore.txt"), "w") as f:
         f.write(f"port8 {LOSS_ARCHS[0]}\nref8 gemma2-2b\n")
     ranks = _start([os.path.join(HERE, "_torch_mesh_worker.py"), work],
@@ -292,18 +380,17 @@ def _mesh_pass(work: str) -> dict:
                       work, "ref_side", n_devices=8)
     ref, port = {}, {}
     try:
-        for arch in LOSS_ARCHS:
-            jcfg = j_get_config(arch).reduced()
-            cfg = get_config(arch).reduced()
-            jb = {k: jnp.asarray(v) for k, v in batches[arch].items()}
-            ref[arch] = float(jax.jit(
-                lambda p, b: j_loss_fn(jcfg, p, b)[0])(p0[arch], jb))
-            params = params_from_reference(cfg, p0[arch], device="cpu")
-            tb = {k: torch.as_tensor(v) for k, v in batches[arch].items()}
+        for case in LOSS_ARCHS:
+            cfg, jcfg, _ = _case_configs(case)
+            jb = {k: jnp.asarray(v) for k, v in batches[case].items()}
+            ref[case] = float(jax.jit(
+                lambda p, b: j_loss_fn(jcfg, p, b)[0])(p0[case], jb))
+            params = params_from_reference(cfg, p0[case], device="cpu")
+            tb = {k: torch.as_tensor(v) for k, v in batches[case].items()}
             (loss, _), grads = value_and_grad(
                 lambda p, b: loss_fn(cfg, p, b), params, tb)
-            port[arch] = float(loss)
-            np.savez(os.path.join(work, f"{arch}.grads.npz"),
+            port[case] = float(loss)
+            np.savez(os.path.join(work, f"{case}.grads.npz"),
                      **_flat_np(grads))
     finally:
         done = {name: _finish(*p, work, name)
@@ -350,6 +437,28 @@ def test_sharded_grads_match_unsharded(arch, mesh_run):
         assert g.shape == want.shape, path
         errs[path] = float(np.max(np.abs(g - want))
                            / max(np.max(np.abs(want)), 1e-30))
+    assert max(errs.values()) < 1e-4, errs
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_sharded_serve_matches_plain(case, mesh_run):
+    """Prefill and decode on the (2, 4) mesh, kv heads split 4 ways: every
+    step's logits and every leaf of the final decode state within 1e-4
+    of its scale of the unsharded port's; the positions exact."""
+    got = np.load(os.path.join(mesh_run["work"], f"{case}.out.npz"))
+    want = np.load(os.path.join(mesh_run["work"], f"{case}.plain.npz"))
+    assert sorted(got.files) == sorted(want.files)
+    assert sum(k.startswith("logits/") for k in want.files) == \
+        SERVE_STEPS + 1
+    errs = {}
+    for k in want.files:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if not np.issubdtype(w.dtype, np.floating):
+            assert np.array_equal(g, w), k
+            continue
+        errs[k] = float(np.max(np.abs(g - w), initial=0.0)
+                        / max(np.max(np.abs(w), initial=0.0), 1e-30))
     assert max(errs.values()) < 1e-4, errs
 
 
